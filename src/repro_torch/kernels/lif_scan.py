@@ -1,0 +1,114 @@
+"""Golden LIF transient integrator — the "SPICE farm" hot loop.
+
+``_period_math`` is the plain PyTorch version: the transcription of the
+reference's ``kernels/lif_scan.py:_period_math`` (itself the same math as
+``circuits.LIFNeuron.step``), with the per-neuron constants hoisted out
+of the 64-substep loop. :func:`lif_step` runs it on CPU tensors and
+launches ``csrc/lif_step.cu`` — one thread per neuron, the substep loop in
+registers — on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.circuits import LIFNeuron
+from repro_torch.kernels import _build, ops
+
+
+def _period_math(circ: LIFNeuron, st, xx, pp):
+    """Integrate ONE clock period for N neurons. Returns ``(new_state
+    (N, 3), out, energy, latency, spiked)``."""
+    dt = circ.clock_ns / circ.n_substeps
+    v0, adap0, ref0 = st[:, 0], st[:, 1], st[:, 2]
+    w, x, n_spk = xx[:, 0], xx[:, 1], xx[:, 2]
+    v_leak, v_th_knob, v_adap, v_ref = pp[:, 0], pp[:, 1], pp[:, 2], pp[:, 3]
+
+    i_in = ops.div(circ.g_syn * w * x * n_spk, 5.0)
+    leak_rate = (circ.i_leak0 / circ.c_mem) * torch.exp(
+        ops.div(v_leak - 0.5, circ.ut)) * 1e-9
+    tau_ref_ns = 2.0 + 10.0 * (v_ref - 0.5)
+    thresh = 0.8 + 1.0 * (v_th_knob - 0.5)
+    adap_gain = 0.15 * (1.0 + 2.0 * (v_adap - 0.5))
+    dv = ops.div(i_in, circ.c_mem) * 1e-9 * dt
+    decay = torch.exp(-leak_rate * dt)
+    adap_decay = torch.exp(st.new_full((), -dt / 8.0))
+    e_spike = circ.c_spike * circ.vdd ** 2
+
+    v, adap, ref = v0, adap0, ref0
+    out = torch.zeros_like(v0)
+    energy = torch.zeros_like(v0)
+    t_spk = torch.full_like(v0, -1.0)
+    for i in range(circ.n_substeps):
+        in_ref = ref > 0.0
+        v_new = torch.where(in_ref, 0.0, (v + dv) * decay)
+        v_new = torch.clamp(v_new, 0.0, circ.vdd)
+        eff_th = thresh + adap * 1.0
+        fire = (v_new >= eff_th) & ~in_ref
+        v_new = torch.where(fire, 0.0, v_new)
+        ref = torch.where(fire, tau_ref_ns, torch.clamp_min(ref - dt, 0.0))
+        adap = adap * adap_decay + torch.where(fire, adap_gain, 0.0)
+        out = torch.where(fire, circ.vdd, out)
+        t_now = float(np.float32(i + 1) * np.float32(dt))
+        t_spk = torch.where(fire & (t_spk < 0), t_now, t_spk)
+        s = v_leak + v_new * 0.3
+        e_sub = circ.g_static * (s * s) * dt * 1e-9
+        e_sub = e_sub + torch.abs(i_in) * torch.abs(v_new) * dt * 1e-9 * 0.5
+        energy = energy + e_sub + torch.where(fire, e_spike, 0.0)
+        v = v_new
+    spiked = t_spk > 0
+    new_state = torch.stack([v, adap, ref], dim=-1)
+    latency = torch.where(spiked, t_spk, circ.clock_ns)
+    return new_state, out, energy, latency, spiked
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("lif_step")
+    fn = lib.lif_step_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+    return lib, fn
+
+
+def _launch(circ: LIFNeuron, state, x, params):
+    dev = ops.same_cuda_device(state, x, params)
+    n = state.shape[0]
+    ops.check(state, "state", (n, 3))
+    ops.check(x, "x", (n, 3))
+    ops.check(params, "params", (n, 4))
+    new_state = torch.empty_like(state)
+    out, energy, latency = (torch.empty(n, dtype=torch.float32, device=dev)
+                            for _ in range(3))
+    spiked = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        lib, fn = _kernel()
+        code = fn(state.data_ptr(), x.data_ptr(), params.data_ptr(),
+                  new_state.data_ptr(), out.data_ptr(), energy.data_ptr(),
+                  latency.data_ptr(), spiked.data_ptr(), n,
+                  circ.n_substeps, dev.index or 0,
+                  circ.clock_ns / circ.n_substeps, circ.clock_ns,
+                  circ.g_syn, circ.c_mem, circ.i_leak0 / circ.c_mem, circ.ut,
+                  circ.vdd, circ.g_static, circ.c_spike * circ.vdd ** 2,
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "lif_step")
+        ops.count_launch("lif_step")
+    return new_state, out, energy, latency, spiked
+
+
+def lif_step(state, x, params, *, circ: LIFNeuron | None = None):
+    """One clock period for N neurons. state (N,3), x (N,3), params (N,4)
+    -> ``(new_state, {"output", "energy", "latency", "spiked"})``."""
+    circ = circ or LIFNeuron()
+    if all(t.device.type == "cpu" for t in (state, x, params)):
+        res = _period_math(circ, state, x, params)
+    else:
+        res = _launch(circ, state, x, params)
+    new_state, out, energy, latency, spiked = res
+    return new_state, {"output": out, "energy": energy, "latency": latency,
+                       "spiked": spiked}

@@ -1,0 +1,80 @@
+"""Stacked 3-layer MLP surrogate heads (the fused inference hot spot).
+
+:func:`mlp_surrogate_heads` evaluates P predictor heads of the
+production MLP(100, 50) configuration over one ``(N, F)`` feature matrix.
+Its plain PyTorch version is the einsum path of the reference's
+``surrogate._predict_mlp_stacked``; on CUDA tensors it launches
+``csrc/mlp_heads.cu``, which keeps every head's weights in shared memory
+and carries one row per thread through all heads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ops
+
+MAX_F = 16          # csrc/heads.cuh kMaxF: feature columns per row
+MAX_H1 = 128        # csrc/heads.cuh kMaxH1: first hidden layer width
+
+
+def mlp_heads_plain(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
+    """(N, F) + P stacked heads -> (P, N), as batched einsums."""
+    h = (x[None] - x_mu[:, None]) / x_sd[:, None]
+    for w, b, last in ((w1, b1, False), (w2, b2, False), (w3, b3, True)):
+        h = torch.einsum("pnf,pfh->pnh", h, w) + b[:, None]
+        if not last:
+            h = torch.relu(h)
+    return h[..., 0] * y_sd[:, :1] + y_mu[:, :1]
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("mlp_heads")
+    fn = lib.mlp_heads_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return lib, fn
+
+
+def _launch(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
+    arrays = (x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
+    dev = ops.same_cuda_device(x, *arrays)
+    n, f = x.shape
+    p, _, h1 = w1.shape
+    h2 = w2.shape[2]
+    if f > MAX_F or h1 > MAX_H1:
+        raise ValueError(f"mlp_surrogate_heads kernel takes F <= {MAX_F} and "
+                         f"H1 <= {MAX_H1}, got F={f}, H1={h1}")
+    ops.check(x, "x", (n, f))
+    for name, a, shape in (("x_mu", x_mu, (p, f)), ("x_sd", x_sd, (p, f)),
+                           ("y_mu", y_mu, (p, 1)), ("y_sd", y_sd, (p, 1)),
+                           ("w1", w1, (p, f, h1)), ("b1", b1, (p, h1)),
+                           ("w2", w2, (p, h1, h2)), ("b2", b2, (p, h2)),
+                           ("w3", w3, (p, h2, 1)), ("b3", b3, (p, 1))):
+        ops.check(a, name, shape)
+    out = torch.empty((p, n), dtype=torch.float32, device=dev)
+    if n:
+        lib, fn = _kernel()
+        ptrs = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in arrays))
+        code = fn(x.data_ptr(), ptrs, out.data_ptr(), n, p, f, h1, h2,
+                  dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "mlp_surrogate_heads")
+        ops.count_launch("mlp_surrogate_heads")
+    return out
+
+
+def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
+    """x (N, F) + P stacked heads -> (P, N) in target units.
+
+    Stacked shapes: ``x_mu``/``x_sd`` (P, F), ``y_mu``/``y_sd`` (P, 1),
+    ``w1`` (P, F, H1), ``b1`` (P, H1), ``w2`` (P, H1, H2), ``b2`` (P, H2),
+    ``w3`` (P, H2, 1), ``b3`` (P, 1). Any N; nothing is padded."""
+    args = (x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
+    if all(a.device.type == "cpu" for a in args):
+        return mlp_heads_plain(*args)
+    return _launch(*args)

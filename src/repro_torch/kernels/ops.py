@@ -1,0 +1,117 @@
+"""Kernel entry points of the port, its one reader of the environment, and
+the per-kernel launch counters.
+
+Each entry point takes tensors and decides by their device alone: on a CPU
+tensor it runs the kernel's plain PyTorch version (the transcription of
+the JAX reference's math that the tests hold against ``repro``); on a
+CUDA tensor it launches the hand-written Hopper kernel, built from
+``csrc/`` at first use, or raises. There is no fallback from one to the
+other.
+
+``LAUNCHES`` counts kernel launches, one per wrapper, and nothing else:
+a caller resets it (:func:`reset_launches`), drives a path, and reads it
+to show that the path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+LAUNCHES = {"lif_step": 0, "mlp_surrogate_heads": 0, "network_tick": 0}
+
+
+def count_launch(name: str) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper only)."""
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fused_kernel_enabled(override: bool | None = None) -> bool:
+    """THE single source of truth for the ``REPRO_FUSED_KERNEL`` knob.
+
+    Resolution order: the explicit ``fused_kernel=`` keyword, then the
+    environment (``"1"`` on, ``"0"`` off), then ON — unlike the reference,
+    the port takes the kernel path unless the caller asks otherwise."""
+    if override is not None:
+        return bool(override)
+    env = os.environ.get("REPRO_FUSED_KERNEL")
+    if env is not None:
+        return env == "1"
+    return True
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. Raises when CUDA is asked for (explicitly or by default)
+    and there is no card — a CPU run must say ``device="cpu"``.
+
+    On CUDA, float32 matrix products and convolutions run in full fp32
+    (TF32 off), because the reference is fp32 throughout."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch "
+                "versions on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """``a / c`` for a Python constant ``c``, as a true fp32 division.
+
+    PyTorch's CUDA backend turns division by a Python scalar into a
+    multiplication by its reciprocal (one rounding more); dividing by a
+    0-d tensor on ``a``'s own device keeps the division the reference and
+    the kernels perform, on the CPU and the card alike."""
+    return a / a.new_full((), c)
+
+
+def check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32):
+    """Validate a kernel argument: dtype, shape (-1 = any), contiguity."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if t.dim() != len(shape) or any(
+            s != -1 and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes "
+                         f"{shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor")
+
+
+def same_cuda_device(*tensors) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on, else raise."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("kernel arguments must all lie on one CUDA device, "
+                         f"got {sorted({str(t.device) for t in tensors})}")
+    return dev
+
+
+def lif_step(state, x, params, *, circ=None):
+    """One golden LIF clock period: ``(new_state (N, 3), obs)``."""
+    from repro_torch.kernels import lif_scan
+    return lif_scan.lif_step(state, x, params, circ=circ)
+
+
+def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
+    """(N, F) + P stacked 3-layer MLP heads -> (P, N) physical units."""
+    from repro_torch.kernels import mlp_surrogate
+    return mlp_surrogate.mlp_surrogate_heads(
+        x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
+
+
+def network_tick(*args, **kwargs):
+    """One whole LASANA tick (idle -> act -> transition) as ONE kernel."""
+    from repro_torch.kernels import tick_megakernel
+    return tick_megakernel.network_tick(*args, **kwargs)

@@ -1,0 +1,346 @@
+"""Whole-tick LASANA megakernel: Algorithm 1 as ONE kernel launch.
+
+Port of ``repro.kernels.tick_megakernel``. :func:`pack_heads` lifts a
+surrogate's five predictors into two canonical stacks — A (idle/active
+width: ``M_ES``, ``M_V``, ``M_O``) and T (transition width: ``M_ED``,
+``M_L``) — each a uniform ``(P, F, H1)/(P, H1, H2)/(P, H2, 1)`` layout plus
+standardizers, whatever the family; :class:`PackLayout` carries the
+per-head family tags so that evaluation stays native-cost (a mean head is
+one broadcast, a linear head one dot).
+
+:func:`network_tick` is the kernel entry: ``_tick_arrays`` (the
+reference's body with ``skip=False``, which its docstring states is
+exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors. The
+kernel takes the stacks as they are; nothing is padded to lane widths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.circuits import augment_features, get_circuit
+from repro_torch.core.wrapper import (LasanaState, _features, _finish_tick,
+                                      _resolve_output, _splice_transition)
+from repro_torch.kernels import _build, mlp_surrogate, ops
+
+PACK_HEADS_A = ("M_ES", "M_V", "M_O")
+PACK_HEADS_T = ("M_ED", "M_L")
+_PACKABLE = ("mean", "linear", "mlp")
+_FAMILY_CODE = {"mean": 0, "linear": 1, "mlp": 2}    # csrc/heads.cuh Family
+_STACK_KEYS = ("x_mu", "x_sd", "y_mu", "y_sd",
+               "w0", "b0", "w1", "b1", "w2", "b2", "scale")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackLayout:
+    """Static metadata of one circuit kind's slice of a pack: per-head
+    family tags in stack order and the kind's first stack indices."""
+
+    a_fams: tuple
+    t_fams: tuple
+    a_off: int = 0
+    t_off: int = 0
+
+
+def _canonical(arrays, fam, f, h1, h2, scale, device):
+    """One head's params in the uniform (F, H1)/(H1, H2)/(H2, 1) layout;
+    unused slots hold zeros, and x_sd holds ONES (a zero would divide by
+    zero and poison the row with NaNs)."""
+    z = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+    out = {
+        "x_mu": z((f,)), "x_sd": torch.ones((f,), device=device),
+        "y_mu": z((1,)), "y_sd": torch.ones((1,), device=device),
+        "w0": z((f, h1)), "b0": z((h1,)), "w1": z((h1, h2)), "b1": z((h2,)),
+        "w2": z((h2, 1)), "b2": z((1,)),
+        "scale": torch.full((1,), scale, device=device),
+    }
+    if fam == "mean":
+        out["b2"] = arrays["mu"].reshape(1).float()
+    elif fam == "linear":
+        out["x_mu"] = arrays["mu"].float()
+        out["x_sd"] = arrays["sd"].float()
+        out["w0"][:, 0] = arrays["w"][:-1]
+        out["b2"] = arrays["w"][-1:].float()
+    else:
+        out["x_mu"] = arrays["x_mu"].float()
+        out["x_sd"] = arrays["x_sd"].float()
+        out["y_mu"] = arrays["y_mu"].reshape(1).float()
+        out["y_sd"] = arrays["y_sd"].reshape(1).float()
+        w0, w1 = arrays["w0"], arrays["w1"]
+        out["w0"][:, :w0.shape[1]] = w0
+        out["b0"][:w0.shape[1]] = arrays["b0"]
+        out["w1"][:w1.shape[0], :w1.shape[1]] = w1
+        out["b1"][:w1.shape[1]] = arrays["b1"]
+        out["w2"][:w1.shape[1]] = arrays["w2"]
+        out["b2"] = arrays["b2"].reshape(1).float()
+    return out
+
+
+def _mlp_layers(arrays) -> int:
+    return sum(1 for k in arrays if k.startswith("w"))
+
+
+def pack_heads(surrogate):
+    """Build ``(pack, PackLayout)`` for one surrogate, or ``(None, None)``
+    when its heads do not pack: all five Algorithm-1 predictors present,
+    every family mean/linear/3-layer MLP, the circuit registered, and the
+    trained feature widths equal to the circuit's augmented widths."""
+    man, params = surrogate.manifest, surrogate.params
+    try:
+        circ = get_circuit(man.circuit)
+    except KeyError:
+        return None, None
+    names = PACK_HEADS_A + PACK_HEADS_T
+    if not set(names) <= set(man.predictors):
+        return None, None
+    fams = {p: man.family_of(p) for p in names}
+    if any(f not in _PACKABLE for f in fams.values()):
+        return None, None
+    f_raw = circ.n_inputs + 2 + circ.n_params
+    f_aug = int(augment_features(circ, torch.zeros((1, f_raw))).shape[1])
+    f_tr = int(augment_features(circ, torch.zeros((1, f_raw + 2))).shape[1])
+
+    def native_width(p):
+        a, fam = params[p], fams[p]
+        if fam == "mlp":
+            return int(a["w0"].shape[0]) if _mlp_layers(a) == 3 else None
+        if fam == "linear":
+            return int(a["mu"].shape[0])
+        return f_aug if p in PACK_HEADS_A else f_tr    # mean: width-free
+
+    if any(native_width(p) != f_aug for p in PACK_HEADS_A):
+        return None, None
+    if any(native_width(p) != f_tr for p in PACK_HEADS_T):
+        return None, None
+    h1 = max([int(params[p]["w0"].shape[1])
+              for p in names if fams[p] == "mlp"], default=1)
+    h2 = max([int(params[p]["w1"].shape[1])
+              for p in names if fams[p] == "mlp"], default=1)
+    device = surrogate.device
+
+    def stack(pnames, f):
+        heads = [_canonical(params[p], fams[p], f, h1, h2, man.scale_of(p),
+                            device) for p in pnames]
+        return {k: torch.stack([h[k] for h in heads]) for k in _STACK_KEYS}
+
+    pack = {"a": stack(PACK_HEADS_A, f_aug), "t": stack(PACK_HEADS_T, f_tr)}
+    layout = PackLayout(a_fams=tuple(fams[p] for p in PACK_HEADS_A),
+                        t_fams=tuple(fams[p] for p in PACK_HEADS_T))
+    return pack, layout
+
+
+def pack_library(banks):
+    """One pack for a whole library: ``(pack, {kind: PackLayout})``, or
+    ``(None, {})`` if a kind does not pack. The port registers one circuit
+    kind, so a library packs as its one surrogate; stacking several kinds
+    behind offsets comes with the crossbar circuit."""
+    kinds = banks.kinds()
+    if len(kinds) != 1:
+        raise NotImplementedError("cross-kind head packs need a second "
+                                  f"circuit kind; got {kinds}")
+    pack, layout = pack_heads(banks[kinds[0]])
+    if pack is None:
+        return None, {}
+    return pack, {kinds[0]: layout}
+
+
+def _pad_cols(x, f):
+    """Zero-pad feature columns up to a stack's width (inert: padded
+    columns carry x_sd = 1 and zero weights)."""
+    return F.pad(x, (0, f - x.shape[1])) if x.shape[1] < f else x
+
+
+def _eval_stack(s, x, off: int, fams):
+    """Heads ``off .. off+len(fams)-1`` of stack ``s`` on augmented
+    features ``x`` (N, F), each at its family's native cost."""
+    n = x.shape[0]
+    ys = []
+    for j, fam in enumerate(fams):
+        i = off + j
+        if fam == "mean":
+            y = s["b2"][i, 0].expand(n)
+        elif fam == "linear":
+            xs = (x - s["x_mu"][i]) / s["x_sd"][i]
+            y = xs @ s["w0"][i, :, 0] + s["b2"][i, 0]
+        else:
+            xs = (x - s["x_mu"][i]) / s["x_sd"][i]
+            h = torch.relu(xs @ s["w0"][i] + s["b0"][i])
+            h = torch.relu(h @ s["w1"][i] + s["b1"][i])
+            y = (h @ s["w2"][i])[:, 0] + s["b2"][i, 0]
+        ys.append((y * s["y_sd"][i, 0] + s["y_mu"][i, 0]) / s["scale"][i, 0])
+    return ys
+
+
+def _tick_arrays(sA, sT, v, o, t_last, params, changed, x, t, *, circuit,
+                 clock_ns, out_eps, spiking, vdd, annotate, known_out,
+                 layout):
+    """The whole-tick dataflow on raw tensors — the plain version of the
+    kernel. Returns ``(v', o', t_last', e, l, o_hat)``; ``o_hat`` (the
+    M_O prediction, or ``known_out``) lets a caller find the rows that sit
+    at the spike threshold."""
+    circ = get_circuit(circuit)
+    n = v.shape[0]
+    f_a = sA["w0"].shape[1]
+    f_t = sT["w0"].shape[1]
+    ia, it = layout.a_off, layout.t_off
+
+    # --- idle stage (Algorithm 1 lines 3-9): one merged catch-up event
+    stale = changed & (t_last < t - clock_ns)
+    tau_idle = torch.clamp_min(t - t_last - clock_ns, 0.0)
+    n_idle_heads = 1 if annotate else 2      # annotation never catches up v
+    fi = _features(torch.zeros_like(x), v, tau_idle, params)
+    ai = _pad_cols(augment_features(circ, fi), f_a)
+    ys = _eval_stack(sA, ai, ia, layout.a_fams[:n_idle_heads])
+    e_s_idle = ys[0]
+    v_hat = v.new_zeros((n,)) if annotate else ys[1]
+
+    # --- active stage (lines 10-22) on the caught-up state
+    v_cur = v if annotate else torch.where(stale, v_hat, v)
+    tau_act = v.new_full((n,), clock_ns)
+    feats = _features(x, v_cur, tau_act, params)
+    aug_act = augment_features(circ, feats)
+    aa = _pad_cols(aug_act, f_a)
+    if annotate:
+        (e_s,) = _eval_stack(sA, aa, ia, layout.a_fams[:1])
+        o_hat = known_out
+        v_new = v_cur                        # caller substitutes behavioral v
+    else:
+        e_s, v_new, o_hat = _eval_stack(sA, aa, ia, layout.a_fams)
+
+    # --- transition stage (lines 23-29): splice the resolved output in
+    out_changed, o_resolved = _resolve_output(
+        o_hat, o, out_eps=out_eps, spiking=spiking, vdd=vdd)
+    aug_tr = _splice_transition(aug_act, feats.shape[1], o, o_resolved)
+    e_d, lat = _eval_stack(sT, _pad_cols(aug_tr, f_t), it, layout.t_fams)
+
+    state = LasanaState(v=v, o=o, t_last=t_last, params=params)
+    new_state, e, l, _ = _finish_tick(
+        state, changed, stale, e_s_idle, e_d, e_s, lat, out_changed,
+        o_hat, v_cur, v_new, t, spiking=spiking, vdd=vdd)
+    return new_state.v, new_state.o, new_state.t_last, e, l, o_hat
+
+
+def megakernel_step(pack, circuit, state, changed, x, t, clock_ns, *,
+                    out_eps: float = 0.02, spiking: bool = False,
+                    known_out=None, vdd: float = 1.5, layout: PackLayout):
+    """One whole LASANA tick through the megakernel path; drop-in for
+    ``wrapper.lasana_step`` given a pack. Returns ``(new_state, e, l, o)``."""
+    annotate = known_out is not None
+    v, o, tl, e, l = network_tick(
+        pack, state.v, state.o, state.t_last, state.params, changed, x, t,
+        known_out, circuit=circuit, clock_ns=clock_ns, layout=layout,
+        out_eps=out_eps, spiking=spiking, vdd=vdd, annotate=annotate)
+    new_state = LasanaState(v=v, o=o, t_last=tl, params=state.params)
+    return new_state, e, l, new_state.o
+
+
+# --- the CUDA launcher ---------------------------------------------------------
+
+
+class _TickScalars(ctypes.Structure):
+    """csrc/network_tick.cu TickScalars, field for field (all 4 bytes)."""
+
+    _fields_ = [("n", ctypes.c_int), ("a_heads", ctypes.c_int),
+                ("t_heads", ctypes.c_int), ("f_a", ctypes.c_int),
+                ("f_t", ctypes.c_int), ("h1", ctypes.c_int),
+                ("h2", ctypes.c_int), ("a_off", ctypes.c_int),
+                ("t_off", ctypes.c_int), ("a_fam", ctypes.c_int * 3),
+                ("t_fam", ctypes.c_int * 2), ("spiking", ctypes.c_int),
+                ("annotate", ctypes.c_int), ("device", ctypes.c_int),
+                ("clock", ctypes.c_float), ("out_eps", ctypes.c_float),
+                ("vdd", ctypes.c_float), ("half_vdd", ctypes.c_float)]
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("network_tick")
+    fn = lib.network_tick_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(_TickScalars), ctypes.c_void_p]
+    return lib, fn
+
+
+def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
+            clock_ns, layout, out_eps, spiking, vdd, annotate):
+    if circuit != "lif":
+        raise NotImplementedError(f"network_tick kernel: circuit {circuit!r}"
+                                  " (the kernel derives LIF features)")
+    sA, sT = pack["a"], pack["t"]
+    n = v.shape[0]
+    if not isinstance(t, torch.Tensor):
+        t = v.new_full((), t)
+    known_ = known if annotate else None
+    io_in = [v, o, t_last, params, changed, x, t] + (
+        [known_] if annotate else [])
+    dev = ops.same_cuda_device(*io_in, *sA.values(), *sT.values())
+    p_a, f_a, h1 = sA["w0"].shape
+    p_t, f_t, _ = sT["w0"].shape
+    h2 = sA["w1"].shape[2]
+    if (f_a > mlp_surrogate.MAX_F or f_t > mlp_surrogate.MAX_F
+            or h1 > mlp_surrogate.MAX_H1):
+        raise ValueError(f"network_tick kernel takes F <= "
+                         f"{mlp_surrogate.MAX_F} and H1 <= "
+                         f"{mlp_surrogate.MAX_H1}, got F={f_a}/{f_t}, H1={h1}")
+    for name, a in (("v", v), ("o", o), ("t_last", t_last)):
+        ops.check(a, name, (n,))
+    ops.check(params, "params", (n, 4))
+    ops.check(x, "x", (n, 3))
+    ops.check(changed, "changed", (n,), dtype=torch.bool)
+    ops.check(t, "t", ())
+    if annotate:
+        ops.check(known_, "known", (n,))
+    for s, p, f in ((sA, p_a, f_a), (sT, p_t, f_t)):
+        for k, shape in (("x_mu", (p, f)), ("x_sd", (p, f)), ("y_mu", (p, 1)),
+                         ("y_sd", (p, 1)), ("w0", (p, f, h1)),
+                         ("b0", (p, h1)), ("w1", (p, h1, h2)),
+                         ("b1", (p, h2)), ("w2", (p, h2, 1)), ("b2", (p, 1)),
+                         ("scale", (p, 1))):
+            ops.check(s[k], k, shape)
+    outs = [torch.empty((n,), dtype=torch.float32, device=dev)
+            for _ in range(5)]
+    if n:
+        lib, fn = _kernel()
+        a_ptrs = (ctypes.c_void_p * 11)(*(sA[k].data_ptr() for k in _STACK_KEYS))
+        t_ptrs = (ctypes.c_void_p * 11)(*(sT[k].data_ptr() for k in _STACK_KEYS))
+        io = (ctypes.c_void_p * 13)(
+            v.data_ptr(), o.data_ptr(), t_last.data_ptr(), params.data_ptr(),
+            changed.data_ptr(), x.data_ptr(), t.data_ptr(),
+            known_.data_ptr() if annotate else None,
+            *(a.data_ptr() for a in outs))
+        sc = _TickScalars(
+            n=n, a_heads=p_a, t_heads=p_t, f_a=f_a, f_t=f_t, h1=h1, h2=h2,
+            a_off=layout.a_off, t_off=layout.t_off,
+            a_fam=(ctypes.c_int * 3)(*(_FAMILY_CODE[f] for f in layout.a_fams)),
+            t_fam=(ctypes.c_int * 2)(*(_FAMILY_CODE[f] for f in layout.t_fams)),
+            spiking=int(spiking), annotate=int(annotate),
+            device=dev.index or 0, clock=clock_ns, out_eps=out_eps, vdd=vdd,
+            half_vdd=0.5 * vdd)
+        code = fn(a_ptrs, t_ptrs, io, ctypes.byref(sc),
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "network_tick")
+        ops.count_launch("network_tick")
+    return tuple(outs)
+
+
+def network_tick(pack, v, o, t_last, params, changed, x, t, known, *,
+                 circuit, clock_ns, layout: PackLayout,
+                 out_eps: float = 0.02, spiking: bool = False,
+                 vdd: float = 1.5, annotate: bool = False):
+    """One whole LASANA tick for N circuits: ``(v', o', t_last', e, l)``,
+    each ``(N,)``. ``changed`` is a bool mask, ``t`` this tick's time (a
+    0-d float32 tensor on the same device, or a Python float) and
+    ``known`` the behavioral outputs in annotation mode (else ignored)."""
+    kw = dict(circuit=circuit, clock_ns=clock_ns, out_eps=out_eps,
+              spiking=spiking, vdd=vdd, annotate=annotate, layout=layout)
+    tensors = (v, o, t_last, params, changed, x)
+    if all(a.device.type == "cpu" for a in tensors):
+        return _tick_arrays(pack["a"], pack["t"], v, o, t_last, params,
+                            changed, x, t, known_out=known if annotate
+                            else None, **kw)[:5]
+    return _launch(pack, v, o, t_last, params, changed, x, t, known, **kw)

@@ -1,0 +1,117 @@
+"""``repro_torch.lasana`` — the port's LASANA entry point.
+
+The counterpart of ``repro.lasana`` for simulation::
+
+    import repro_torch.lasana as lasana
+
+    sur = lasana.load("artifacts/lif.npz")                   # on cuda
+    run = lasana.simulate(spec, stimulus, surrogates=sur)    # NetworkRun
+
+Surrogates load from the reference's ``.npz`` artifacts; training, streaming,
+exploration and serving come with later slices of the port. Everything
+runs on ``cuda`` unless ``device=`` says otherwise.
+
+``simulate`` keeps one :class:`NetworkEngine` per live spec and
+configuration (an LRU attached to the spec), so repeated calls with
+retrained surrogates of equal structure reuse one runner
+(``engine(spec).compile_count`` stays 1).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+from typing import Optional
+
+from repro_torch.core.network import NetworkEngine, NetworkRun, NetworkSpec
+from repro_torch.core.surrogate import (FORMAT_VERSION, Manifest, Surrogate,
+                                        SurrogateLibrary)
+from repro_torch.kernels import ops
+
+__all__ = [
+    "FORMAT_VERSION",
+    "Manifest",
+    "NetworkRun",
+    "Surrogate",
+    "SurrogateLibrary",
+    "engine",
+    "load",
+    "save",
+    "simulate",
+]
+
+_ENGINE_ATTR = "_lasana_engine_cache"
+_ENGINE_LOCK = threading.Lock()
+
+# engine-variant entries kept per live spec
+ENGINE_CACHE_CAPACITY = 8
+
+
+def save(surrogate, path: str) -> None:
+    """Persist a :class:`Surrogate` (one ``.npz``) or a
+    :class:`SurrogateLibrary` (a directory of ``{kind}.npz``)."""
+    surrogate.save(path)
+
+
+def load(path: str, device=None):
+    """Load the artifact at ``path``: a file as a :class:`Surrogate`, a
+    directory as a :class:`SurrogateLibrary`, onto ``device``."""
+    if os.path.isdir(path):
+        return SurrogateLibrary.load(path, device=device)
+    return Surrogate.load(path, device=device)
+
+
+def engine(spec: NetworkSpec, *, backend: str = "lasana",
+           mode: str = "standalone", record_hidden: bool = True,
+           fused: bool = True, fused_kernel: Optional[bool] = None,
+           device=None) -> NetworkEngine:
+    """The cached :class:`NetworkEngine` serving ``spec`` for
+    :func:`simulate`: one per live ``(spec, backend, mode, record_hidden,
+    fused, fused_kernel, device)``, in a bounded LRU attached to the spec."""
+    device = ops.resolve_device(device)
+    fused_kernel = None if fused_kernel is None else bool(fused_kernel)
+    key = (backend, mode, record_hidden, bool(fused), fused_kernel, device)
+    with _ENGINE_LOCK:
+        cache = getattr(spec, _ENGINE_ATTR, None)
+        if cache is None:
+            cache = collections.OrderedDict()
+            # NetworkSpec is frozen; the cache slot is lifecycle
+            # bookkeeping, not spec state
+            object.__setattr__(spec, _ENGINE_ATTR, cache)
+        eng = cache.get(key)
+        if eng is None:
+            eng = NetworkEngine(spec, backend=backend, mode=mode,
+                                record_hidden=record_hidden, fused=fused,
+                                fused_kernel=fused_kernel, device=device)
+            cache[key] = eng
+        else:
+            cache.move_to_end(key)
+        while len(cache) > max(int(ENGINE_CACHE_CAPACITY), 1):
+            cache.popitem(last=False)
+    return eng
+
+
+def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
+             surrogates=None, mode: str = "standalone",
+             record_hidden: bool = True, fused: bool = True,
+             fused_kernel: Optional[bool] = None,
+             device=None) -> NetworkRun:
+    """Simulate a circuit graph and return its :class:`NetworkRun`.
+
+    spec        the graph (``network.snn_spec``)
+    stimulus    (T, B, fan_in) spike amplitudes; (B, fan_in) is one tick
+    backend     "golden" | "behavioral" | "lasana"
+    surrogates  backend="lasana": a :class:`Surrogate` or library
+    mode        lasana only: "standalone" | "annotation"
+    fused       lasana only: stacked ``predict_heads`` tick (default) or
+                one ``predict`` per head
+    fused_kernel  lasana only: kernel-path switch — None defers to
+                ``REPRO_FUSED_KERNEL`` and is otherwise ON; False keeps the
+                stacked-einsum 3-dispatch tick, which has no kernel
+    device      default ``cuda``; ``"cpu"`` runs the plain versions
+    """
+    return engine(spec, backend=backend, mode=mode,
+                  record_hidden=record_hidden, fused=fused,
+                  fused_kernel=fused_kernel,
+                  device=device).run(stimulus, surrogates=surrogates)

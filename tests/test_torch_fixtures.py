@@ -1,0 +1,196 @@
+"""Shared fixtures and factories for the ``repro_torch`` parity tests.
+
+Both packages get the same numbers: inputs come from a seed through numpy,
+and the surrogate artifacts, SNN weights and reference record are the
+committed files under ``src/repro_torch/artifacts/``, which the JAX
+package produced on the CPU. Regenerate all four with::
+
+    PYTHONPATH=src python tests/test_torch_fixtures.py --regen
+
+Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
+n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
+a default-family ``PredictorBank`` fit on the same testbench with M_ES
+forced to its ``gbdt`` fit (so ``pack_heads`` refuses it while the four
+other heads stay 3-layer MLPs); the SNN weights are
+``examples/snn_mnist.py:train_ann()`` (seed 0); the record runs the
+chip-smoke workload (``make_digits(100, size=28, seed=777)``, Poisson seed
+5, 100 ticks) through ``repro.lasana.simulate``.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+ARTIFACTS = ROOT / "src" / "repro_torch" / "artifacts"
+PACKABLE = ARTIFACTS / "lif_packable.npz"
+UNPACKABLE = ARTIFACTS / "lif_unpackable.npz"
+SNN_WEIGHTS = ARTIFACTS / "snn_784_128_10.npz"
+REF_RECORD = ARTIFACTS / "snn_ref_record.npz"
+
+# the unpackable artifact: every head an MLP(100, 50) except this one
+UNPACKABLE_FAMILIES = {"M_ED": "mlp", "M_ES": "gbdt", "M_L": "mlp",
+                       "M_O": "mlp", "M_V": "mlp"}
+LIF_KNOBS = (0.58, 0.5, 0.5, 0.5)      # examples/snn_mnist.py's per-layer knobs
+T_STEPS = 100
+N_IMAGES = 100
+RECORD_FIELDS = ("outputs", "out_spikes", "events", "energy", "latency",
+                 "flush_energy")
+# record key -> (surrogate artifact or None for golden, reference fused_kernel)
+RECORD_RUNS = {"golden": (None, None), "lasana": (PACKABLE, True),
+               "lasana_unpackable": (UNPACKABLE, False)}
+
+
+def chip_workload(n_images: int = N_IMAGES, t_steps: int = T_STEPS):
+    """The chip-smoke stimulus and labels: (T, B, 784) V_dd spikes (the
+    first ``t_steps`` ticks of the first ``n_images`` items)."""
+    from repro_torch.data.mnist import make_digits, poisson_encode
+    imgs, labels = make_digits(N_IMAGES, size=28, seed=777)
+    spikes = poisson_encode(imgs, T_STEPS, seed=5) * 1.5
+    return (spikes[:t_steps, :n_images].astype(np.float32),
+            labels[:n_images])
+
+
+def snn_weights():
+    """(weights [w0 (784, 128), w1 (128, 10)], per-layer knob rows)."""
+    with np.load(SNN_WEIGHTS) as z:
+        ws = [z["w0"], z["w1"]]
+    return ws, [np.asarray(LIF_KNOBS, np.float32)] * len(ws)
+
+
+def small_net(seed: int = 0, t_steps: int = 20, batch: int = 3):
+    """The 12-8-4 LIF SNN and a Bernoulli(0.2) V_dd spike stimulus, from
+    numpy: (weights, knob rows, stimulus (T, B, 12))."""
+    rng = np.random.default_rng(seed)
+    ws = [(rng.normal(0, 1, (12, 8)) * 0.8).astype(np.float32),
+          (rng.normal(0, 1, (8, 4)) * 0.8).astype(np.float32)]
+    x = ((rng.random((t_steps, batch, 12)) < 0.2) * 1.5).astype(np.float32)
+    return ws, [np.asarray(LIF_KNOBS, np.float32)] * 2, x
+
+
+def tick_inputs(n: int, seed: int, n_in: int = 3, n_p: int = 4):
+    """One tick's numpy inputs: (v, o, t_last, params, changed, x, known)."""
+    rng = np.random.default_rng(seed)
+    params = rng.uniform(0.3, 0.7, (n, n_p)).astype(np.float32)
+    v = rng.uniform(0, 1, n).astype(np.float32)
+    o = (rng.random(n) < 0.3).astype(np.float32) * 1.5
+    t_last = rng.choice([0.0, 5.0, 25.0], n).astype(np.float32)
+    changed = rng.random(n) < 0.6
+    x = rng.uniform(-1, 1, (n, n_in)).astype(np.float32)
+    known = (rng.random(n) < 0.4).astype(np.float32) * 1.5
+    return v, o, t_last, params, changed, x, known
+
+
+def jax_run_fields(run) -> dict:
+    """A NetworkRun's record fields as numpy, spikes as uint8."""
+    out = {f: np.asarray(getattr(run, f)) for f in RECORD_FIELDS}
+    out["out_spikes"] = (out["out_spikes"] > 0.75).astype(np.uint8)
+    return out
+
+
+RTOL = 1e-5
+
+
+def assert_close(got, want, name, rtol=RTOL):
+    """Continuous records: rtol 1e-5 (the reference's own tolerance between
+    its fused and per-call paths), with an atol at 1e-6 of the field's
+    scale so values that cancel to ~0 compare on the field's magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = float(np.max(np.abs(want), initial=0.0))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * scale,
+                               err_msg=name)
+
+
+def assert_runs_match(got, want):
+    """Discrete records identical, continuous ones within :data:`RTOL`."""
+    for f in ("outputs", "out_spikes", "events"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    if want.layer_spikes is not None:
+        for i, (g, w) in enumerate(zip(got.layer_spikes, want.layer_spikes)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                          err_msg=f"layer_spikes[{i}]")
+    for f in ("energy", "latency", "flush_energy"):
+        assert_close(getattr(got, f), getattr(want, f), f)
+
+
+@pytest.fixture(scope="session")
+def surrogate_pairs():
+    """{"packable"|"unpackable": (JAX Surrogate, port Surrogate on CPU)},
+    both loaded from the committed artifacts."""
+    from repro.core.surrogate import Surrogate as JaxSurrogate
+    from repro_torch.core.surrogate import Surrogate
+    return {name: (JaxSurrogate.load(str(path)),
+                   Surrogate.load(str(path), device="cpu"))
+            for name, path in (("packable", PACKABLE),
+                               ("unpackable", UNPACKABLE))}
+
+
+# --- regeneration (JAX package, CPU) ------------------------------------------
+
+
+def _regen():
+    import importlib.util
+
+    import jax.numpy as jnp
+
+    import repro.lasana as lasana
+    from repro.core.dataset import TestbenchConfig, build_dataset
+    from repro.core.network import snn_spec
+    from repro.core.predictors import PredictorBank
+    from repro.core.surrogate import Surrogate
+    from repro.kernels import tick_megakernel as mk
+
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    print("training lif_packable", flush=True)
+    packable = lasana.train("lif", lasana.TrainConfig(
+        n_runs=600, n_steps=100, families=("linear", "mlp"), seed=0))
+    packable.save(str(PACKABLE))
+
+    print("training lif_unpackable", flush=True)
+    ds = build_dataset("lif", TestbenchConfig(n_runs=600, n_steps=100,
+                                              seed=0))
+    bank = PredictorBank("lif").fit(ds)
+    for pname, fam in UNPACKABLE_FAMILIES.items():
+        bank.selected[pname] = bank.results[pname][fam].model
+    unpackable = Surrogate.from_bank(bank)
+    assert dict(unpackable.manifest.families) == UNPACKABLE_FAMILIES
+    assert mk.pack_heads(unpackable) == (None, None)
+    unpackable.save(str(UNPACKABLE))
+
+    print("training the 784-128-10 ANN", flush=True)
+    spec_ = importlib.util.spec_from_file_location(
+        "snn_mnist", ROOT / "examples" / "snn_mnist.py")
+    snn_mnist = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(snn_mnist)
+    ws = [np.asarray(w, np.float32) for w in snn_mnist.train_ann(seed=0)]
+    np.savez_compressed(SNN_WEIGHTS, w0=ws[0], w1=ws[1])
+
+    print("recording the reference run", flush=True)
+    weights, knobs = snn_weights()
+    spec = snn_spec([jnp.asarray(w) for w in weights],
+                    [jnp.asarray(p) for p in knobs])
+    x, _ = chip_workload()
+    record = {}
+    for name, (path, fused_kernel) in RECORD_RUNS.items():
+        kw = {"backend": "golden"} if path is None else {
+            "surrogates": Surrogate.load(str(path)),
+            "fused_kernel": fused_kernel}
+        run = lasana.simulate(spec, jnp.asarray(x), **kw)
+        for f, a in jax_run_fields(run).items():
+            record[f"{name}/{f}"] = a
+    np.savez_compressed(REF_RECORD, **record)
+    for p in (PACKABLE, UNPACKABLE, SNN_WEIGHTS, REF_RECORD):
+        print(p.name, os.path.getsize(p), "bytes")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["--regen"]:
+        sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
+                 "--regen")
+    _regen()

@@ -1,0 +1,69 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package (``repro``), and the port runs with both
+made unimportable."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == []
+
+
+def test_port_runs_with_jax_and_reference_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import pkgutil, importlib, repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        import repro_torch.lasana as lasana
+        from repro_torch.convert import spec_from_numpy
+        rng = np.random.default_rng(0)
+        ws = [rng.normal(0, 1, (6, 5)).astype(np.float32),
+              rng.normal(0, 1, (5, 3)).astype(np.float32)]
+        spec = spec_from_numpy(ws, [np.array([0.58, 0.5, 0.5, 0.5])] * 2)
+        x = ((rng.random((4, 2, 6)) < 0.4) * 1.5).astype(np.float32)
+        sur = lasana.load(sys.argv[1], device="cpu")
+        run = lasana.simulate(spec, x, surrogates=sur, device="cpu")
+        assert run.outputs.shape == (2, 3)
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, "-c", code,
+         str(PORT / "artifacts" / "lif_packable.npz")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
