@@ -1,10 +1,14 @@
-"""Golden transient circuit models — the SPICE stand-in (LIF subset).
+"""Golden transient circuit models — the SPICE stand-in.
 
 Port of ``repro.core.circuits``: the same physical constants and the same
 fp32 arithmetic in the same order. ``LIFNeuron.step`` integrates one
-digital clock period through ``ops.lif_step`` — the hand-written CUDA
-kernel on a CUDA tensor, its plain PyTorch version on a CPU tensor.
-``CrossbarRow`` comes with the crossbar slice of the port.
+digital clock period through ``ops.lif_step`` and ``CrossbarRow.step``
+through ``ops.crossbar_step`` — each the hand-written CUDA kernel on a
+CUDA tensor, its plain PyTorch version on a CPU tensor.
+
+Row reductions (the crossbar's ``w . x`` and its power sums) run in index
+order, one rounding per term: that is the order in which the reference's
+XLA-CPU reductions sum a 32-wide row, and the order the kernels use.
 """
 
 from __future__ import annotations
@@ -14,6 +18,78 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops
+
+
+def row_sum(a):
+    """Sum over the last axis in index order: ``((a0 + a1) + a2) + ...``."""
+    acc = a[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k]
+    return acc
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossbarRow:
+    """One n-input differential PCM crossbar row driving a TIA (cf. [3]).
+
+    inputs  x[i] in [-0.8, 0.8] V
+    params  w[i] in {-1, 0, 1} (n weights + 1 bias row)
+    state   none (combinational + output pole); state feature is 0
+    output  V_out in [-2, 2] V
+    """
+
+    n_inputs: int = 32
+    clock_ns: float = 4.0            # 250 MHz digital clock
+    n_substeps: int = 64
+    g_unit: float = 12e-6            # PCM on-conductance per pair (S)
+    g_leak: float = 1e-6             # parasitic leak per column (S)
+    r_f: float = 40e3                # TIA feedback (ohm)
+    v_sat: float = 2.0               # output saturation (V)
+    c_load: float = 500e-15          # load capacitance (F)
+    tau_base_ns: float = 0.15        # output pole (ns); t90 ~ 2.3*tau
+    v_bias: float = 0.8              # bias row drive voltage
+    vdd: float = 1.2                 # supply for the TIA stage
+
+    @property
+    def n_params(self) -> int:
+        return self.n_inputs + 1
+
+    @property
+    def input_lo(self):
+        return -0.8
+
+    @property
+    def input_hi(self):
+        return 0.8
+
+    def init_state(self, n: int, device=None):
+        """V_out zeros, (n, 1), on ``device`` (as :meth:`LIFNeuron.init_state`)."""
+        dev = ops.resolve_device() if device is None else device
+        return torch.zeros((n, 1), dtype=torch.float32, device=dev)
+
+    def surrogate_features(self, x, params):
+        """The derived interface feature, the aggregate row drive
+        ``w . x + bias * v_bias`` (no ``g_unit``), summed in index order."""
+        w = params[..., : self.n_inputs]
+        bias = params[..., self.n_inputs]
+        i_sig = row_sum(w * x) + bias * self.v_bias
+        return i_sig[..., None]
+
+    def _target(self, v_in, params):
+        """DC target and output pole per row: ``(v_tgt (N,), tau (N,))``
+        through ``ops.crossbar_target``."""
+        return ops.crossbar_target(v_in, params, circ=self)
+
+    def behavioral_step(self, v, v_in, params):
+        """SV-RNM-style ideal update: instant settle to the DC target.
+        Returns ``(v_new, output)``; no energy/latency."""
+        tgt, _ = self._target(v_in, params)
+        return tgt, tgt
+
+    def step(self, state, v_in, params):
+        """One clock period. state (N, 1); v_in (N, n_in); params (N, n_p).
+        Returns ``(new_state (N, 1), {output, energy, latency, spiked})``."""
+        return ops.crossbar_step(state, v_in, params, circ=self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +151,7 @@ class LIFNeuron:
         return ops.lif_step(state, v_in, params, circ=self)
 
 
-CIRCUITS = {"lif": LIFNeuron()}
+CIRCUITS = {"crossbar": CrossbarRow(), "lif": LIFNeuron()}
 
 
 def get_circuit(name):

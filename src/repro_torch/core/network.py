@@ -1,15 +1,20 @@
-"""Network-level event-driven LASANA engine (port of ``repro.core.network``,
-LIF subset).
+"""Network-level event-driven LASANA engine (port of ``repro.core.network``).
 
-A :class:`NetworkSpec` is a feed-forward chain of LIF banks; every tick,
-the spikes layer i-1 publishes are the event queue layer i consumes, and
-a per-circuit ``changed`` mask marks the neurons an input spike reached
-through a nonzero weight. One engine serves the three backends:
+A :class:`NetworkSpec` is a chain of circuit banks of two kinds — LIF
+neuron layers and PCM crossbar-row layers, whose ternary weight matrices
+are tiled onto ``seg_width``-input rows behind an ADC — plus optional
+one-tick-delayed edges (:class:`EdgeSpec`: lateral inhibition, feedback).
+Every tick, the signal layer i-1 publishes is the event queue layer i
+consumes, converted by :func:`adapt_signal`; a per-circuit ``changed``
+mask marks the neurons an input spike reached through a nonzero weight,
+or the crossbar rows with a live input line. One engine serves the three
+backends:
 
-  golden      the golden LIF integrator (``ops.lif_step``) on every neuron
-  behavioral  the ideal discrete update (no energy/latency)
-  lasana      Algorithm 1 (``wrapper.lasana_step``) over a trained
-              :class:`Surrogate`, ``standalone`` or ``annotation``
+  golden      the golden integrators (``ops.lif_step``, ``ops.crossbar_step``)
+  behavioral  the ideal discrete updates (no energy/latency)
+  lasana      Algorithm 1 (``wrapper.lasana_step``) over trained
+              surrogates — one per circuit kind — ``standalone`` or
+              ``annotation``
 
 The tick loop runs on the engine's device with no host synchronisation:
 tick times live in a device tensor, records stay on the device, and the
@@ -18,8 +23,7 @@ enqueues, :meth:`PendingRun.result` fetches). A "program" here is the
 engine's runner for one (batch, ticks, surrogate structure) key: built
 once, it serves every same-structure surrogate (``compile_count``).
 
-Crossbar rows, mixed and recurrent graphs, and streaming come with later
-slices of the port.
+Streaming comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.circuits import LIFNeuron, get_circuit
+from repro_torch.core.circuits import (CrossbarRow, LIFNeuron, get_circuit,
+                                       row_sum)
 from repro_torch.core.surrogate import (SurrogateLibrary, as_surrogate,
                                         structure_key)
 from repro_torch.core.wrapper import LasanaState, init_state, lasana_step
@@ -40,19 +46,35 @@ from repro_torch.kernels import ops
 
 BACKENDS = ("golden", "behavioral", "lasana")
 MODES = ("standalone", "annotation")
-CIRCUIT_KINDS = ("lif",)
+CIRCUIT_KINDS = ("lif", "crossbar")
+
+# a crossbar row-segment has an input event iff any of its sample-and-hold
+# input lines carries a live (nonzero) voltage this tick
+_XBAR_EVENT_EPS = 1e-6
 
 
 # --- network specification ----------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """One bank of LIF circuits: ``weight`` (fan_in, n_out) synaptic
-    matrix, ``params`` (n_p,) broadcast knobs or (n_out, n_p)."""
+    """One bank of circuits of a single ``circuit`` kind.
+
+    weight      (fan_in, n_out): synaptic matrix (lif) or the ternary
+                matrix tiled onto ``seg_width``-input crossbar rows
+    params      lif: (n_p,) broadcast knobs or (n_out, n_p); crossbar: None
+    circuit     "lif" | "crossbar"
+    seg_width   crossbar: row segment width (the circuit's ``n_inputs``)
+    adc_bits    crossbar: ADC resolution applied to each row output
+    activation  crossbar: digital activation applied to this layer's ADC
+                codes before they drive a downstream layer ("tanh"|"none")
+    """
 
     weight: Any
     params: Any = None
     circuit: str = "lif"
+    seg_width: int = 32
+    adc_bits: int = 8
+    activation: str = "tanh"
 
     @property
     def fan_in(self) -> int:
@@ -62,24 +84,47 @@ class LayerSpec:
     def n_out(self) -> int:
         return self.weight.shape[1]
 
+    @property
+    def n_seg(self) -> int:
+        return -(-self.fan_in // self.seg_width)
+
     def n_circuits(self, batch: int) -> int:
         """Circuit instances this layer simulates for one batch."""
+        if self.circuit == "crossbar":
+            return batch * self.n_out * self.n_seg
         return batch * self.n_out
 
 
 @dataclasses.dataclass(frozen=True)
 class EdgeSpec:
-    """A one-tick-delayed connection between two layers (the recurrent
-    slice of the port runs them; this engine refuses specs that have any)."""
+    """An extra (typically recurrent) connection between two layers,
+    delivered with a ONE-TICK DELAY: at tick t the destination receives the
+    source's output published at tick t-1 (zeros at t = 0).
+
+    weight   (n_out[src], n_out[dst]) for a lif destination (synaptic
+             drive) or (n_out[src], fan_in[dst]) for a crossbar destination
+             (DAC input volts).
+    """
 
     src: int
     dst: int
     weight: Any
 
 
+def _f32(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def recurrent_edge(src: int, dst: int, weight) -> EdgeSpec:
+    """One-tick-delayed edge from layer ``src``'s output to layer ``dst``."""
+    return EdgeSpec(src=src, dst=dst, weight=_f32(weight))
+
+
 @dataclasses.dataclass(frozen=True)
 class NetworkSpec:
-    """A layered circuit graph: a feed-forward chain of banks."""
+    """A layered circuit graph: the chain network-input -> layers[0] ->
+    layers[1] -> ... evaluated within one tick, plus the one-tick-delayed
+    ``edges``."""
 
     layers: tuple
     edges: tuple = ()
@@ -93,12 +138,21 @@ class NetworkSpec:
     def circuits(self) -> tuple:
         return tuple(l.circuit for l in self.layers)
 
+    def edges_into(self, i: int) -> tuple:
+        return tuple(e for e in self.edges if e.dst == i)
+
 
 def lif_layer(weight, params) -> LayerSpec:
     """LIF neuron bank: weight (fan_in, n_out), params (n_p,) | (n_out, n_p)."""
-    return LayerSpec(weight=torch.as_tensor(np.asarray(weight, np.float32)),
-                     params=torch.as_tensor(np.asarray(params, np.float32)),
-                     circuit="lif")
+    return LayerSpec(weight=_f32(weight), params=_f32(params), circuit="lif")
+
+
+def crossbar_layer(weight, *, seg_width: int = 32, adc_bits: int = 8,
+                   activation: str = "tanh") -> LayerSpec:
+    """Ternary matrix (fan_in, n_out) tiled onto seg_width-input rows."""
+    return LayerSpec(weight=_f32(weight), params=None, circuit="crossbar",
+                     seg_width=seg_width, adc_bits=adc_bits,
+                     activation=activation)
 
 
 def snn_spec(weights, params_per_layer, *, spike_amp: float = 1.5,
@@ -110,20 +164,60 @@ def snn_spec(weights, params_per_layer, *, spike_amp: float = 1.5,
                        spike_amp=spike_amp)
 
 
-# --- inter-layer adapters -----------------------------------------------------
+def crossbar_mlp_spec(weights, *, seg_width: int = 32, adc_bits: int = 8,
+                      activation: str = "tanh") -> NetworkSpec:
+    """Ternary-weight MLP tiled onto ``seg_width``-input crossbar rows."""
+    layers = tuple(crossbar_layer(w, seg_width=seg_width, adc_bits=adc_bits,
+                                  activation=activation) for w in weights)
+    return NetworkSpec(layers=layers)
 
-def adapt_signal(src_kind: str, dst_kind: str, y, *, spike_amp: float = 1.5):
-    """A source layer's published output in dst-native input units: the
-    network stimulus and LIF spikes already are LIF drive currency."""
-    if src_kind in ("input", "lif") and dst_kind == "lif":
+
+def graph_spec(layers, *, edges=(), spike_amp: float = 1.5) -> NetworkSpec:
+    """Arbitrary mixed-circuit graph from LayerSpecs + EdgeSpecs."""
+    return NetworkSpec(layers=tuple(layers), edges=tuple(edges),
+                       spike_amp=spike_amp)
+
+
+# --- typed inter-layer adapters -----------------------------------------------
+
+def _digital_activation(y, activation: str):
+    if activation == "tanh":
+        return torch.tanh(y)
+    return y
+
+
+def adapt_signal(src_kind: str, dst_kind: str, y, *, spike_amp: float = 1.5,
+                 activation: str = "tanh"):
+    """A source layer's published output in dst-native input units.
+
+    Published outputs: lif — spike amplitudes in {0, spike_amp} V;
+    crossbar — post-ADC, gain-compensated codes in weight-sum units;
+    "input" — the stimulus, already in the first layer's units. The
+    conversions (``activation`` is the SOURCE crossbar layer's):
+
+      lif      -> lif       identity
+      lif      -> crossbar  spike -> DAC volts: s * input_hi / spike_amp
+      crossbar -> lif       code -> signed drive: act(y) * spike_amp
+      crossbar -> crossbar  code -> DAC volts: act(y) * input_hi
+    """
+    if src_kind == "input":
         return y
+    xb = get_circuit("crossbar")
+    if src_kind == "lif" and dst_kind == "lif":
+        return y
+    if src_kind == "lif" and dst_kind == "crossbar":
+        return y * (xb.input_hi / spike_amp)
+    if src_kind == "crossbar" and dst_kind == "lif":
+        return _digital_activation(y, activation) * spike_amp
+    if src_kind == "crossbar" and dst_kind == "crossbar":
+        return _digital_activation(y, activation) * xb.input_hi
     raise ValueError(f"no adapter for {src_kind!r} -> {dst_kind!r}")
 
 
 def event_threshold(src_kind: str, spike_amp: float) -> float:
     """|u| above this counts as an input event at a LIF destination:
     spiking sources emit V_dd pulses (half-amplitude discriminator),
-    analog sources count any appreciable drive."""
+    analog crossbar sources count any appreciable drive."""
     if src_kind in ("input", "lif"):
         return 0.5 * spike_amp
     return 0.05 * spike_amp
@@ -148,16 +242,31 @@ def _tile_params(p, b: int, n_out: int):
     return p.repeat(b, 1)                 # per-neuron knobs, batch-tiled
 
 
+def _row_segments(w, seg_width: int) -> np.ndarray:
+    """(n_in, n_out) ternary matrix -> (n_out * n_seg, seg_width + 1)
+    crossbar row params, output-major (the last column is the bias row,
+    unused here)."""
+    w = np.asarray(w)
+    n_in, n_out = w.shape
+    n_seg = -(-n_in // seg_width)
+    wp = np.pad(w, ((0, n_seg * seg_width - n_in), (0, 0)))
+    segs = (wp.reshape(n_seg, seg_width, n_out)
+            .transpose(2, 0, 1).reshape(-1, seg_width))
+    return np.concatenate([segs, np.zeros((len(segs), 1))],
+                          axis=1).astype(np.float32)
+
+
 # --- run record ---------------------------------------------------------------
 
 @dataclasses.dataclass
 class NetworkRun:
-    """Record of one network simulation over T ticks."""
+    """Record of one network simulation over T ticks (combinational: T=1)."""
 
     backend: str
     mode: str
-    outputs: np.ndarray           # last layer: (B, n_cls) spike counts
-    out_spikes: Optional[np.ndarray]   # last layer: (T, B, n_cls) amps
+    outputs: np.ndarray           # lif last layer: (B, n_cls) spike counts;
+                                  # crossbar last layer: (B, n_cls) codes
+    out_spikes: Optional[np.ndarray]   # lif last layer: (T, B, n_cls) amps
     layer_spikes: Optional[list]  # per layer (T, B, n_i) published outputs
     energy: np.ndarray            # (T, L) joules per tick per layer
     latency: np.ndarray           # (T, L) ns — max over the layer's circuits
@@ -217,8 +326,9 @@ class NetworkRun:
     @classmethod
     def merge(cls, chunks) -> "NetworkRun":
         """Merge consecutive per-chunk records into one whole-run record:
-        spike counts sum, per-tick records concatenate, flushes add (only
-        a stream's final chunk carries one), wall/compile seconds sum."""
+        spike counts sum (a crossbar last layer keeps the last chunk's
+        codes), per-tick records concatenate, flushes add (only a stream's
+        final chunk carries one), wall/compile seconds sum."""
         chunks = list(chunks)
         if not chunks:
             raise ValueError("NetworkRun.merge needs at least one record")
@@ -234,11 +344,15 @@ class NetworkRun:
         if first.layer_spikes is not None:
             hidden = [np.concatenate([c.layer_spikes[i] for c in chunks])
                       for i in range(len(first.layer_spikes))]
+        if first.circuits and first.circuits[-1] != "lif":
+            outputs, out_spikes = chunks[-1].outputs, None
+        else:
+            outputs = sum(np.asarray(c.outputs, np.int64) for c in chunks
+                          ).astype(first.outputs.dtype)
+            out_spikes = cat("out_spikes")
         return cls(
-            backend=first.backend, mode=first.mode,
-            outputs=sum(np.asarray(c.outputs, np.int64) for c in chunks
-                        ).astype(first.outputs.dtype),
-            out_spikes=cat("out_spikes"), layer_spikes=hidden,
+            backend=first.backend, mode=first.mode, outputs=outputs,
+            out_spikes=out_spikes, layer_spikes=hidden,
             energy=cat("energy"), latency=cat("latency"),
             events=cat("events"),
             flush_energy=sum(c.flush_energy for c in chunks),
@@ -263,7 +377,8 @@ class PendingRun:
         outputs = to_np(primary)          # the first fetch waits for the run
         run = NetworkRun(
             backend=eng.backend, mode=eng.mode, outputs=outputs,
-            out_spikes=to_np(out_seq),
+            out_spikes=(to_np(out_seq) if spec.circuits[-1] == "lif"
+                        else None),
             layer_spikes=[to_np(h) for h in hidden]
             if eng.record_hidden else None,
             energy=to_np(e_tl), latency=to_np(l_tl),
@@ -278,20 +393,21 @@ class PendingRun:
 # --- the engine ----------------------------------------------------------------
 
 class NetworkEngine:
-    """A feed-forward LIF graph under one event-driven tick loop.
+    """A heterogeneous circuit graph under one event-driven tick loop.
 
     backend   "golden" | "behavioral" | "lasana"
     mode      lasana only: "standalone" or "annotation"
-    surrogates  backend="lasana": a :class:`Surrogate` or a
-              :class:`SurrogateLibrary` / ``{kind: Surrogate}`` mapping; may
-              be given per :meth:`run` instead
+    surrogates  backend="lasana": a :class:`Surrogate` (one circuit kind)
+              or a :class:`SurrogateLibrary` / ``{kind: Surrogate}``
+              mapping (mixed graphs); may be given per :meth:`run` instead
     record_hidden  keep per-layer output traces
     fused     lasana only: the stacked ``predict_heads`` tick (default) or
               one ``predict`` per head (``fused=False``)
     fused_kernel  lasana only: tri-state kernel-path switch (None =
               ``REPRO_FUSED_KERNEL``, else on): packable heads tick through
-              ``network_tick``, other stacked MLP heads through
-              ``mlp_surrogate_heads``; ``False`` keeps the einsum path
+              ``network_tick`` (one cross-kind pack for a mixed library),
+              other stacked MLP heads through ``mlp_surrogate_heads``;
+              ``False`` keeps the einsum path
     device    where the engine runs (default ``cuda``; see
               ``ops.resolve_device``)
     """
@@ -308,9 +424,6 @@ class NetworkEngine:
             if layer.circuit not in CIRCUIT_KINDS:
                 raise ValueError(f"unknown circuit kind {layer.circuit!r}; "
                                  f"registered kinds: {CIRCUIT_KINDS}")
-        if spec.edges:
-            raise NotImplementedError("recurrent edges run in a later slice "
-                                      "of the port")
         self.spec = spec
         self.backend = backend
         self.mode = mode if backend == "lasana" else "standalone"
@@ -326,18 +439,43 @@ class NetworkEngine:
                 "surrogates= only with backend='lasana'")
         self.surrogates = (self._normalize_surrogates(surrogates)
                            if surrogates is not None else None)
-        for circ in self.circs:
+        for i, (layer, circ) in enumerate(zip(spec.layers, self.circs)):
             if isinstance(circ, LIFNeuron) and spec.spike_amp != circ.vdd:
                 raise ValueError(
                     f"spike_amp {spec.spike_amp} != circuit V_dd "
                     f"{circ.vdd}; the LIF event queues carry V_dd spikes")
+            if isinstance(circ, CrossbarRow) \
+                    and layer.seg_width != circ.n_inputs:
+                raise ValueError(
+                    f"layer {i}: seg_width {layer.seg_width} != crossbar "
+                    f"row n_inputs {circ.n_inputs}")
+        self._validate_edges()
+        # one global digital clock; per-layer tick times use each
+        # circuit's native clock
         self.clock_ns = max(c.clock_ns for c in self.circs)
         dev = self.device
-        self._weights = [torch.as_tensor(l.weight, dtype=torch.float32,
-                                         device=dev) for l in spec.layers]
-        self._params = [torch.as_tensor(l.params, dtype=torch.float32,
-                                        device=dev) for l in spec.layers]
-        self._conn = [(torch.abs(w) > 0).float() for w in self._weights]
+        f32 = dict(dtype=torch.float32, device=dev)
+        self._weights = [torch.as_tensor(l.weight, **f32)
+                         for l in spec.layers]
+        self._params = [None if l.params is None
+                        else torch.as_tensor(l.params, **f32)
+                        for l in spec.layers]
+        # lif layers: (|w| > 0) connectivity for event detection; crossbar
+        # layers: their row params, output-major (b-tiled per run)
+        self._conn = [(torch.abs(w) > 0).float()
+                      if l.circuit == "lif" else None
+                      for w, l in zip(self._weights, spec.layers)]
+        self._segs = [torch.as_tensor(_row_segments(l.weight, l.seg_width),
+                                      **f32)
+                      if l.circuit == "crossbar" else None
+                      for l in spec.layers]
+        # one-tick-delayed edges into each layer: (src, weight, conn)
+        self._rec = [[] for _ in spec.layers]
+        for e in spec.edges:
+            we = torch.as_tensor(e.weight, **f32)
+            conn = ((torch.abs(we) > 0).float()
+                    if spec.layers[e.dst].circuit == "lif" else None)
+            self._rec[e.dst].append((e.src, we, conn))
         self._runners: dict = {}
         self._lock = threading.Lock()
         self.compile_count = 0        # distinct runners built
@@ -350,6 +488,11 @@ class NetworkEngine:
         elif isinstance(src, dict):
             mapping = dict(src)
         else:
+            if len(kinds) > 1:
+                raise ValueError(
+                    "mixed-circuit graphs need a {circuit: Surrogate} "
+                    f"library, got a single surrogate for kinds "
+                    f"{sorted(kinds)}")
             mapping = {next(iter(kinds)): src}
         missing = kinds - set(mapping)
         if missing:
@@ -364,6 +507,22 @@ class NetworkEngine:
                     f"layer kind {kind!r}")
             lib[kind] = s.to(self.device)
         return SurrogateLibrary(lib)
+
+    def _validate_edges(self):
+        spec = self.spec
+        n = spec.n_layers
+        for e in spec.edges:
+            if not (0 <= e.src < n and 0 <= e.dst < n):
+                raise ValueError(f"edge {e.src}->{e.dst} out of range for "
+                                 f"{n} layers")
+            dst = spec.layers[e.dst]
+            want = (spec.layers[e.src].n_out,
+                    dst.n_out if dst.circuit == "lif" else dst.fan_in)
+            got = tuple(np.shape(e.weight))
+            if got != want:
+                raise ValueError(
+                    f"edge {e.src}->{e.dst} weight shape {got} != {want} "
+                    f"(src n_out, dst {'n_out' if dst.circuit == 'lif' else 'fan_in'})")
 
     def _runtime_banks(self, surrogates) -> SurrogateLibrary:
         if self.backend != "lasana":
@@ -382,9 +541,11 @@ class NetworkEngine:
     # --- public entry points ----------------------------------------------------
 
     def run(self, inputs, *, surrogates=None) -> NetworkRun:
-        """inputs: (T, B, n_in) spike amplitudes (a (B, n_in) input is one
-        tick). ``surrogates`` overrides the engine-bound library for this
-        run; a same-structure swap reuses the runner (no rebuild)."""
+        """inputs: (T, B, n_in) per-tick stimulus in the first layer's
+        native units (spike amplitudes for lif, DAC volts for crossbar); a
+        (B, n_in) input is one combinational wave (T = 1). ``surrogates``
+        overrides the engine-bound library for this run; a same-structure
+        swap reuses the runner (no rebuild)."""
         return self.dispatch(inputs, surrogates=surrogates).result()
 
     def dispatch(self, inputs, *, surrogates=None) -> PendingRun:
@@ -412,11 +573,17 @@ class NetworkEngine:
         layer = self.spec.layers[i]
         circ = self.circs[i]
         n = layer.n_circuits(b)
-        params = _tile_params(self._params[i], b, layer.n_out)
+        if layer.circuit == "crossbar":
+            segs = self._segs[i]
+            params = segs[None].expand(b, *segs.shape).reshape(
+                -1, segs.shape[1])
+        else:
+            params = _tile_params(self._params[i], b, layer.n_out)
         if self.backend == "golden":
             return circ.init_state(n, device=self.device), params
         if self.backend == "behavioral":
             return params.new_zeros((n,)), params
+        # lasana: annotation mode keeps the behavioral state in .v
         return init_state(n, params)
 
     # --- per-layer tick function ------------------------------------------------
@@ -478,9 +645,76 @@ class NetworkEngine:
 
         return tick
 
+    def _xbar_tick(self, i: int):
+        """tick(carry, x_volts (B, fan_in), t, bank, pack, layout) ->
+        (carry', codes (B, n_out), e, l, events), arguments as in
+        :meth:`_lif_tick`.
+
+        Rows are combinational with sample-and-hold inputs: a row segment
+        has an input event iff any of its input lines is live (|x| > eps)
+        this tick; event-less rows hold their previous settled output."""
+        layer = self.spec.layers[i]
+        circ = self.circs[i]
+        seg_w, n_seg, n_out = layer.seg_width, layer.n_seg, layer.n_out
+        pad = n_seg * seg_w - layer.fan_in
+        clock = circ.clock_ns
+        gain = -circ.r_f * circ.g_unit
+        levels = float(2 ** layer.adc_bits - 1)
+        v_sat = circ.v_sat
+        backend, mode = self.backend, self.mode
+        fused, fused_kernel = self.fused, self.fused_kernel
+
+        def tick(carry, x, t, bank, pack=None, layout=None):
+            b_l = x.shape[0]
+            xs = F.pad(x, (0, pad)).reshape(b_l, 1, n_seg, seg_w)
+            # the same segment inputs drive the segment's row of every output
+            xin = xs.expand(b_l, n_out, n_seg, seg_w).reshape(-1, seg_w)
+            changed = (torch.abs(xs) > _XBAR_EVENT_EPS).any(-1).expand(
+                b_l, n_out, n_seg).reshape(-1)
+            if backend == "golden":
+                state, pall = carry
+                _, obs = circ.step(state, xin, pall)
+                v = torch.where(changed, obs["output"], state[:, 0])
+                e = torch.where(changed, obs["energy"], 0.0)
+                l = torch.where(changed, obs["latency"], 0.0)
+                carry = (v[:, None], pall)
+            elif backend == "behavioral":
+                held, pall = carry
+                _, settled = circ.behavioral_step(held, xin, pall)
+                v = torch.where(changed, settled, held)
+                e = torch.zeros_like(v)
+                l = torch.zeros_like(v)
+                carry = (v, pall)
+            else:
+                known = None
+                if mode == "annotation":
+                    _, known = circ.behavioral_step(carry.v, xin,
+                                                    carry.params)
+                ns, e, l, _ = lasana_step(bank, carry, changed, xin, t,
+                                          clock, known_out=known,
+                                          fused=fused,
+                                          fused_kernel=fused_kernel,
+                                          megakernel_pack=pack,
+                                          megakernel_layout=layout)
+                if known is not None:
+                    # the behavioral value is both published output and state
+                    ns = ns._replace(v=ns.o)
+                carry = ns
+                v = ns.o
+            # adc_bits ADC over [-v_sat, v_sat], then digital gain comp
+            code = torch.round(ops.div(v + v_sat, 2 * v_sat) * levels)
+            v_adc = ops.div(code, levels) * 2 * v_sat - v_sat
+            y = ops.div(row_sum(v_adc.reshape(-1, n_out, n_seg)), gain)
+            return carry, y, e, l, _count_events(changed)
+
+        return tick
+
     def _flush(self, carry, i: int, t_end_ns: float, bank):
-        """Charge trailing-idle static energy (merged E2 to the run end)."""
-        if self.backend != "lasana":
+        """Charge trailing-idle static energy (merged E2 to the run end).
+        Only stateful lif layers are flushed: combinational
+        sample-and-hold crossbar rows charge nothing in the golden
+        reference while their inputs are dead."""
+        if self.backend != "lasana" or self.spec.layers[i].circuit != "lif":
             return torch.zeros((), device=self.device)
         circ = self.circs[i]
         lst = carry
@@ -494,31 +728,58 @@ class NetworkEngine:
     # --- the graph runner ---------------------------------------------------------
 
     def _make_cascade(self):
-        """``cascade(banks, carries, u_in, ts_k, packs) -> (new_carries,
-        new_ys, e (L,), l (L,), events (L,) int32)``: one network tick."""
+        """``cascade(banks, carries, prev_ys, u_in, ts_k, packs) ->
+        (new_carries, new_ys, e (L,), l (L,), events (L,) int32)``: one
+        network tick. ``prev_ys`` are the layers' outputs of the previous
+        tick, which the one-tick-delayed edges deliver."""
         spec = self.spec
         amp = spec.spike_amp
         kinds = spec.circuits
-        ticks = [self._lif_tick(i) for i in range(spec.n_layers)]
+        ticks = [self._lif_tick(i) if kinds[i] == "lif"
+                 else self._xbar_tick(i) for i in range(spec.n_layers)]
+        act = lambda i: "tanh" if i is None else spec.layers[i].activation
 
-        def cascade(banks, carries, u_in, ts_k, packs):
-            cur, src_kind = u_in, "input"
+        def cascade(banks, carries, prev_ys, u_in, ts_k, packs):
+            cur, src_kind, src = u_in, "input", None
             new_carries, new_ys, es, ls, evs = [], [], [], [], []
             for i in range(spec.n_layers):
                 pk, ly = packs.get(kinds[i], (None, None))
-                u = adapt_signal(src_kind, "lif", cur, spike_amp=amp)
-                drive = ops.div(u @ self._weights[i], amp)
-                pre = (torch.abs(u) > event_threshold(src_kind, amp)).float()
-                changed = ((pre @ self._conn[i]) > 0.5).reshape(-1)
-                carry, y, e, l, ev = ticks[i](carries[i], drive, changed,
-                                              ts_k[i], banks.get(kinds[i]),
-                                              pk, ly)
+                bank = banks.get(kinds[i])
+                if kinds[i] == "lif":
+                    # feed-forward + delayed-edge synaptic drive
+                    u = adapt_signal(src_kind, "lif", cur, spike_amp=amp,
+                                     activation=act(src))
+                    drive = ops.div(u @ self._weights[i], amp)
+                    pre = (torch.abs(u)
+                           > event_threshold(src_kind, amp)).float()
+                    incoming = (pre @ self._conn[i]) > 0.5
+                    for j, we, conn in self._rec[i]:
+                        ur = adapt_signal(kinds[j], "lif", prev_ys[j],
+                                          spike_amp=amp, activation=act(j))
+                        drive = drive + ops.div(ur @ we, amp)
+                        pr = (torch.abs(ur)
+                              > event_threshold(kinds[j], amp)).float()
+                        incoming = incoming | ((pr @ conn) > 0.5)
+                    carry, y, e, l, ev = ticks[i](
+                        carries[i], drive, incoming.reshape(-1), ts_k[i],
+                        bank, pk, ly)
+                else:
+                    circ = self.circs[i]
+                    xv = adapt_signal(src_kind, "crossbar", cur,
+                                      spike_amp=amp, activation=act(src))
+                    for j, we, _ in self._rec[i]:
+                        xv = xv + adapt_signal(
+                            kinds[j], "crossbar", prev_ys[j], spike_amp=amp,
+                            activation=act(j)) @ we
+                    xv = torch.clamp(xv, circ.input_lo, circ.input_hi)
+                    carry, y, e, l, ev = ticks[i](carries[i], xv, ts_k[i],
+                                                  bank, pk, ly)
                 new_carries.append(carry)
                 new_ys.append(y)
                 es.append(e.sum())
                 ls.append(l.max())
                 evs.append(ev)
-                cur, src_kind = y, kinds[i]
+                cur, src_kind, src = y, kinds[i], i
             return (new_carries, new_ys, torch.stack(es), torch.stack(ls),
                     torch.stack(evs))
 
@@ -526,22 +787,30 @@ class NetworkEngine:
 
     def _mk_pack(self, banks):
         """``{kind: (pack, PackLayout)}`` for the megakernel tick: empty
-        unless the lasana fused path runs with the kernel switch on; kinds
-        whose heads do not pack take the stacked-dispatch tick."""
+        unless the lasana fused path runs with the kernel switch on. One
+        cross-kind ``pack_library`` pack when every kind packs; otherwise
+        the kinds that pack get their own packs and the rest take the
+        stacked-dispatch tick."""
         if self.backend != "lasana" or not self.fused:
             return {}
         if not ops.fused_kernel_enabled(self.fused_kernel):
             return {}
         from repro_torch.kernels import tick_megakernel as mk
         pack, layouts = mk.pack_library(banks)
-        if pack is None:
-            return {}
-        return {kind: (pack, lo) for kind, lo in layouts.items()}
+        if pack is not None:
+            return {kind: (pack, lo) for kind, lo in layouts.items()}
+        packs = {}
+        for kind in banks.kinds():
+            p, lo = mk.pack_heads(banks[kind])
+            if p is not None:
+                packs[kind] = (p, lo)
+        return packs
 
     def _build_sim(self, b: int, t_steps: int):
         """The runner for batch ``b`` and ``t_steps`` ticks: ``runner(x,
         carries, banks)`` enqueues every tick and returns device tensors
-        ``(primary, out_seq, hidden, e, l, events, flush)``."""
+        ``(primary, out_seq, hidden, e, l, events, flush)``; ``primary`` is
+        the last layer's spike counts (lif) or its final codes (crossbar)."""
         spec = self.spec
         amp = spec.spike_amp
         kinds = spec.circuits
@@ -555,18 +824,22 @@ class NetworkEngine:
 
         def runner(x, carries, banks):
             packs = self._mk_pack(banks)
+            prev_ys = [x.new_zeros((b, l.n_out)) for l in spec.layers]
             outs, hidden, es, ls, evs = [], [], [], [], []
             for k in range(t_steps):
-                carries, ys, e, l, ev = cascade(
-                    banks, carries, x[k], [t[k] for t in ts], packs)
-                outs.append(ys[-1])
+                carries, prev_ys, e, l, ev = cascade(
+                    banks, carries, prev_ys, x[k], [t[k] for t in ts], packs)
+                outs.append(prev_ys[-1])
                 if record_hidden:
-                    hidden.append(ys)
+                    hidden.append(prev_ys)
                 es.append(e)
                 ls.append(l)
                 evs.append(ev)
             out_seq = torch.stack(outs)
-            primary = (out_seq > 0.5 * amp).sum(0, dtype=torch.int32)
+            if kinds[-1] == "lif":
+                primary = (out_seq > 0.5 * amp).sum(0, dtype=torch.int32)
+            else:
+                primary = out_seq[-1]
             hid = [torch.stack([h[i] for h in hidden])
                    for i in range(spec.n_layers)] if record_hidden else []
             flush = torch.stack([

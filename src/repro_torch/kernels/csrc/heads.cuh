@@ -1,15 +1,23 @@
 // Shared device code of the surrogate-head kernels (mlp_heads.cu and
-// network_tick.cu): the canonical head layout, staging a stack of heads
+// network_tick.cu): the canonical head layout, staging heads of a stack
 // into shared memory, and evaluating one head for one row in a thread.
 //
 // A stack holds P heads, each as the reference's canonical arrays
 // (tick_megakernel._canonical / Surrogate stacked MLP heads):
 // x_mu, x_sd (P, F); y_mu, y_sd, b2, scale (P, 1); w0 (P, F, H1);
-// b0 (P, H1); w1 (P, H1, H2); b1 (P, H2); w2 (P, H2, 1). Staged, head h
-// occupies head_floats(F, H1, H2) contiguous floats of shared memory:
-//   x_mu[F] x_sd[F] w0[F*H1] b0[H1] w1[H1*H2] b1[H2] w2[H2]
+// b0 (P, H1); w1 (P, H1, H2); b1 (P, H2); w2 (P, H2, 1). A kernel stages
+// the first FS <= F feature columns of the heads it reads (a circuit kind
+// in a cross-kind pack evaluates only its own columns; the rest are the
+// pack's zero padding), and staged, head h occupies head_floats(FS, H1,
+// H2) contiguous floats of shared memory:
+//   x_mu[FS] x_sd[FS] w0[FS*H1] b0[H1] w1[H1*H2] b1[H2] w2[H2]
 //   y_mu y_sd b2 scale
 // unpadded: no dimension is rounded up to a tile or lane width.
+//
+// A thread keeps one row's features in an array of KF floats, a template
+// parameter: 16 for the LIF rows (10 or 12 columns, kept in registers),
+// 72 for the crossbar rows (68 or 70 columns, which spill to local
+// memory).
 
 #pragma once
 
@@ -17,7 +25,8 @@
 
 namespace repro {
 
-constexpr int kMaxF = 16;        // feature columns a thread keeps in registers
+constexpr int kNarrowF = 16;     // LIF feature rows
+constexpr int kWideF = 72;       // crossbar feature rows
 constexpr int kMaxH1 = 128;      // first hidden layer a thread keeps (local)
 constexpr int kTileH2 = 8;       // second-layer units accumulated at once
 constexpr int kMaxSmem = 232448; // dynamic shared memory a block may use
@@ -36,7 +45,8 @@ struct Stack {
   const float* w2;
   const float* b2;
   const float* scale;  // null: every head's scale is 1
-  int p, f, h1, h2;
+  int p, f, h1, h2;    // heads and widths as the arrays hold them
+  int fs;              // feature columns staged and evaluated (<= f)
 };
 
 struct Head {
@@ -58,17 +68,20 @@ __device__ inline void copy_block(float* dst, const float* src, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-// Stage every head of s into smem; the whole block calls it, then syncs.
-__device__ inline void stage(const Stack& s, float* smem) {
-  const int per = head_floats(s.f, s.h1, s.h2);
-  for (int h = 0; h < s.p; ++h) {
-    float* d = smem + h * per;
-    copy_block(d, s.x_mu + h * s.f, s.f);
-    d += s.f;
-    copy_block(d, s.x_sd + h * s.f, s.f);
-    d += s.f;
-    copy_block(d, s.w0 + h * s.f * s.h1, s.f * s.h1);
-    d += s.f * s.h1;
+// Stage heads h0 .. h0+count-1 of s into smem at width s.fs; the whole
+// block calls it, then syncs. w0's first fs rows are its first fs*h1
+// floats, so every part is one contiguous copy.
+__device__ inline void stage(const Stack& s, int h0, int count, float* smem) {
+  const int per = head_floats(s.fs, s.h1, s.h2);
+  for (int j = 0; j < count; ++j) {
+    const int h = h0 + j;
+    float* d = smem + j * per;
+    copy_block(d, s.x_mu + h * s.f, s.fs);
+    d += s.fs;
+    copy_block(d, s.x_sd + h * s.f, s.fs);
+    d += s.fs;
+    copy_block(d, s.w0 + h * s.f * s.h1, s.fs * s.h1);
+    d += s.fs * s.h1;
     copy_block(d, s.b0 + h * s.h1, s.h1);
     d += s.h1;
     copy_block(d, s.w1 + h * s.h1 * s.h2, s.h1 * s.h2);
@@ -86,13 +99,14 @@ __device__ inline void stage(const Stack& s, float* smem) {
   }
 }
 
-__device__ inline Head head_at(const float* smem, const Stack& s, int h) {
-  const float* b = smem + h * head_floats(s.f, s.h1, s.h2);
+// The j-th staged head (0-based within what stage() copied).
+__device__ inline Head head_at(const float* smem, const Stack& s, int j) {
+  const float* b = smem + j * head_floats(s.fs, s.h1, s.h2);
   Head hd;
   hd.x_mu = b;
-  hd.x_sd = b + s.f;
-  hd.w0 = b + 2 * s.f;
-  hd.b0 = hd.w0 + s.f * s.h1;
+  hd.x_sd = b + s.fs;
+  hd.w0 = b + 2 * s.fs;
+  hd.b0 = hd.w0 + s.fs * s.h1;
   hd.w1 = hd.b0 + s.h1;
   hd.b1 = hd.w1 + s.h1 * s.h2;
   hd.w2 = hd.b1 + s.h2;
@@ -105,24 +119,38 @@ __device__ inline Head head_at(const float* smem, const Stack& s, int h) {
 }
 
 // (feat - x_mu) / x_sd over the first f columns, zero beyond
-__device__ __forceinline__ void standardize(const Head& hd, const float (&feat)[kMaxF],
-                                            int f, float (&xs)[kMaxF]) {
+template <int KF>
+__device__ __forceinline__ void standardize(const Head& hd,
+                                            const float (&feat)[KF], int f,
+                                            float (&xs)[KF]) {
 #pragma unroll
-  for (int k = 0; k < kMaxF; ++k)
+  for (int k = 0; k < KF; ++k)
     xs[k] = k < f ? (feat[k] - hd.x_mu[k]) / hd.x_sd[k] : 0.0f;
+}
+
+// xs @ w0[:, 0] + b2: a linear head, summed in index order
+template <int KF>
+__device__ __forceinline__ float linear(const Head& hd, const float (&xs)[KF],
+                                        int f, int h1) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KF; ++k)
+    if (k < f) acc = __fmaf_rn(xs[k], hd.w0[k * h1], acc);
+  return acc + hd.b2;
 }
 
 // relu(relu(xs @ w0 + b0) @ w1 + b1) @ w2 + b2, in standardized units.
 // Each dot product sums its terms in index order with one fused
 // multiply-add per term; the first hidden layer lives in local memory,
 // the second is accumulated kTileH2 units at a time in registers.
-__device__ __forceinline__ float mlp3(const Head& hd, const float (&xs)[kMaxF],
+template <int KF>
+__device__ __forceinline__ float mlp3(const Head& hd, const float (&xs)[KF],
                                       int f, int h1, int h2) {
   float hid[kMaxH1];
   for (int j = 0; j < h1; ++j) {
     float acc = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kMaxF; ++k)
+    for (int k = 0; k < KF; ++k)
       if (k < f) acc = __fmaf_rn(xs[k], hd.w0[k * h1 + j], acc);
     hid[j] = fmaxf(acc + hd.b0[j], 0.0f);
   }

@@ -7,22 +7,33 @@
 //
 // Bound on the H100: operations. With every head an MLP(100, 50), a
 // changed row that catches up and emits an event evaluates seven heads,
-// ~43 K multiply-adds, against ~70 bytes of state in and out; idle rows
-// cost nothing but their copy-through.
+// ~43 K multiply-adds for a LIF row (F = 10/12) and ~55 K for a crossbar
+// row (F = 68/70), against ~70 bytes of LIF state in and out or ~330 bytes
+// of crossbar inputs and weights; idle rows cost nothing but their
+// copy-through.
 //
-// Design: the same tiling as mlp_heads.cu. Both head stacks (A: M_ES,
-// M_V, M_O at the idle/active width; T: M_ED, M_L at the transition
-// width) are staged into shared memory, unpadded, for the whole block
-// (~75 KB + ~51 KB for MLP heads). One thread carries one row through the
-// tick, evaluating each head at its own family's cost (a mean head is a
-// constant, a linear head one dot, an MLP head three layers). The
-// reference's lax.cond(any(...)) skips become control flow on the device,
-// never a host sync: a block with no changed row copies its rows through
-// before staging anything, and inside a block a row runs the idle heads
-// only when stale and the transition heads only when its output changed —
-// the rows the record tail (_finish_tick) reads them for. Built with
-// --fmad=false: everything outside the dot products rounds in the
-// reference's order.
+// Design: one thread carries one row through the tick, evaluating each
+// head at its own family's cost (a mean head is a constant, a linear head
+// one dot, an MLP head three layers). The circuit kind is a template
+// parameter (LIF: 3 inputs, 4 parameters, drive = x0 x1 x2 / 5; crossbar:
+// 32 inputs, 33 weights, i_sig = w . x + bias * v_bias), so the feature
+// row's layout is known at compile time; a LIF row's features stay in
+// registers, a crossbar row's spill to local memory. Only the launching
+// kind's own heads are staged, at its own width (a cross-kind pack pads
+// every head to the widest kind; those columns are zero weights and are
+// skipped). When both stacks fit in a block's shared memory (LIF: 75 KB
+// + 51 KB) they are staged together up front; when they do not (crossbar
+// MLP heads: 146 KB + 99 KB) they go through ONE buffer in two phases:
+// the A stack (M_ES, M_V, M_O) for the idle and active stages, then,
+// after a block-wide barrier, the T stack (M_ED, M_L) for the transition
+// stage. The reference's
+// lax.cond(any(...)) skips become control flow on the device, never a
+// host sync: a block with no changed row copies its rows through before
+// staging anything, a two-phase block in which no row's output changed
+// never stages the T stack, and a row runs the idle heads only when stale and the
+// transition heads only when its output changed — the rows the record
+// tail (_finish_tick) reads them for. Built with --fmad=false: everything
+// outside the dot products rounds in the reference's order.
 
 #include "heads.cuh"
 
@@ -30,9 +41,9 @@ struct TickIO {
   const float* v;
   const float* o;
   const float* t_last;
-  const float* params;  // (N, 4)
+  const float* params;  // (N, n_p)
   const bool* changed;
-  const float* x;       // (N, 3)
+  const float* x;       // (N, n_in)
   const float* t;       // device scalar: this tick's time
   const float* known;   // annotation mode: behavioral outputs, else null
   float* v_out;
@@ -46,71 +57,90 @@ struct TickIO {
 struct TickScalars {
   int n, a_heads, t_heads, f_a, f_t, h1, h2;
   int a_off, t_off, a_fam[3], t_fam[2];
+  int circuit, n_in, n_p;
   int spiking, annotate, device;
-  float clock, out_eps, vdd, half_vdd;
+  float clock, out_eps, vdd, half_vdd, v_bias;
 };
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kAHeads = 3;  // M_ES, M_V, M_O
+constexpr int kTHeads = 2;  // M_ED, M_L
 
+// Feature rows (x[0..kIn), v, tau, p[0..kP)[, o_prev, o_new], derived): the
+// reference's _features, the transition splice, then
+// circuits.augment_features' derived column, computed from x and p.
+struct LifRow {
+  static constexpr int kCode = 0, kIn = 3, kP = 4, kF = repro::kNarrowF;
+  static constexpr int kFa = kIn + 2 + kP + 1;  // idle/active width
+  __device__ static float derived(const float* x, const float* p, float) {
+    return x[0] * x[1] * x[2] / 5.0f;
+  }
+};
+
+struct XbarRow {
+  static constexpr int kCode = 1, kIn = 32, kP = 33, kF = repro::kWideF;
+  static constexpr int kFa = kIn + 2 + kP + 1;
+  // w . x + bias * v_bias, summed in index order (no g_unit)
+  __device__ static float derived(const float* x, const float* p,
+                                  float v_bias) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kIn; ++k) acc = acc + p[k] * x[k];
+    return acc + p[kIn] * v_bias;
+  }
+};
+
+template <class Row>
+__device__ __forceinline__ void features(float (&feat)[Row::kF],
+                                         const float* x, const float* p,
+                                         float v, float tau, bool transition,
+                                         float o_prev, float o_new,
+                                         float v_bias) {
+  constexpr int base = Row::kIn + 2 + Row::kP;
+#pragma unroll
+  for (int k = 0; k < Row::kF; ++k) feat[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < Row::kIn; ++k) feat[k] = x[k];
+  feat[Row::kIn] = v;
+  feat[Row::kIn + 1] = tau;
+#pragma unroll
+  for (int k = 0; k < Row::kP; ++k) feat[Row::kIn + 2 + k] = p[k];
+  const float d = Row::derived(x, p, v_bias);
+  if (transition) {
+    feat[base] = o_prev;
+    feat[base + 1] = o_new;
+    feat[base + 2] = d;
+  } else {
+    feat[base] = d;
+  }
+}
+
+template <int KF>
 __device__ __forceinline__ float eval_head(const float* smem,
-                                           const repro::Stack& s, int h,
-                                           int fam,
-                                           const float (&feat)[repro::kMaxF]) {
-  const repro::Head hd = repro::head_at(smem, s, h);
+                                           const repro::Stack& s, int j,
+                                           int fam, int f,
+                                           const float (&feat)[KF]) {
+  const repro::Head hd = repro::head_at(smem, s, j);
   float y;
   if (fam == repro::kMean) {
     y = hd.b2;
   } else {
-    float xs[repro::kMaxF];
-    repro::standardize(hd, feat, s.f, xs);
-    if (fam == repro::kLinear) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < repro::kMaxF; ++k)
-        if (k < s.f) acc = __fmaf_rn(xs[k], hd.w0[k * s.h1], acc);
-      y = acc + hd.b2;
-    } else {
-      y = repro::mlp3(hd, xs, s.f, s.h1, s.h2);
-    }
+    float xs[KF];
+    repro::standardize(hd, feat, f, xs);
+    y = fam == repro::kLinear ? repro::linear(hd, xs, f, s.h1)
+                              : repro::mlp3(hd, xs, f, s.h1, s.h2);
   }
   return (y * hd.y_sd + hd.y_mu) / hd.scale;
 }
 
-// LIF feature row (x0..x2, v, tau, p0..p3[, o_prev, o_new], drive),
-// zero-padded to the stack width: the reference's _features, the
-// transition splice, then circuits.augment_features' derived column
-// drive = x0 * x1 * x2 / 5, computed from x.
-constexpr int kLifIn = 3, kLifP = 4;
-
-__device__ __forceinline__ void lif_features(float (&feat)[repro::kMaxF],
-                                             const float (&x)[kLifIn], float v,
-                                             float tau, const float (&p)[kLifP],
-                                             bool transition, float o_prev,
-                                             float o_new) {
-#pragma unroll
-  for (int k = 0; k < repro::kMaxF; ++k) feat[k] = 0.0f;
-  feat[0] = x[0];
-  feat[1] = x[1];
-  feat[2] = x[2];
-  feat[3] = v;
-  feat[4] = tau;
-#pragma unroll
-  for (int k = 0; k < kLifP; ++k) feat[5 + k] = p[k];
-  const float drive = x[0] * x[1] * x[2] / 5.0f;
-  if (transition) {
-    feat[9] = o_prev;
-    feat[10] = o_new;
-    feat[11] = drive;
-  } else {
-    feat[9] = drive;
-  }
-}
-
+template <class Row>
 __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
-                                    TickIO io, TickScalars sc) {
+                                    TickIO io, TickScalars sc, int t_base) {
   extern __shared__ float smem[];
+  constexpr int KF = Row::kF;
+  constexpr int FA = Row::kFa, FT = FA + 2;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = r < sc.n;
   const bool changed = valid && io.changed[r];
@@ -124,13 +154,75 @@ __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
     }
     return;
   }
-  float* smem_a = smem;
-  float* smem_t = smem + sa.p * repro::head_floats(sa.f, sa.h1, sa.h2);
-  repro::stage(sa, smem_a);
-  repro::stage(st, smem_t);
+  // t_base > 0: the T stack sits after the A stack, staged now
+  repro::stage(sa, sc.a_off, kAHeads, smem);
+  if (t_base > 0) repro::stage(st, sc.t_off, kTHeads, smem + t_base);
   __syncthreads();
+
+  float v = 0.0f, o = 0.0f, t_last = 0.0f, t = 0.0f;
+  float v_cur = 0.0f, v_new = 0.0f, o_hat = 0.0f, o_res = 0.0f;
+  float e_s_idle = 0.0f, e_s = 0.0f;
+  bool stale = false, out_changed = false;
+  const float* x = io.x + static_cast<size_t>(r) * Row::kIn;
+  const float* p = io.params + static_cast<size_t>(r) * Row::kP;
+  float feat[KF];
+  if (valid) {
+    v = io.v[r];
+    o = io.o[r];
+    t_last = io.t_last[r];
+  }
+  if (changed) {
+    t = *io.t;
+    // idle stage (Algorithm 1 lines 3-9): one merged catch-up event
+    stale = t_last < t - sc.clock;
+    float v_hat = 0.0f;
+    if (stale) {
+      const float zero_x[Row::kIn] = {};
+      const float tau_idle = fmaxf(t - t_last - sc.clock, 0.0f);
+      features<Row>(feat, zero_x, p, v, tau_idle, false, 0.0f, 0.0f,
+                    sc.v_bias);
+      e_s_idle = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
+      if (!sc.annotate) v_hat = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
+    }
+
+    // active stage (lines 10-22) on the caught-up state
+    v_cur = (!sc.annotate && stale) ? v_hat : v;
+    features<Row>(feat, x, p, v_cur, sc.clock, false, 0.0f, 0.0f, sc.v_bias);
+    e_s = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
+    if (sc.annotate) {
+      v_new = v_cur;
+      o_hat = io.known[r];
+    } else {
+      v_new = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
+      o_hat = eval_head(smem, sa, 2, sc.a_fam[2], FA, feat);
+    }
+
+    // output resolution (lines 23-25)
+    if (sc.spiking) {
+      out_changed = o_hat > sc.half_vdd;
+      o_res = out_changed ? sc.vdd : 0.0f;
+    } else {
+      out_changed = fabsf(o_hat - o) > sc.out_eps;
+      o_res = o_hat;
+    }
+  }
+
+  // transition stage (lines 23-29), only where its heads are read; in
+  // two phases the barrier also ends every read of the A stack before T
+  // overwrites it (t_base is the same for the whole block)
+  float e_d = 0.0f, lat = 0.0f;
+  if (t_base > 0 || __syncthreads_or(out_changed)) {
+    if (t_base == 0) {
+      repro::stage(st, sc.t_off, kTHeads, smem);
+      __syncthreads();
+    }
+    if (out_changed) {
+      features<Row>(feat, x, p, v_cur, sc.clock, true, o, o_res, sc.v_bias);
+      e_d = eval_head(smem + t_base, st, 0, sc.t_fam[0], FT, feat);
+      lat = eval_head(smem + t_base, st, 1, sc.t_fam[1], FT, feat);
+    }
+  }
   if (!valid) return;
-  const float v = io.v[r], o = io.o[r], t_last = io.t_last[r];
   if (!changed) {
     io.v_out[r] = v;
     io.o_out[r] = o;
@@ -139,64 +231,42 @@ __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
     io.l_out[r] = 0.0f;
     return;
   }
-  const float t = *io.t;
-  float x[kLifIn], zero_x[kLifIn] = {0.0f, 0.0f, 0.0f}, p[kLifP];
-#pragma unroll
-  for (int k = 0; k < kLifIn; ++k) x[k] = io.x[(size_t)r * kLifIn + k];
-#pragma unroll
-  for (int k = 0; k < kLifP; ++k) p[k] = io.params[(size_t)r * kLifP + k];
-  float feat[repro::kMaxF];
-
-  // idle stage (Algorithm 1 lines 3-9): one merged catch-up event
-  const bool stale = t_last < t - sc.clock;
-  float e_s_idle = 0.0f, v_hat = 0.0f;
-  if (stale) {
-    const float tau_idle = fmaxf(t - t_last - sc.clock, 0.0f);
-    lif_features(feat, zero_x, v, tau_idle, p, false, 0.0f, 0.0f);
-    e_s_idle = eval_head(smem_a, sa, sc.a_off, sc.a_fam[0], feat);
-    if (!sc.annotate)
-      v_hat = eval_head(smem_a, sa, sc.a_off + 1, sc.a_fam[1], feat);
-  }
-
-  // active stage (lines 10-22) on the caught-up state
-  const float v_cur = (!sc.annotate && stale) ? v_hat : v;
-  lif_features(feat, x, v_cur, sc.clock, p, false, 0.0f, 0.0f);
-  const float e_s = eval_head(smem_a, sa, sc.a_off, sc.a_fam[0], feat);
-  float v_new, o_hat;
-  if (sc.annotate) {
-    v_new = v_cur;
-    o_hat = io.known[r];
-  } else {
-    v_new = eval_head(smem_a, sa, sc.a_off + 1, sc.a_fam[1], feat);
-    o_hat = eval_head(smem_a, sa, sc.a_off + 2, sc.a_fam[2], feat);
-  }
-
-  // output resolution (lines 23-25)
-  bool out_changed;
-  float o_res;
-  if (sc.spiking) {
-    out_changed = o_hat > sc.half_vdd;
-    o_res = out_changed ? sc.vdd : 0.0f;
-  } else {
-    out_changed = fabsf(o_hat - o) > sc.out_eps;
-    o_res = o_hat;
-  }
-
-  // transition stage (lines 23-29), only where its heads are read
-  float e_d = 0.0f, lat = 0.0f;
-  if (out_changed) {
-    lif_features(feat, x, v_cur, sc.clock, p, true, o, o_res);
-    e_d = eval_head(smem_t, st, sc.t_off, sc.t_fam[0], feat);
-    lat = eval_head(smem_t, st, sc.t_off + 1, sc.t_fam[1], feat);
-  }
 
   // record tail (wrapper._finish_tick) for a changed row
-  const float e = (stale ? e_s_idle : 0.0f) + (out_changed ? e_d : e_s);
-  io.e_out[r] = e;
+  io.e_out[r] = (stale ? e_s_idle : 0.0f) + (out_changed ? e_d : e_s);
   io.l_out[r] = out_changed ? lat : 0.0f;
   io.o_out[r] = sc.spiking ? (out_changed ? sc.vdd : 0.0f) : o_hat;
   io.v_out[r] = v_new;
   io.tl_out[r] = t;
+}
+
+template <class Row>
+cudaError_t launch(const repro::Stack& sa, const repro::Stack& st,
+                   const TickIO& io, const TickScalars& sc,
+                   cudaStream_t stream) {
+  constexpr int FA = Row::kFa;
+  if (sc.n_in != Row::kIn || sc.n_p != Row::kP || sc.f_a < FA ||
+      sc.f_t < FA + 2 || sc.h1 > repro::kMaxH1 ||
+      sc.a_off + kAHeads > sc.a_heads || sc.t_off + kTHeads > sc.t_heads)
+    return cudaErrorInvalidValue;
+  repro::Stack a = sa, t = st;
+  a.fs = FA;
+  t.fs = FA + 2;
+  const size_t per_a = kAHeads * repro::head_floats(a.fs, sc.h1, sc.h2);
+  const size_t per_t = kTHeads * repro::head_floats(t.fs, sc.h1, sc.h2);
+  const bool together = sizeof(float) * (per_a + per_t) <= repro::kMaxSmem;
+  const size_t bytes = sizeof(float) * (together ? per_a + per_t
+                                        : (per_a > per_t ? per_a : per_t));
+  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
+  const int t_base = together ? static_cast<int>(per_a) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      network_tick_kernel<Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (sc.n + kThreads - 1) / kThreads;
+  network_tick_kernel<Row><<<blocks, kThreads, bytes, stream>>>(a, t, io, sc,
+                                                                 t_base);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -207,17 +277,14 @@ extern "C" int network_tick_launch(const float* const* a_stack,
                                    const TickScalars* sc, void* stream) {
   cudaError_t err = cudaSetDevice(sc->device);
   if (err != cudaSuccess) return err;
-  if (sc->f_a > repro::kMaxF || sc->f_t > repro::kMaxF ||
-      sc->f_a < 10 || sc->f_t < 12 || sc->h1 > repro::kMaxH1)
-    return cudaErrorInvalidValue;
   const repro::Stack sa{a_stack[0], a_stack[1], a_stack[2], a_stack[3],
                         a_stack[4], a_stack[5], a_stack[6], a_stack[7],
                         a_stack[8], a_stack[9], a_stack[10], sc->a_heads,
-                        sc->f_a, sc->h1, sc->h2};
+                        sc->f_a, sc->h1, sc->h2, sc->f_a};
   const repro::Stack st{t_stack[0], t_stack[1], t_stack[2], t_stack[3],
                         t_stack[4], t_stack[5], t_stack[6], t_stack[7],
                         t_stack[8], t_stack[9], t_stack[10], sc->t_heads,
-                        sc->f_t, sc->h1, sc->h2};
+                        sc->f_t, sc->h1, sc->h2, sc->f_t};
   TickIO io;
   io.v = static_cast<const float*>(io_ptrs[0]);
   io.o = static_cast<const float*>(io_ptrs[1]);
@@ -232,16 +299,8 @@ extern "C" int network_tick_launch(const float* const* a_stack,
   io.tl_out = static_cast<float*>(const_cast<void*>(io_ptrs[10]));
   io.e_out = static_cast<float*>(const_cast<void*>(io_ptrs[11]));
   io.l_out = static_cast<float*>(const_cast<void*>(io_ptrs[12]));
-  const size_t bytes =
-      sizeof(float) * (sc->a_heads * repro::head_floats(sc->f_a, sc->h1, sc->h2) +
-                       sc->t_heads * repro::head_floats(sc->f_t, sc->h1, sc->h2));
-  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(network_tick_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const int blocks = (sc->n + kThreads - 1) / kThreads;
-  network_tick_kernel<<<blocks, kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(sa, st, io, *sc);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sc->circuit == LifRow::kCode) return launch<LifRow>(sa, st, io, *sc, s);
+  if (sc->circuit == XbarRow::kCode) return launch<XbarRow>(sa, st, io, *sc, s);
+  return cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@ production MLP(100, 50) configuration over one ``(N, F)`` feature matrix.
 Its plain PyTorch version is the einsum path of the reference's
 ``surrogate._predict_mlp_stacked``; on CUDA tensors it launches
 ``csrc/mlp_heads.cu``, which keeps every head's weights in shared memory
-and carries one row per thread through all heads.
+and carries one row per thread through all heads, at the LIF widths
+(F = 10, 12) and the crossbar's (F = 68, 70).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build, ops
 
-MAX_F = 16          # csrc/heads.cuh kMaxF: feature columns per row
+MAX_F = 72          # csrc/heads.cuh kWideF: feature columns per row
 MAX_H1 = 128        # csrc/heads.cuh kMaxH1: first hidden layer width
 
 

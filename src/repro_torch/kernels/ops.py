@@ -19,7 +19,8 @@ import os
 
 import torch
 
-LAUNCHES = {"lif_step": 0, "mlp_surrogate_heads": 0, "network_tick": 0}
+LAUNCHES = {"crossbar_target": 0, "lif_step": 0, "mlp_surrogate_heads": 0,
+            "network_tick": 0}
 
 
 def count_launch(name: str) -> None:
@@ -102,6 +103,18 @@ def lif_step(state, x, params, *, circ=None):
     """One golden LIF clock period: ``(new_state (N, 3), obs)``."""
     from repro_torch.kernels import lif_scan
     return lif_scan.lif_step(state, x, params, circ=circ)
+
+
+def crossbar_target(v, w, *, circ=None):
+    """Crossbar rows' DC target and pole: ``(v_tgt (N,), tau (N,))``."""
+    from repro_torch.kernels import crossbar_mvm
+    return crossbar_mvm.crossbar_target(v, w, circ=circ)
+
+
+def crossbar_step(state, x, params, *, circ=None):
+    """One golden crossbar-row clock period: ``(new_state (N, 1), obs)``."""
+    from repro_torch.kernels import crossbar_mvm
+    return crossbar_mvm.crossbar_step(state, x, params, circ=circ)
 
 
 def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):

@@ -12,6 +12,9 @@ one broadcast, a linear head one dot).
 reference's body with ``skip=False``, which its docstring states is
 exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors. The
 kernel takes the stacks as they are; nothing is padded to lane widths.
+It derives the feature row of a LIF neuron or a crossbar row itself, and
+stages only the launching kind's heads of a cross-kind
+:func:`pack_library` pack.
 """
 
 from __future__ import annotations
@@ -134,19 +137,57 @@ def pack_heads(surrogate):
     return pack, layout
 
 
+def _pad_stack(s, f, h1, h2):
+    """Pad one canonical stack to (f, h1, h2); exact by construction
+    (zero weights, ones x_sd — see :func:`_canonical`)."""
+    def pad(a, dim, n, value=0.0):
+        extra = n - a.shape[dim]
+        if extra <= 0:
+            return a
+        spec = [0, 0] * (a.dim() - 1 - dim) + [0, extra]
+        return F.pad(a, spec, value=value)
+    return {
+        "x_mu": pad(s["x_mu"], 1, f),
+        "x_sd": pad(s["x_sd"], 1, f, value=1.0),
+        "y_mu": s["y_mu"], "y_sd": s["y_sd"], "scale": s["scale"],
+        "w0": pad(pad(s["w0"], 1, f), 2, h1),
+        "b0": pad(s["b0"], 1, h1),
+        "w1": pad(pad(s["w1"], 1, h1), 2, h2),
+        "b1": pad(s["b1"], 1, h2),
+        "w2": pad(s["w2"], 1, h2),
+        "b2": s["b2"],
+    }
+
+
 def pack_library(banks):
-    """One pack for a whole library: ``(pack, {kind: PackLayout})``, or
-    ``(None, {})`` if a kind does not pack. The port registers one circuit
-    kind, so a library packs as its one surrogate; stacking several kinds
-    behind offsets comes with the crossbar circuit."""
+    """Cross-kind head stacking: one pack for a whole library,
+    ``(pack, {kind: PackLayout})``, or ``(None, {})`` if any kind does not
+    pack. Every kind's A/T stacks pad to the library-wide widths and
+    concatenate along the head axis, kinds in sorted order; each kind
+    addresses its heads through ``a_off``/``t_off``."""
     kinds = banks.kinds()
-    if len(kinds) != 1:
-        raise NotImplementedError("cross-kind head packs need a second "
-                                  f"circuit kind; got {kinds}")
-    pack, layout = pack_heads(banks[kinds[0]])
-    if pack is None:
-        return None, {}
-    return pack, {kinds[0]: layout}
+    packs, layouts = {}, {}
+    for kind in kinds:
+        p, lo = pack_heads(banks[kind])
+        if p is None:
+            return None, {}
+        packs[kind], layouts[kind] = p, lo
+    if len(kinds) == 1:
+        return packs[kinds[0]], layouts
+    f_a = max(p["a"]["w0"].shape[1] for p in packs.values())
+    f_t = max(p["t"]["w0"].shape[1] for p in packs.values())
+    h1 = max(p["a"]["w0"].shape[2] for p in packs.values())
+    h2 = max(p["a"]["w1"].shape[2] for p in packs.values())
+    parts = {s: [_pad_stack(packs[k][s], f, h1, h2) for k in kinds]
+             for s, f in (("a", f_a), ("t", f_t))}
+    pack = {s: {k: torch.cat([p[k] for p in ps]) for k in _STACK_KEYS}
+            for s, ps in parts.items()}
+    offs = {}
+    for i, kind in enumerate(kinds):
+        offs[kind] = dataclasses.replace(
+            layouts[kind], a_off=i * len(PACK_HEADS_A),
+            t_off=i * len(PACK_HEADS_T))
+    return pack, offs
 
 
 def _pad_cols(x, f):
@@ -250,10 +291,16 @@ class _TickScalars(ctypes.Structure):
                 ("f_t", ctypes.c_int), ("h1", ctypes.c_int),
                 ("h2", ctypes.c_int), ("a_off", ctypes.c_int),
                 ("t_off", ctypes.c_int), ("a_fam", ctypes.c_int * 3),
-                ("t_fam", ctypes.c_int * 2), ("spiking", ctypes.c_int),
-                ("annotate", ctypes.c_int), ("device", ctypes.c_int),
-                ("clock", ctypes.c_float), ("out_eps", ctypes.c_float),
-                ("vdd", ctypes.c_float), ("half_vdd", ctypes.c_float)]
+                ("t_fam", ctypes.c_int * 2), ("circuit", ctypes.c_int),
+                ("n_in", ctypes.c_int), ("n_p", ctypes.c_int),
+                ("spiking", ctypes.c_int), ("annotate", ctypes.c_int),
+                ("device", ctypes.c_int), ("clock", ctypes.c_float),
+                ("out_eps", ctypes.c_float), ("vdd", ctypes.c_float),
+                ("half_vdd", ctypes.c_float), ("v_bias", ctypes.c_float)]
+
+
+# csrc/network_tick.cu row kinds: LifRow::kCode, XbarRow::kCode
+_CIRCUIT_CODE = {"lif": 0, "crossbar": 1}
 
 
 @functools.cache
@@ -268,9 +315,11 @@ def _kernel():
 
 def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
             clock_ns, layout, out_eps, spiking, vdd, annotate):
-    if circuit != "lif":
-        raise NotImplementedError(f"network_tick kernel: circuit {circuit!r}"
-                                  " (the kernel derives LIF features)")
+    if circuit not in _CIRCUIT_CODE:
+        raise ValueError(f"network_tick kernel: no feature row for circuit "
+                         f"{circuit!r}; it takes {sorted(_CIRCUIT_CODE)}")
+    circ = get_circuit(circuit)
+    n_in, n_p = circ.n_inputs, circ.n_params
     sA, sT = pack["a"], pack["t"]
     n = v.shape[0]
     if not isinstance(t, torch.Tensor):
@@ -282,15 +331,23 @@ def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
     p_a, f_a, h1 = sA["w0"].shape
     p_t, f_t, _ = sT["w0"].shape
     h2 = sA["w1"].shape[2]
-    if (f_a > mlp_surrogate.MAX_F or f_t > mlp_surrogate.MAX_F
+    # the circuit's own feature widths (x, v, tau, params, derived column)
+    fa_row = n_in + 2 + n_p + 1
+    if (f_a < fa_row or f_t < fa_row + 2 or fa_row + 2 > mlp_surrogate.MAX_F
             or h1 > mlp_surrogate.MAX_H1):
-        raise ValueError(f"network_tick kernel takes F <= "
-                         f"{mlp_surrogate.MAX_F} and H1 <= "
-                         f"{mlp_surrogate.MAX_H1}, got F={f_a}/{f_t}, H1={h1}")
+        raise ValueError(f"network_tick kernel: {circuit} rows take stacks "
+                         f"of F >= {fa_row}/{fa_row + 2} (at most "
+                         f"{mlp_surrogate.MAX_F}) and H1 <= "
+                         f"{mlp_surrogate.MAX_H1}, got F={f_a}/{f_t}, "
+                         f"H1={h1}")
+    if layout.a_off + len(PACK_HEADS_A) > p_a or \
+            layout.t_off + len(PACK_HEADS_T) > p_t:
+        raise ValueError(f"network_tick kernel: offsets {layout.a_off}/"
+                         f"{layout.t_off} outside stacks of {p_a}/{p_t} heads")
     for name, a in (("v", v), ("o", o), ("t_last", t_last)):
         ops.check(a, name, (n,))
-    ops.check(params, "params", (n, 4))
-    ops.check(x, "x", (n, 3))
+    ops.check(params, "params", (n, n_p))
+    ops.check(x, "x", (n, n_in))
     ops.check(changed, "changed", (n,), dtype=torch.bool)
     ops.check(t, "t", ())
     if annotate:
@@ -318,9 +375,10 @@ def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
             a_off=layout.a_off, t_off=layout.t_off,
             a_fam=(ctypes.c_int * 3)(*(_FAMILY_CODE[f] for f in layout.a_fams)),
             t_fam=(ctypes.c_int * 2)(*(_FAMILY_CODE[f] for f in layout.t_fams)),
+            circuit=_CIRCUIT_CODE[circuit], n_in=n_in, n_p=n_p,
             spiking=int(spiking), annotate=int(annotate),
             device=dev.index or 0, clock=clock_ns, out_eps=out_eps, vdd=vdd,
-            half_vdd=0.5 * vdd)
+            half_vdd=0.5 * vdd, v_bias=getattr(circ, "v_bias", 0.0))
         code = fn(a_ptrs, t_ptrs, io, ctypes.byref(sc),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "network_tick")

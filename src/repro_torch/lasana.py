@@ -7,6 +7,17 @@ The counterpart of ``repro.lasana`` for simulation::
     sur = lasana.load("artifacts/lif.npz")                   # on cuda
     run = lasana.simulate(spec, stimulus, surrogates=sur)    # NetworkRun
 
+    # crossbar MLP: one combinational wave of DAC volts, ADC codes out
+    xspec = network.crossbar_mlp_spec(ternary_weights)
+    run = lasana.simulate(xspec, imgs * 1.6 - 0.8, surrogates=xbar_sur)
+
+    # mixed graph: crossbar front end -> LIF bank with lateral inhibition
+    mspec = network.graph_spec(
+        [network.crossbar_layer(w1), network.lif_layer(w2, knobs)],
+        edges=[network.recurrent_edge(1, 1, inhibit)])
+    run = lasana.simulate(mspec, volts_seq, surrogates=lasana.SurrogateLibrary(
+        {"crossbar": xbar_sur, "lif": lif_sur}))
+
 Surrogates load from the reference's ``.npz`` artifacts; training, streaming,
 exploration and serving come with later slices of the port. Everything
 runs on ``cuda`` unless ``device=`` says otherwise.
@@ -99,10 +110,14 @@ def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
              device=None) -> NetworkRun:
     """Simulate a circuit graph and return its :class:`NetworkRun`.
 
-    spec        the graph (``network.snn_spec``)
-    stimulus    (T, B, fan_in) spike amplitudes; (B, fan_in) is one tick
+    spec        the graph (``network.snn_spec``, ``crossbar_mlp_spec`` or
+                ``graph_spec``)
+    stimulus    (T, B, fan_in) in the first layer's units — spike
+                amplitudes (lif) or DAC volts in [-0.8, 0.8] (crossbar);
+                (B, fan_in) is one tick
     backend     "golden" | "behavioral" | "lasana"
-    surrogates  backend="lasana": a :class:`Surrogate` or library
+    surrogates  backend="lasana": a :class:`Surrogate` (one circuit kind)
+                or a :class:`SurrogateLibrary` / ``{kind: Surrogate}``
     mode        lasana only: "standalone" | "annotation"
     fused       lasana only: stacked ``predict_heads`` tick (default) or
                 one ``predict`` per head

@@ -3,9 +3,12 @@
 Both packages get the same numbers: inputs come from a seed through numpy,
 and the surrogate artifacts, SNN weights and reference record are the
 committed files under ``src/repro_torch/artifacts/``, which the JAX
-package produced on the CPU. Regenerate all four with::
+package produced on the CPU. Regenerate all of them with::
 
     PYTHONPATH=src python tests/test_torch_fixtures.py --regen
+
+or only the crossbar and mixed-graph files (the LIF four stay as they
+are) with ``--regen-crossbar``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -15,6 +18,18 @@ other heads stay 3-layer MLPs); the SNN weights are
 ``examples/snn_mnist.py:train_ann()`` (seed 0); the record runs the
 chip-smoke workload (``make_digits(100, size=28, seed=777)``, Poisson seed
 5, 100 ticks) through ``repro.lasana.simulate``.
+
+Crossbar and mixed-graph files: ``crossbar_packable`` is
+``lasana.train("crossbar", TrainConfig(n_runs=200, n_steps=100,
+families=("linear", "mlp"), seed=0))``; ``crossbar_unpackable`` is the
+default-family ``PredictorBank("crossbar")`` on the same testbench with
+the same family choice as ``lif_unpackable``; ``xbar_400_120_84_10`` holds
+``examples/mnist_crossbar.py:train_ternary_net(seed=0)`` as int8;
+``mixed_144_24_10`` holds ``examples/mixed_menage.py:
+train_front_and_readout(seed=0)``; ``xbar_ref_record`` runs the crossbar
+MNIST wave (``make_digits(200, size=20, seed=999)`` as DAC volts, T = 1)
+and ``mixed_ref_record`` the mixed net (``make_digits(64, size=12,
+seed=777)`` held for 30 ticks) through ``repro.lasana.simulate``.
 """
 
 from __future__ import annotations
@@ -32,6 +47,12 @@ PACKABLE = ARTIFACTS / "lif_packable.npz"
 UNPACKABLE = ARTIFACTS / "lif_unpackable.npz"
 SNN_WEIGHTS = ARTIFACTS / "snn_784_128_10.npz"
 REF_RECORD = ARTIFACTS / "snn_ref_record.npz"
+XBAR_PACKABLE = ARTIFACTS / "crossbar_packable.npz"
+XBAR_UNPACKABLE = ARTIFACTS / "crossbar_unpackable.npz"
+XBAR_WEIGHTS = ARTIFACTS / "xbar_400_120_84_10.npz"
+MIXED_WEIGHTS = ARTIFACTS / "mixed_144_24_10.npz"
+XBAR_RECORD = ARTIFACTS / "xbar_ref_record.npz"
+MIXED_RECORD = ARTIFACTS / "mixed_ref_record.npz"
 
 # the unpackable artifact: every head an MLP(100, 50) except this one
 UNPACKABLE_FAMILIES = {"M_ED": "mlp", "M_ES": "gbdt", "M_L": "mlp",
@@ -44,6 +65,15 @@ RECORD_FIELDS = ("outputs", "out_spikes", "events", "energy", "latency",
 # record key -> (surrogate artifact or None for golden, reference fused_kernel)
 RECORD_RUNS = {"golden": (None, None), "lasana": (PACKABLE, True),
                "lasana_unpackable": (UNPACKABLE, False)}
+# crossbar MNIST: record key -> (crossbar artifact or None, fused_kernel)
+XBAR_RECORD_RUNS = {"golden": (None, None), "lasana": (XBAR_PACKABLE, True),
+                    "lasana_unpackable": (XBAR_UNPACKABLE, False)}
+# mixed net: record key -> backend (lasana runs the {crossbar, lif} pack)
+MIXED_RECORD_RUNS = ("golden", "behavioral", "lasana")
+XBAR_IMAGES = 200
+MIXED_IMAGES = 64
+MIXED_TICKS = 30
+MIXED_INHIBIT = -0.4                   # examples/mixed_menage.py lateral weight
 
 
 def chip_workload(n_images: int = N_IMAGES, t_steps: int = T_STEPS):
@@ -61,6 +91,32 @@ def snn_weights():
     with np.load(SNN_WEIGHTS) as z:
         ws = [z["w0"], z["w1"]]
     return ws, [np.asarray(LIF_KNOBS, np.float32)] * len(ws)
+
+
+def xbar_workload(n_images: int = XBAR_IMAGES):
+    """Crossbar MNIST: (ternary weights [400x120, 120x84, 84x10] f32,
+    DAC volts (B, 400), labels) — one combinational wave."""
+    from repro_torch.data.mnist import make_digits
+    with np.load(XBAR_WEIGHTS) as z:
+        ws = [z[f"w{i}"].astype(np.float32) for i in range(3)]
+    imgs, labels = make_digits(XBAR_IMAGES, size=20, seed=999)
+    volts = (imgs * 1.6 - 0.8).astype(np.float32)
+    return ws, volts[:n_images], labels[:n_images]
+
+
+def mixed_workload(n_images: int = MIXED_IMAGES, t_steps: int = MIXED_TICKS):
+    """The mixed net: (w1 (144, 24) ternary, w2 (24, 10), LIF knobs, the
+    (10, 10) lateral-inhibition edge, DAC volts held (T, B, 144), labels)."""
+    from repro_torch.data.mnist import make_digits
+    with np.load(MIXED_WEIGHTS) as z:
+        w1, w2 = z["w1"].astype(np.float32), z["w2"].astype(np.float32)
+    inhib = (MIXED_INHIBIT * (1.0 - np.eye(10))).astype(np.float32)
+    imgs, labels = make_digits(MIXED_IMAGES, size=12, seed=777)
+    volts = (imgs * 1.6 - 0.8).astype(np.float32)[:n_images]
+    seq = np.ascontiguousarray(
+        np.broadcast_to(volts, (t_steps, *volts.shape)))
+    return (w1, w2, np.asarray(LIF_KNOBS, np.float32), inhib, seq,
+            labels[:n_images])
 
 
 def small_net(seed: int = 0, t_steps: int = 20, batch: int = 3):
@@ -189,8 +245,98 @@ def _regen():
         print(p.name, os.path.getsize(p), "bytes")
 
 
+def _load_example(name):
+    import importlib.util
+    spec_ = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
+    return mod
+
+
+def _regen_crossbar():
+    """Write the crossbar and mixed-graph files only."""
+    import time
+
+    import jax.numpy as jnp
+
+    import repro.lasana as lasana
+    from repro.core.dataset import TestbenchConfig, build_dataset
+    from repro.core.network import (crossbar_layer, crossbar_mlp_spec,
+                                    graph_spec, lif_layer, recurrent_edge)
+    from repro.core.predictors import PredictorBank
+    from repro.core.surrogate import Surrogate
+    from repro.kernels import tick_megakernel as mk
+
+    t0 = time.time()
+    ARTIFACTS.mkdir(parents=True, exist_ok=True)
+    print("training crossbar_packable", flush=True)
+    packable = lasana.train("crossbar", lasana.TrainConfig(
+        n_runs=200, n_steps=100, families=("linear", "mlp"), seed=0))
+    assert mk.pack_heads(packable)[0] is not None
+    packable.save(str(XBAR_PACKABLE))
+
+    print("training crossbar_unpackable", flush=True)
+    ds = build_dataset("crossbar", TestbenchConfig(n_runs=200, n_steps=100,
+                                                   seed=0))
+    bank = PredictorBank("crossbar").fit(ds)
+    for pname, fam in UNPACKABLE_FAMILIES.items():
+        bank.selected[pname] = bank.results[pname][fam].model
+    unpackable = Surrogate.from_bank(bank)
+    assert dict(unpackable.manifest.families) == UNPACKABLE_FAMILIES
+    assert mk.pack_heads(unpackable) == (None, None)
+    unpackable.save(str(XBAR_UNPACKABLE))
+
+    print("training the ternary 400-120-84-10 net", flush=True)
+    tern = _load_example("mnist_crossbar").train_ternary_net(seed=0)
+    np.savez_compressed(XBAR_WEIGHTS, **{f"w{i}": np.asarray(w, np.int8)
+                                         for i, w in enumerate(tern)})
+    print("training the 144-24-10 mixed net", flush=True)
+    w1, w2 = _load_example("mixed_menage").train_front_and_readout(seed=0)
+    np.savez_compressed(MIXED_WEIGHTS, w1=np.asarray(w1, np.int8), w2=w2)
+
+    print("recording the crossbar MNIST runs", flush=True)
+    ws, volts, _ = xbar_workload()
+    spec = crossbar_mlp_spec([jnp.asarray(w) for w in ws])
+    record = {}
+    for name, (path, fused_kernel) in XBAR_RECORD_RUNS.items():
+        kw = {"backend": "golden"} if path is None else {
+            "surrogates": Surrogate.load(str(path)),
+            "fused_kernel": fused_kernel}
+        run = lasana.simulate(spec, jnp.asarray(volts), **kw)
+        for f in RECORD_FIELDS:
+            if f != "out_spikes":
+                record[f"{name}/{f}"] = np.asarray(getattr(run, f))
+    np.savez_compressed(XBAR_RECORD, **record)
+
+    print("recording the mixed-net runs", flush=True)
+    w1, w2, knobs, inhib, seq, _ = mixed_workload()
+    spec = graph_spec([crossbar_layer(jnp.asarray(w1)),
+                       lif_layer(jnp.asarray(w2), jnp.asarray(knobs))],
+                      edges=[recurrent_edge(1, 1, inhib)])
+    library = lasana.SurrogateLibrary({
+        "crossbar": Surrogate.load(str(XBAR_PACKABLE)),
+        "lif": Surrogate.load(str(PACKABLE))})
+    record = {}
+    for name in MIXED_RECORD_RUNS:
+        kw = ({"surrogates": library, "fused_kernel": True}
+              if name == "lasana" else {"backend": name})
+        run = lasana.simulate(spec, jnp.asarray(seq), **kw)
+        for f, a in jax_run_fields(run).items():
+            record[f"{name}/{f}"] = a
+    np.savez_compressed(MIXED_RECORD, **record)
+    for p in (XBAR_PACKABLE, XBAR_UNPACKABLE, XBAR_WEIGHTS, MIXED_WEIGHTS,
+              XBAR_RECORD, MIXED_RECORD):
+        print(p.name, os.path.getsize(p), "bytes")
+    print(f"crossbar regen took {time.time() - t0:.0f} s")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--regen"]:
+    if sys.argv[1:] == ["--regen"]:
+        _regen()
+        _regen_crossbar()
+    elif sys.argv[1:] == ["--regen-crossbar"]:
+        _regen_crossbar()
+    else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
-                 "--regen")
-    _regen()
+                 "--regen | --regen-crossbar")

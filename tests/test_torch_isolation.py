@@ -56,6 +56,12 @@ def test_port_runs_with_jax_and_reference_unimportable():
         sur = lasana.load(sys.argv[1], device="cpu")
         run = lasana.simulate(spec, x, surrogates=sur, device="cpu")
         assert run.outputs.shape == (2, 3)
+        from repro_torch.convert import crossbar_spec_from_numpy
+        xspec = crossbar_spec_from_numpy([rng.integers(-1, 2, (40, 3))])
+        volts = rng.uniform(-0.8, 0.8, (2, 40)).astype(np.float32)
+        xrun = lasana.simulate(xspec, volts, backend="golden", device="cpu")
+        assert xrun.outputs.shape == (2, 3) and xrun.out_spikes is None
+        assert xrun.events.sum() == 2 * 3 * 2
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
