@@ -6,11 +6,13 @@
 Phases, one output line each (JSON where it helps):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a ragged N, and time both on the device
-   (CUDA events, median of 25 calls after warm-up);
+   (CUDA events, median of 25 calls after warm-up); the time-looped
+   kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
+   launches of their one-tick kernels, bit for bit;
 4. drive the main paths through ``repro_torch.lasana.simulate``, each run
    with the kernel launch counters reset before it and read after it, a
    second (steady) run enqueued with host synchronisation forbidden, and
@@ -25,15 +27,24 @@ Phases, one output line each (JSON where it helps):
    - the 144-24-10 crossbar -> LIF net with lateral inhibition on 64
      digits held for 30 ticks: golden, behavioral, lasana with the
      {crossbar, lif} library (one cross-kind head pack);
-5. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+5. stream through ``repro_torch.lasana.simulate_stream`` / ``stream`` /
+   ``resume`` over 2,000 ticks of a host generator (250-tick blocks, 512-
+   tick chunks): the SNN (golden, lasana packable) and its hidden layer
+   alone (one ``lif_chunk`` / ``network_tick_chunk`` launch per chunk),
+   each equal to its monolithic run bit for bit, the hidden layer also
+   held against its committed JAX record; a killed stream resumed from a
+   saved checkpoint; a surrogate hot swap per chunk; peak device memory
+   against the monolithic run and a 1,024-tick stream;
+6. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time and its lower bound on
    this card (crossbar-width times of the head kernels beside the LIF
    ones);
-6. ``{"ok": true, "device": {...}}`` as the last line.
+7. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
-one more steady run under ``torch.profiler``.
+one more steady run under ``torch.profiler`` (for the stream phase: one
+more steady stream of the SNN and of its hidden layer).
 
 Any failed phase raises, and the script exits non-zero. It needs CUDA and
 the repository's ``src/``; without either it fails before printing a
@@ -71,6 +82,11 @@ REPS = 25
 BUSY_CYCLES = 100_000_000   # ~50 ms of spinning at the H100's clocks
 T_STEPS = 100
 N_IMAGES = 100
+T_CHUNK_CHECK = 64      # ticks of the time-looped kernel checks
+STREAM_TICKS = 2000     # the stream phase's horizon
+STREAM_BLOCK = 250      # ticks per host block
+STREAM_CHUNK = 512      # ticks per chunk: three full, one of 464
+SWAP_SCALE = 1.0 + 1e-3
 # ULPs of 0.5 * vdd within which a spike may flip: M_O's kernel and plain
 # outputs differ by up to ~1e-6 (~17 ULPs at 0.75 V), summed in two orders
 HALF_VDD_BAND = 64
@@ -89,17 +105,17 @@ def line(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
-def time_ms(fn, torch) -> float:
-    """Median device time of REPS calls of ``fn``, each between two CUDA
-    events, after warm-up. A spin kernel ahead of the start event keeps
-    the stream busy while the host enqueues the call, so the events time
-    the device's work and not the host's (a call that enqueues more
+def time_ms(fn, torch, reps: int = REPS) -> float:
+    """Median device time of ``reps`` calls of ``fn``, each between two
+    CUDA events, after warm-up. A spin kernel ahead of the start event
+    keeps the stream busy while the host enqueues the call, so the events
+    time the device's work and not the host's (a call that enqueues more
     launches than the stream's queue holds still shows some host time)."""
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(BUSY_CYCLES)
@@ -503,19 +519,240 @@ def check_network_tick(torch, np, dev, cases):
     return out
 
 
+def lif_chunk_inputs(torch, np, dev, n, t_steps, seed):
+    """(state (N, 3), x_seq (T, N, 3), params (N, 4)) on the card, drives
+    as the engine gives them (w in [-1, 1], V_dd, 5 spikes)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    state = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 0.3, n),
+                      rng.uniform(0, 3, n) * (rng.random(n) < 0.3)], 1)
+    x = np.stack([rng.uniform(-1, 1, (t_steps, n)),
+                  np.full((t_steps, n), 1.5), np.full((t_steps, n), 5.0)],
+                 -1)
+    return f32(state), f32(x), f32(rng.uniform(0.5, 0.8, (n, 4)))
+
+
+def check_lif_chunk(torch, np, dev):
+    """``lif_chunk`` against its plain version (T chained periods) and
+    against T ``lif_step`` launches, both bit for bit."""
+    from repro_torch.core.circuits import LIFNeuron
+    from repro_torch.kernels import lif_scan
+    circ = LIFNeuron()
+    t_steps = T_CHUNK_CHECK
+    out = {"shape": f"state ({N_MAIN}, 3), x_seq ({t_steps}, {N_MAIN}, 3), "
+                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0}
+    for n in (N_MAIN, N_RAGGED):
+        state, x, params = lif_chunk_inputs(torch, np, dev, n, t_steps, n)
+        new_state, obs = lif_scan.lif_chunk(state, x, params, circ=circ)
+        got = (new_state, obs["output"], obs["energy"], obs["latency"],
+               obs["spiked"])
+        want = lif_scan.chunk_plain(circ, state, x, params)
+        s, steps = state, []
+        for k in range(t_steps):
+            s, o = lif_scan.lif_step(s, x[k], params, circ=circ)
+            steps.append(o)
+        torch.cuda.synchronize()
+        tag = f"lif_chunk n={n}"
+        if not torch.equal(got[4], want[4]):
+            fail(f"{tag}: spiked differs from the plain version on "
+                 f"{int((got[4] != want[4]).sum())} neuron-ticks")
+        for name, g, w in zip(("state", "output", "energy", "latency"),
+                              got[:4], want[:4]):
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     compare(g, w, f"{tag} {name}"))
+        same = torch.equal(new_state, s) and all(
+            torch.equal(obs[f][k], steps[k][f]) for k in range(t_steps)
+            for f in ("output", "energy", "latency", "spiked"))
+        if not same:
+            fail(f"{tag}: differs from {t_steps} lif_step launches")
+        out[f"equals_{t_steps}_lif_step_launches"] = True
+        if n == N_MAIN:
+            out["spiking_share"] = float(got[4].float().mean())
+            out["ms"] = time_ms(
+                lambda: lif_scan.lif_chunk(state, x, params, circ=circ),
+                torch)
+            # 64 x 64 substeps of small PyTorch ops: over a second a call
+            out["plain_ms"] = time_ms(
+                lambda: lif_scan.chunk_plain(circ, state, x, params), torch,
+                reps=3)
+            out["ms_per_tick"] = out["ms"] / t_steps
+            out["lif_step_x64_ms"] = time_ms(lambda: [
+                lif_scan.lif_step(state, x[k], params, circ=circ)
+                for k in range(t_steps)], torch)
+            n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
+            flops = t_steps * n * (LIF_FLOPS_SETUP
+                                   + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
+    return out
+
+
+def check_network_tick_chunk(torch, np, dev, cases):
+    """``network_tick_chunk`` (T = 64, LIF rows) on each ``(label, pack,
+    layout, timed)`` case against its plain version (T plain ticks) and
+    against T ``network_tick`` launches: o, t_last and the event class
+    identical to the launches (and v, e, l too: the same device code)."""
+    from repro_torch.core.wrapper import LasanaState
+    from repro_torch.kernels import tick_megakernel as mk
+    t_steps, clock, vdd = T_CHUNK_CHECK, 5.0, 1.5
+    ulp = float(np.spacing(np.float32(0.75)))
+    out = {"max_abs_err": 0.0, "threshold_rows": 0}
+    for label, pk, ly, timed in cases:
+        for n in (N_MAIN, N_RAGGED):
+            v, o, t_last, params, _, _, _ = tick_inputs(torch, np, dev, n,
+                                                        n + 5, vdd)
+            rng = np.random.default_rng(n + 6)
+            changed = rng.random((t_steps, n)) < 0.7
+            changed[:, :128] = False
+            ch = torch.as_tensor(changed, device=dev)
+            _, x, _ = lif_chunk_inputs(torch, np, dev, n, t_steps, n + 7)
+            ts = torch.as_tensor(
+                (np.arange(t_steps, dtype=np.float32) + 7.0) * clock,
+                device=dev)
+            kw = dict(circuit="lif", clock_ns=clock, layout=ly,
+                      spiking=True, vdd=vdd)
+            got = mk.network_tick_chunk(pk, v, o, t_last, params, ch, x, ts,
+                                        **kw)
+            st, seq = (v, o, t_last), []
+            for k in range(t_steps):
+                r = mk.network_tick(pk, *st, params, ch[k], x[k], ts[k],
+                                    None, **kw)
+                st, seq = r[:3], seq + [r]
+            tag = f"network_tick_chunk {label} n={n}"
+            torch.cuda.synchronize()
+            launches = (torch.equal(got[0], st[0]), torch.equal(got[1], st[1]),
+                        torch.equal(got[2], st[2]),
+                        all(torch.equal(got[3][k], seq[k][1])
+                            and torch.equal(got[4][k], seq[k][3])
+                            and torch.equal(got[5][k], seq[k][4])
+                            for k in range(t_steps)))
+            if not all(launches):
+                fail(f"{tag}: differs from {t_steps} network_tick launches "
+                     f"(v, o, t_last, per-tick records equal: {launches})")
+            # the plain version, tick by tick from the kernel's own state,
+            # so that a threshold flip in one tick does not carry over
+            state = LasanaState(v, o, t_last, params)
+            for k in range(t_steps):
+                pv, po, ptl, pe, pl_, o_hat = mk._tick_arrays(
+                    pk["a"], pk["t"], state.v, state.o, state.t_last,
+                    params, ch[k], x[k], ts[k], circuit="lif",
+                    clock_ns=clock, out_eps=0.02, spiking=True, vdd=vdd,
+                    annotate=False, known_out=None, layout=ly)
+                g = seq[k]
+                flip = (g[1] != po).cpu().numpy()
+                near = (torch.abs(o_hat - 0.75) <= HALF_VDD_BAND * ulp
+                        ).cpu().numpy()
+                if (flip & ~near).any():
+                    fail(f"{tag} tick {k}: spike differs from the plain "
+                         f"version on {int((flip & ~near).sum())} rows away "
+                         "from the threshold")
+                out["threshold_rows"] += int(flip.sum())
+                if not torch.equal(g[2], ptl):
+                    fail(f"{tag} tick {k}: t_last differs from the plain "
+                         "version")
+                for name, a, b in (("v", g[0], pv), ("e", g[3], pe),
+                                   ("l", g[4], pl_)):
+                    out["max_abs_err"] = max(out["max_abs_err"], compare(
+                        a, b, f"{tag} tick {k} {name}", mask=~flip))
+                state = LasanaState(*g[:3], params)
+            out[f"{label}: equals_{t_steps}_network_tick_launches"] = True
+            if not timed or n != N_MAIN:
+                continue
+            args = (pk, v, o, t_last, params, ch, x, ts)
+            out["shape"] = (f"N={n}, T={t_steps}, LIF rows, A stack "
+                            f"{tuple(pk['a']['w0'].shape)}, T stack "
+                            f"{tuple(pk['t']['w0'].shape)}")
+            out["ms"] = time_ms(lambda: mk.network_tick_chunk(*args, **kw),
+                                torch)
+            out["plain_ms"] = time_ms(lambda: mk.chunk_plain(
+                pk, "lif", LasanaState(v, o, t_last, params), ch, x, ts,
+                clock, layout=ly), torch, reps=5)
+            out["ms_per_tick"] = out["ms"] / t_steps
+            out["network_tick_x64_ms"] = time_ms(lambda: seq_launch(
+                mk, pk, v, o, t_last, params, ch, x, ts, kw), torch)
+            # the work this data needs, tick by tick from the launches
+            h1, h2 = pk["a"]["w0"].shape[2], pk["a"]["w1"].shape[2]
+            fa = [head_flops(fm, 10, h1, h2) for fm in ly.a_fams]
+            ft = [head_flops(fm, 12, h1, h2) for fm in ly.t_fams]
+            flops, prev_tl = 0, t_last
+            for k in range(t_steps):
+                n_ch = int(ch[k].sum())
+                n_st = int((ch[k] & (prev_tl < ts[k] - clock)).sum())
+                n_tr = int((ch[k] & (seq[k][1] > 0.75)).sum())
+                flops += n_ch * sum(fa) + n_st * sum(fa[:2]) + n_tr * sum(ft)
+                prev_tl = seq[k][2]
+            weights = sum(a.numel() for s_ in pk.values()
+                          for a in s_.values())
+            n_bytes = (n * (3 + 4) * 4 + t_steps * n * (1 + 3 * 4) + t_steps
+                       * 4 + n * 3 * 4 + t_steps * n * 3 * 4 + weights * 4)
+            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
+    return out
+
+
+def seq_launch(mk, pk, v, o, t_last, params, ch, x, ts, kw):
+    """T ``network_tick`` launches, state passed from tick to tick."""
+    st = (v, o, t_last)
+    for k in range(ch.shape[0]):
+        st = mk.network_tick(pk, *st, params, ch[k], x[k], ts[k], None,
+                             **kw)[:3]
+
+
+def check_mlp_surrogate(torch, np, dev):
+    """One unstandardized MLP head at (F, H1, H2) = (41, 100, 50) (timed)
+    and (67, 100, 50), N = 12,800 and 12,837, fp32 and bf16 inputs."""
+    from repro_torch.kernels import mlp_surrogate
+    from repro_torch.kernels import ops
+    out = {"max_abs_err": 0.0,
+           "main_path": "none: no entry point of the JAX package or of the "
+                        "port calls it (only tests/test_kernels.py); its "
+                        "launches are the kernel check's"}
+    before = ops.LAUNCHES["mlp_surrogate"]
+    for f in (41, 67):
+        h1, h2 = 100, 50
+        rng = np.random.default_rng(f)
+        w = [torch.as_tensor((rng.normal(0, 1, s) * 0.1).astype(np.float32),
+                             device=dev)
+             for s in ((f, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,))]
+        for n in (N_MAIN, N_RAGGED):
+            x = torch.as_tensor(rng.normal(0, 1, (n, f)), dtype=torch.float32,
+                                device=dev)
+            for xx in (x, x.bfloat16()):
+                got = mlp_surrogate.mlp_surrogate(xx, *w)
+                want = mlp_surrogate.mlp_plain(xx, *w)
+                torch.cuda.synchronize()
+                out["max_abs_err"] = max(out["max_abs_err"], compare(
+                    got, want, f"mlp_surrogate F={f} n={n} {xx.dtype}"))
+            if n != N_MAIN:
+                continue
+            key = "" if f == 41 else "_f67"
+            out[f"ms{key}"] = time_ms(
+                lambda: mlp_surrogate.mlp_surrogate(x, *w), torch)
+            out[f"plain_ms{key}"] = time_ms(
+                lambda: mlp_surrogate.mlp_plain(x, *w), torch)
+            flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
+            n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
+            b, by = bound_ms(n_bytes, flops)
+            out[f"bound_ms{key}"] = b
+            out["bound_by"] = by
+            if not key:
+                out["shape"] = f"x ({n}, {f}), H1={h1}, H2={h2}"
+    out["kernel_check_launches"] = ops.LAUNCHES["mlp_surrogate"] - before
+    return out
+
+
 # --- phase 4: the main path -------------------------------------------------
 
-def profile_run(torch, eng, x, surrogates) -> dict:
-    """Device time by kernel over one more steady run (``torch.profiler``):
-    the device's busy and idle share of the run's wall time (the profiler
-    adds host time of its own) and the five kernels that take the most."""
+def profile_run(torch, fn) -> dict:
+    """Device time by kernel over one more steady run, ``fn()``
+    (``torch.profiler``): the device's busy and idle share of the run's
+    wall time (the profiler adds host time of its own) and the five
+    kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.dispatch(x, surrogates=surrogates).result()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -560,7 +797,8 @@ def drive(torch, spec, x, kw, profile):
            "events_per_s": rep["events_per_sec"], "events": rep["events"],
            "sync_debug_mode": "error"}
     if profile:
-        res["profile"] = profile_run(torch, eng, x, kw.get("surrogates"))
+        res["profile"] = profile_run(torch, lambda: eng.dispatch(
+            x, surrogates=kw.get("surrogates")).result())
     return run, counts, res
 
 
@@ -724,6 +962,217 @@ def mixed_runs(torch, np, dev, surs, profile):
     return total
 
 
+# --- phase 5: streaming --------------------------------------------------------
+
+RECORD_FIELDS = ("outputs", "out_spikes", "energy", "latency", "events",
+                 "flush_energy")
+
+
+def stream_blocks(np, t_steps=STREAM_TICKS):
+    """The host generator: block j is the 100 digits Poisson-encoded for
+    250 ticks with seed 5 + j, in V_dd spikes."""
+    from repro_torch.data.mnist import make_digits, poisson_encode
+    imgs, _ = make_digits(N_IMAGES, size=28, seed=777)
+    for j in range(-(-t_steps // STREAM_BLOCK)):
+        blk = poisson_encode(imgs, STREAM_BLOCK, seed=5 + j) * 1.5
+        yield blk[:t_steps - j * STREAM_BLOCK].astype(np.float32)
+
+
+def same_record(np, got, want, name):
+    """Every record field equal bit for bit, else fail."""
+    for f in RECORD_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        if (g is None) != (w is None) or (
+                w is not None and not np.array_equal(g, w)):
+            fail(f"{name}: {f} differs")
+
+
+def scaled_surrogate(sur, factor):
+    """A copy of ``sur`` with its MLP weight matrices scaled by
+    ``factor``: a same-structure weight swap."""
+    from repro_torch.core.surrogate import Surrogate
+    params = {p: {k: a * factor if sur.manifest.family_of(p) == "mlp"
+                  and k.startswith("w") else a for k, a in d.items()}
+              for p, d in sur.params.items()}
+    return Surrogate(sur.manifest, params, sur.fit_info)
+
+
+def stream_runs(torch, np, dev, surs, profile):
+    """The stream phase: the 784-128-10 SNN and its hidden layer alone
+    through ``simulate_stream`` (each against its monolithic run, bit for
+    bit; the hidden layer also against its JAX record), kill and resume,
+    a per-chunk hot swap, and peak device memory."""
+    import repro_torch.lasana as lasana
+    from repro_torch.convert import graph_spec_from_numpy, spec_from_numpy
+    from repro_torch.kernels import ops
+    with np.load(ART / "snn_784_128_10.npz") as z:
+        ws = [z["w0"], z["w1"]]
+    knobs = np.array(LIF_KNOBS, np.float32)
+    specs = {"snn_784_128_10": lambda: spec_from_numpy(ws, [knobs] * 2),
+             "hidden_784_128": lambda: graph_spec_from_numpy(
+                 [{"circuit": "lif", "weight": ws[0], "params": knobs}])}
+    t0 = time.perf_counter()
+    x_host = np.concatenate(list(stream_blocks(np)))
+    host_s = time.perf_counter() - t0       # the generator alone, on the host
+    rec = dict(np.load(ART / "stream_784_128_ref_record.npz"))
+    chunks = -(-STREAM_TICKS // STREAM_CHUNK)
+    runs = {
+        ("snn_784_128_10", "golden"): (dict(backend="golden"),
+                                       {"lif_step": 2 * STREAM_TICKS}),
+        ("snn_784_128_10", "lasana"): (dict(surrogates=surs["lif"]),
+                                       {"network_tick": 2 * STREAM_TICKS}),
+        ("hidden_784_128", "golden"): (dict(backend="golden"),
+                                       {"lif_chunk": chunks, "lif_step": 0}),
+        ("hidden_784_128", "lasana"): (dict(surrogates=surs["lif"]),
+                                       {"network_tick_chunk": chunks,
+                                        "network_tick": 0}),
+    }
+    total, streamed, built = {}, {}, {}
+    smi = nvidia_smi()
+    for (wl, name), (kw, want) in runs.items():
+        spec = specs[wl]()
+        ekw = {k: v for k, v in kw.items() if k != "surrogates"}
+        mono = lasana.simulate(spec, torch.as_tensor(x_host, device=dev),
+                               record_hidden=False, **kw)
+        eng = lasana.engine(spec, record_hidden=False, **ekw)
+        ops.reset_launches()
+        first = lasana.simulate_stream(spec, stream_blocks(np),
+                                       chunk_ticks=STREAM_CHUNK, **kw)
+        counts = dict(ops.LAUNCHES)
+        check_launches(f"stream {wl} {name}", counts, want)
+        # steady: the whole stream with host syncs forbidden but the
+        # wait on each chunk's copy event
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            run = lasana.simulate_stream(spec, stream_blocks(np),
+                                         chunk_ticks=STREAM_CHUNK, **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same_record(np, first, mono, f"stream {wl} {name} vs monolithic")
+        same_record(np, run, mono, f"steady stream {wl} {name}")
+        events = int(run.events.sum())
+        res = {"phase": "stream", "workload": wl, "run": name,
+               "ticks": STREAM_TICKS, "chunk_ticks": STREAM_CHUNK,
+               "launches": counts, "wall_s": wall,
+               "events_per_s": events / wall, "events": events,
+               "runners_built": eng.compile_count,
+               "host_stimulus_s": host_s,
+               "equals_monolithic_bitwise": True,
+               "sync_debug_mode": "error", "card": smi}
+        if wl == "hidden_784_128":
+            counts_port = (run.out_spikes > 0.75).sum(0)
+            agree = float(np.mean(counts_port == rec[f"{name}/counts"]))
+            e_port = float(run.energy.sum() + run.flush_energy.sum())
+            e_ref = float(rec[f"{name}/energy"].sum()
+                          + rec[f"{name}/flush_energy"].sum())
+            e_diff = abs(e_port - e_ref) / max(abs(e_ref), 1e-30)
+            res.update({"count_agreement_vs_ref": agree,
+                        "events_equal_ref": bool(np.array_equal(
+                            run.events[:, 0], rec[f"{name}/events"])),
+                        "energy_j": e_port, "energy_rel_diff_vs_ref": e_diff})
+            if agree < 0.99 or e_diff > 0.01 or not np.isfinite(
+                    run.energy).all():
+                fail(f"stream {wl} {name}: spike-count agreement {agree:.4f}"
+                     f" (< 0.99) or energy difference {e_diff:.4%} (> 1%) "
+                     "against the JAX record")
+        if profile:
+            res["profile"] = profile_run(
+                torch, lambda: lasana.simulate_stream(
+                    spec, stream_blocks(np), chunk_ticks=STREAM_CHUNK, **kw))
+        line(res)
+        add_counts(total, f"stream/{wl}/{name}", counts)
+        streamed[(wl, name)], built[(wl, name)] = (spec, run), eng
+    stream_checks(torch, np, dev, surs, specs, x_host, streamed, built)
+    return total
+
+
+def stream_checks(torch, np, dev, surs, specs, x_host, streamed, built):
+    """Kill and resume, hot swap and bounded memory on the SNN's lasana
+    stream."""
+    import itertools
+    import repro_torch.lasana as lasana
+    from repro_torch.core.network import StreamingRun
+    sur = surs["lif"]
+    spec, full = streamed[("snn_784_128_10", "lasana")]
+    eng = built[("snn_784_128_10", "lasana")]
+    kw = dict(chunk_ticks=STREAM_CHUNK, surrogates=sur)
+
+    # kill after chunk 2, save its checkpoint, resume on a fresh engine
+    acc, ckpt = StreamingRun(), None
+    gen = lasana.stream(spec, stream_blocks(np), checkpoint_every=2, **kw)
+    for i, chunk in enumerate(gen):
+        acc.update(chunk)
+        if i == 1:
+            ckpt = chunk.checkpoint
+            break
+    gen.close()
+    if ckpt is None or ckpt.k0 != 2 * STREAM_CHUNK:
+        fail("stream: chunk 2 carries no checkpoint at tick 1024")
+    path = ROOT / "build" / "chip_smoke" / "snn_lasana_ckpt.npz"
+    ckpt.save(str(path))
+    fresh = specs["snn_784_128_10"]()
+    resumed = lasana.resume(str(path), fresh, stream_blocks(np),
+                            surrogates=sur)
+    same_record(np, resumed, full, "resume on a fresh engine")
+    warm = lasana.engine(fresh, record_hidden=False)
+    builds = warm.compile_count
+    again = lasana.resume(str(path), fresh, stream_blocks(np), surrogates=sur)
+    same_record(np, again, full, "resume on a warm engine")
+    if warm.compile_count != builds:
+        fail(f"resume on a warm engine built "
+             f"{warm.compile_count - builds} runners")
+
+    # hot swap: the artifact and a 1e-3-scaled copy, chunk by chunk
+    builds = eng.compile_count
+    swapped = lasana.simulate_stream(
+        spec, stream_blocks(np), chunk_ticks=STREAM_CHUNK,
+        surrogates=itertools.cycle([sur, scaled_surrogate(sur, SWAP_SCALE)]))
+    if eng.compile_count != builds:
+        fail(f"hot swap built {eng.compile_count - builds} runners")
+    e_full, e_swap = float(full.energy.sum()), float(swapped.energy.sum())
+    if e_swap == e_full:
+        fail("hot swap: energy equals the unswapped stream's")
+
+    # bounded memory: peak device memory of the 2,000- and 1,024-tick
+    # streams against the monolithic run (stimulus upload included)
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    mem = {
+        "monolithic_2000": peak(lambda: lasana.simulate(
+            spec, x_host, surrogates=sur, record_hidden=False)),
+        "stream_2000": peak(lambda: lasana.simulate_stream(
+            spec, stream_blocks(np), **kw)),
+        "stream_1024": peak(lambda: lasana.simulate_stream(
+            spec, stream_blocks(np, 1024), **kw)),
+    }
+    if not (mem["stream_2000"] < mem["monolithic_2000"]
+            and abs(mem["stream_2000"] - mem["stream_1024"])
+            <= 0.05 * mem["stream_1024"]):
+        fail(f"stream memory not bounded: {mem}")
+    line({"phase": "stream_checks", "workload": "snn_784_128_10",
+          "run": "lasana", "resume_equals_uninterrupted_bitwise": True,
+          "resume_k0": ckpt.k0, "warm_resume_runners_built": 0,
+          "hot_swap_runners_built": 0, "hot_swap_energy_j": e_swap,
+          "unswapped_energy_j": e_full,
+          "peak_device_bytes": mem, "card": nvidia_smi()})
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def add_counts(total, run_name, counts):
     """Fold one run's launch counts into ``{kernel: {run: n}}``."""
     for kernel, n in counts.items():
@@ -738,6 +1187,7 @@ def main() -> int:
                     help="also trace one steady run of each main-path "
                          "simulation and print device time by kernel")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -748,10 +1198,7 @@ def main() -> int:
     from repro_torch.kernels import tick_megakernel as mk
     from repro_torch.lasana import load
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     line(smi)
     dev = ops.resolve_device("cuda")
     line({"phase": "device", "torch": torch.__version__,
@@ -792,12 +1239,18 @@ def main() -> int:
             "crossbar": (surs["crossbar_unpackable"],
                          (N_XBAR, N_XBAR_RAGGED))}),
         "network_tick": check_network_tick(torch, np, dev, tick_cases),
+        "network_tick_chunk": check_network_tick_chunk(torch, np, dev, [
+            ("lif packable", *mk.pack_heads(surs["lif"]), True),
+            ("lif mean_linear",
+             *mk.pack_heads(mean_linear_surrogate(np, dev)), False)]),
+        "lif_chunk": check_lif_chunk(torch, np, dev),
+        "mlp_surrogate": check_mlp_surrogate(torch, np, dev),
     }
     for name, c in checks.items():
         line({"phase": "kernel_check", "kernel": name, **c})
 
     launches = {}
-    for runs in (snn_runs, xbar_runs, mixed_runs):
+    for runs in (snn_runs, xbar_runs, mixed_runs, stream_runs):
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)
@@ -811,12 +1264,21 @@ def main() -> int:
                                 "src/repro/kernels/mlp_surrogate.py:89"),
         "network_tick": ("src/repro_torch/kernels/csrc/network_tick.cu",
                          "src/repro/kernels/tick_megakernel.py:508"),
+        "network_tick_chunk": ("src/repro_torch/kernels/csrc/network_tick.cu",
+                               "src/repro/kernels/tick_megakernel.py:604"),
+        "lif_chunk": ("src/repro_torch/kernels/csrc/lif_step.cu",
+                      "src/repro/kernels/lif_scan.py:114"),
+        "mlp_surrogate": ("src/repro_torch/kernels/csrc/mlp_heads.cu",
+                          "src/repro/kernels/mlp_surrogate.py:36"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         c = checks[name]
         by_run = launches.get(name, {})
-        if not by_run:
+        if name == "mlp_surrogate":
+            # on no main path: its launches are the kernel check's
+            by_run = {"kernel_check": c.pop("kernel_check_launches")}
+        elif not by_run:
             fail(f"{name}: no main-path run launched it")
         extra = {k: v for k, v in c.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -828,6 +1290,7 @@ def main() -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None,
             "launches_by_run": by_run, **extra})
+    line({"phase": "done", "seconds": time.perf_counter() - t_start})
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,14 @@ enqueues, :meth:`PendingRun.result` fetches). A "program" here is the
 engine's runner for one (batch, ticks, surrogate structure) key: built
 once, it serves every same-structure surrogate (``compile_count``).
 
-Streaming comes with a later slice of the port.
+Streaming (:meth:`NetworkEngine.run_stream` / :meth:`NetworkEngine.stream`)
+cuts the T axis into chunks through at most two stream runners (full chunk
+and remainder) and one flush runner; chunk k is enqueued before chunk k-1's
+records are read, from pinned host buffers behind a CUDA event, and the
+merged record (:class:`StreamingRun`) equals the monolithic run bit for
+bit. A graph of one LIF layer and no edges runs a whole chunk through one
+time-looped kernel: ``network_tick_chunk`` (lasana, standalone, packable
+heads) or ``lif_chunk`` (golden); monolithic runs take the same path.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Any, Optional
 
 import numpy as np
@@ -256,6 +264,69 @@ def _row_segments(w, seg_width: int) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
+def _iter_chunks(stimulus, chunk_ticks, fan_in: int, skip_ticks: int = 0):
+    """Yield (t_i, B, fan_in) stimulus chunks for the streaming path.
+
+    ``stimulus`` is either one (T, B, fan_in) array (numpy or a tensor) —
+    sliced into ``chunk_ticks``-tick chunks — or an iterator of
+    (t_i, B, fan_in) blocks, re-buffered to ``chunk_ticks`` ticks when a
+    chunk size is given (the last chunk may be short). 2-D (B, fan_in)
+    blocks promote to one tick. ``skip_ticks`` drops the leading ticks
+    before chunking (checkpoint resume: the caller re-supplies the FULL
+    original stimulus and the consumed prefix is skipped here, so the
+    tail re-chunks exactly as the uninterrupted run would have)."""
+    if chunk_ticks is not None and chunk_ticks <= 0:
+        raise ValueError(f"chunk_ticks must be positive: {chunk_ticks}")
+
+    def check(blk):
+        if blk.ndim == 2:
+            blk = blk[None]
+        if blk.ndim != 3:
+            raise ValueError(f"stimulus chunks must be (T, B, n_in), got "
+                             f"shape {tuple(blk.shape)}")
+        if blk.shape[-1] != fan_in:
+            raise ValueError(f"input width {blk.shape[-1]} != layer-0 "
+                             f"fan_in {fan_in}")
+        return blk
+
+    skip = int(skip_ticks)
+    if hasattr(stimulus, "ndim"):              # one whole array
+        x = check(stimulus)[skip:]
+        step = int(chunk_ticks) if chunk_ticks else x.shape[0]
+        for a in range(0, x.shape[0], step):
+            yield x[a:a + step]
+        return
+    parts, have = [], 0                        # iterator of blocks
+    for block in stimulus:
+        blk = check(np.asarray(block, np.float32))
+        if skip:                               # resume: drop consumed prefix
+            if blk.shape[0] <= skip:
+                skip -= blk.shape[0]
+                continue
+            blk = blk[skip:]
+            skip = 0
+        if chunk_ticks is None:
+            yield blk
+            continue
+        parts.append(blk)
+        have += blk.shape[0]
+        while have >= chunk_ticks:             # one concat per emitted chunk
+            buf = parts[0] if len(parts) == 1 \
+                else np.concatenate(parts, axis=0)
+            yield buf[:chunk_ticks]
+            rest = buf[chunk_ticks:]
+            parts = [rest] if rest.shape[0] else []
+            have = rest.shape[0]
+    if have:
+        yield parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+
+def _t_end(k: int, circ) -> float:
+    """Run-end time after ``k`` ticks in ``circ``'s clock, rounded to f32
+    once — the same number in the monolithic and the streaming flush."""
+    return float(np.float32(k * circ.clock_ns))
+
+
 # --- run record ---------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -277,6 +348,10 @@ class NetworkRun:
     wall_seconds: float           # dispatch to fetched records (no build)
     circuits: tuple = ()          # (L,) per-layer circuit kind
     compile_seconds: float = 0.0  # one-time build of this runner
+    checkpoint: Optional[Any] = None   # StreamCheckpoint when this chunk
+                                  # closed a checkpoint interval (stream
+                                  # with checkpoint_every=); merge and
+                                  # StreamingRun ignore it
 
     def report(self) -> dict:
         """Aggregate per-layer energy/latency/events + network totals."""
@@ -325,41 +400,98 @@ class NetworkRun:
 
     @classmethod
     def merge(cls, chunks) -> "NetworkRun":
-        """Merge consecutive per-chunk records into one whole-run record:
-        spike counts sum (a crossbar last layer keeps the last chunk's
-        codes), per-tick records concatenate, flushes add (only a stream's
-        final chunk carries one), wall/compile seconds sum."""
-        chunks = list(chunks)
-        if not chunks:
-            raise ValueError("NetworkRun.merge needs at least one record")
-        first = chunks[0]
-        for c in chunks[1:]:
-            if (c.backend, c.mode, c.circuits) != (
-                    first.backend, first.mode, first.circuits):
-                raise ValueError("cannot merge chunks from different runs: "
-                                 f"{c.backend}/{c.mode} vs "
-                                 f"{first.backend}/{first.mode}")
-        cat = lambda f: np.concatenate([getattr(c, f) for c in chunks])
-        hidden = None
-        if first.layer_spikes is not None:
-            hidden = [np.concatenate([c.layer_spikes[i] for c in chunks])
-                      for i in range(len(first.layer_spikes))]
-        if first.circuits and first.circuits[-1] != "lif":
-            outputs, out_spikes = chunks[-1].outputs, None
+        """Merge consecutive per-chunk records into one whole-run record,
+        bit-identical to the monolithic run over the concatenated
+        stimulus: spike counts sum (a crossbar last layer keeps the last
+        chunk's codes), per-tick records concatenate, the flush (only on a
+        stream's final chunk) applies once, wall/compile seconds sum."""
+        acc = StreamingRun()
+        for c in chunks:
+            acc.update(c)
+        return acc.result()
+
+
+class StreamingRun:
+    """Incremental accumulator of per-chunk :class:`NetworkRun` records.
+
+    :meth:`NetworkEngine.run_stream` feeds it one chunk at a time and
+    :meth:`result` freezes a :class:`NetworkRun` bit-identical to the
+    monolithic run (see :meth:`NetworkRun.merge`). Live totals —
+    :attr:`ticks`, :attr:`events`, :attr:`energy_j` — update as chunks
+    arrive."""
+
+    def __init__(self):
+        self._first: Optional[NetworkRun] = None
+        self._last: Optional[NetworkRun] = None
+        self._counts = None            # lif last layer: running spike counts
+        self._out_chunks: list = []
+        self._hidden_chunks: list = []
+        self._energy: list = []
+        self._latency: list = []
+        self._events: list = []
+        self._flush = None
+        self.ticks = 0                 # ticks accumulated so far
+        self.events = 0                # input events accumulated so far
+        self.energy_j = 0.0            # joules accumulated so far (no flush)
+        self.wall_seconds = 0.0
+        self.compile_seconds = 0.0
+
+    def update(self, chunk: NetworkRun) -> "StreamingRun":
+        """Fold the next consecutive chunk record in; returns ``self``."""
+        if self._first is None:
+            self._first = chunk
+            self._flush = np.zeros_like(chunk.flush_energy)
+        elif (chunk.backend != self._first.backend
+                or chunk.mode != self._first.mode
+                or chunk.circuits != self._first.circuits):
+            raise ValueError("cannot merge chunks from different runs: "
+                             f"{chunk.backend}/{chunk.mode} vs "
+                             f"{self._first.backend}/{self._first.mode}")
+        self._last = chunk
+        if chunk.circuits and chunk.circuits[-1] == "lif":
+            c = np.asarray(chunk.outputs, np.int64)
+            self._counts = c if self._counts is None else self._counts + c
+            self._out_chunks.append(chunk.out_spikes)
+        if chunk.layer_spikes is not None:
+            self._hidden_chunks.append(chunk.layer_spikes)
+        self._energy.append(chunk.energy)
+        self._latency.append(chunk.latency)
+        self._events.append(chunk.events)
+        self._flush = self._flush + chunk.flush_energy
+        self.ticks += chunk.energy.shape[0]
+        self.events += int(chunk.events.sum())
+        self.energy_j += float(chunk.energy.sum())
+        self.wall_seconds += chunk.wall_seconds
+        self.compile_seconds += chunk.compile_seconds
+        return self
+
+    def result(self) -> NetworkRun:
+        """Freeze the accumulated chunks into one :class:`NetworkRun`."""
+        if self._first is None or self._last is None:
+            raise ValueError("StreamingRun.result() before any update()")
+        first, last = self._first, self._last
+        last_lif = first.circuits and first.circuits[-1] == "lif"
+        if last_lif:
+            outputs = self._counts.astype(first.outputs.dtype)
+            out_spikes = np.concatenate(self._out_chunks, axis=0)
         else:
-            outputs = sum(np.asarray(c.outputs, np.int64) for c in chunks
-                          ).astype(first.outputs.dtype)
-            out_spikes = cat("out_spikes")
-        return cls(
-            backend=first.backend, mode=first.mode, outputs=outputs,
-            out_spikes=out_spikes, layer_spikes=hidden,
-            energy=cat("energy"), latency=cat("latency"),
-            events=cat("events"),
-            flush_energy=sum(c.flush_energy for c in chunks),
+            outputs = last.outputs
+            out_spikes = None
+        hidden = None
+        if self._hidden_chunks:
+            hidden = [np.concatenate([h[i] for h in self._hidden_chunks],
+                                     axis=0)
+                      for i in range(len(self._hidden_chunks[0]))]
+        return NetworkRun(
+            backend=first.backend, mode=first.mode,
+            outputs=outputs, out_spikes=out_spikes, layer_spikes=hidden,
+            energy=np.concatenate(self._energy, axis=0),
+            latency=np.concatenate(self._latency, axis=0),
+            events=np.concatenate(self._events, axis=0),
+            flush_energy=self._flush,
             n_circuits=first.n_circuits, clock_ns=first.clock_ns,
-            wall_seconds=sum(c.wall_seconds for c in chunks),
-            circuits=first.circuits,
-            compile_seconds=sum(c.compile_seconds for c in chunks))
+            wall_seconds=self.wall_seconds, circuits=first.circuits,
+            compile_seconds=self.compile_seconds)
 
 
 class PendingRun:
@@ -566,6 +698,304 @@ class NetworkEngine:
         t0 = time.time()
         carries = [self._init_carry(i, b) for i in range(self.spec.n_layers)]
         return PendingRun(self, b, t0, compile_s, runner(x, carries, banks))
+
+    def run_stream(self, stimulus, *, chunk_ticks: Optional[int] = None,
+                   surrogates=None) -> NetworkRun:
+        """Streaming-chunked :meth:`run`: the same record, bit for bit, in
+        memory bounded by the chunk.
+
+        stimulus    (T, B, fan_in) array or tensor — sliced into chunks —
+                    or an iterator of (t_i, B, fan_in) host blocks,
+                    re-buffered to ``chunk_ticks`` when it is given
+        chunk_ticks ticks per chunk (default: one chunk = whole stimulus)
+        surrogates  as :meth:`run`; an *iterator* of surrogates or
+                    libraries hot-swaps the weights per chunk (``None``
+                    entries and exhaustion hold the last); equal-structure
+                    swaps build nothing
+        """
+        acc = StreamingRun()
+        for chunk in self.stream(stimulus, chunk_ticks=chunk_ticks,
+                                 surrogates=surrogates):
+            acc.update(chunk)
+        return acc.result()
+
+    def stream(self, stimulus, *, chunk_ticks: Optional[int] = None,
+               surrogates=None, checkpoint_every: Optional[int] = None,
+               resume_from=None):
+        """Generator variant of :meth:`run_stream`: one :class:`NetworkRun`
+        per chunk, yielded once chunk k+1 is enqueued; only the final chunk
+        carries ``flush_energy``. Arguments as :meth:`run_stream`, plus:
+
+        checkpoint_every  attach a resumable
+                    :class:`~repro_torch.resilience.checkpoint.StreamCheckpoint`
+                    to every Nth chunk's record (``.checkpoint``; never
+                    the final, flush-bearing chunk). Requires
+                    ``chunk_ticks``.
+        resume_from  a ``StreamCheckpoint``: restore the carries and the
+                    tick offset and continue. The caller re-supplies the
+                    FULL original stimulus (the consumed prefix is
+                    skipped); only post-resume chunks are yielded.
+
+        Argument errors raise here, not at the first ``next()``."""
+        spec = self.spec
+        if chunk_ticks is not None and chunk_ticks <= 0:
+            raise ValueError(f"chunk_ticks must be positive: {chunk_ticks}")
+        if resume_from is not None:
+            resume_from.verify_engine(self, spec)
+            if chunk_ticks is None:
+                chunk_ticks = resume_from.chunk_ticks
+            elif chunk_ticks != resume_from.chunk_ticks:
+                raise ValueError(
+                    f"chunk_ticks {chunk_ticks} != checkpoint's "
+                    f"{resume_from.chunk_ticks}: the resumed tail must "
+                    "re-chunk exactly as the original stream")
+        # after the resume's chunk size is known, so that a resumed tail
+        # can re-arm checkpoints without naming the chunk size again
+        if checkpoint_every is not None:
+            if checkpoint_every <= 0:
+                raise ValueError("checkpoint_every must be positive: "
+                                 f"{checkpoint_every}")
+            if chunk_ticks is None:
+                raise ValueError(
+                    "checkpoint_every requires chunk_ticks: checkpoints "
+                    "sit at chunk boundaries")
+        if hasattr(stimulus, "ndim"):
+            if stimulus.ndim not in (2, 3):
+                raise ValueError("stimulus must be (T, B, n_in) or "
+                                 f"(B, n_in), got shape "
+                                 f"{tuple(stimulus.shape)}")
+            if stimulus.shape[-1] != spec.layers[0].fan_in:
+                raise ValueError(f"input width {stimulus.shape[-1]} != "
+                                 f"layer-0 fan_in "
+                                 f"{spec.layers[0].fan_in}")
+        sur_iter, static_banks = None, None
+        if surrogates is not None and hasattr(surrogates, "__next__"):
+            if self.backend != "lasana":
+                raise ValueError(
+                    f"backend={self.backend!r} does not use surrogates; "
+                    "pass surrogates= only with backend='lasana'")
+            sur_iter = surrogates
+        else:
+            static_banks = self._runtime_banks(surrogates)
+        return self._stream_gen(stimulus, chunk_ticks, static_banks,
+                                sur_iter, checkpoint_every, resume_from)
+
+    def _stream_gen(self, stimulus, chunk_ticks, static_banks, sur_iter,
+                    checkpoint_every=None, resume_from=None):
+        spec = self.spec
+        chunks = _iter_chunks(stimulus, chunk_ticks, spec.layers[0].fan_in,
+                              skip_ticks=(resume_from.k0
+                                          if resume_from is not None else 0))
+        cur = next(chunks, None)
+        if cur is None:
+            raise ValueError("streaming run needs at least one stimulus "
+                             "tick" + (" past the checkpoint offset"
+                                       if resume_from is not None else ""))
+        b = cur.shape[1]
+        n_layers = spec.n_layers
+        last_lif = spec.circuits[-1] == "lif"
+        carries = [self._init_carry(i, b) for i in range(n_layers)]
+        prev_ys = [torch.zeros((b, l.n_out), device=self.device)
+                   for l in spec.layers]
+        k0 = 0
+        if resume_from is not None:
+            carries, prev_ys = self._restore_state(resume_from, carries,
+                                                   prev_ys, b)
+            k0 = int(resume_from.k0)
+        banks = static_banks
+        # the accumulator mirrors every yielded record so that a
+        # checkpoint carries the exact merged prefix
+        acc = None
+        if checkpoint_every is not None:
+            acc = StreamingRun()
+            if resume_from is not None:
+                acc.update(resume_from.acc_run)
+
+        mark = time.time()             # segment boundary for the wall split
+        comp_seg = 0.0                 # build seconds in the current segment
+        n_circuits = np.asarray([l.n_circuits(b) for l in spec.layers])
+
+        def finalize(pend, flush):
+            nonlocal mark, comp_seg
+            host, snap, event, comp_s, k_end = pend
+            if event is not None:
+                event.synchronize()    # this chunk's copies, not the device
+            primary, out_seq, e_tl, l_tl, ev_tl, *hidden = host
+            now = time.time()
+            wall = max(now - mark - comp_seg, 0.0)
+            mark, comp_seg = now, 0.0
+            run = NetworkRun(
+                backend=self.backend, mode=self.mode,
+                outputs=primary.numpy(),
+                out_spikes=out_seq.numpy() if last_lif else None,
+                layer_spikes=[h.numpy() for h in hidden]
+                if self.record_hidden else None,
+                energy=e_tl.numpy(), latency=l_tl.numpy(),
+                events=ev_tl.numpy().astype(np.int64), flush_energy=flush,
+                n_circuits=n_circuits, clock_ns=self.clock_ns,
+                wall_seconds=wall, circuits=spec.circuits,
+                compile_seconds=comp_s)
+            if acc is not None:
+                acc.update(run)
+                if snap is not None:
+                    leaves, prev = snap
+                    run.checkpoint = self._make_checkpoint(
+                        [np.array(a.numpy()) for a in leaves],
+                        [np.array(a.numpy()) for a in prev], k_end,
+                        int(chunk_ticks), b, acc)
+            return run
+
+        pending = None                 # the previous chunk's host copies
+        inflight = None                # the latest chunk's copy event
+        try:
+            while cur is not None:
+                x_chunk = self._upload(cur)
+                if x_chunk.shape[1] != b:
+                    raise ValueError(
+                        f"stimulus chunk batch {x_chunk.shape[1]} "
+                        f"!= first chunk batch {b}")
+                if sur_iter is not None:
+                    swap = next(sur_iter, None)
+                    if swap is not None:
+                        banks = self._runtime_banks(swap)
+                    elif banks is None:
+                        raise ValueError("surrogate iterator must yield a "
+                                         "library for the first chunk")
+                tc = x_chunk.shape[0]
+                key = self._program_key("stream", b, tc, banks)
+                step, comp_s = self._compiled(
+                    key, lambda: self._build_stream_step(tc))
+                comp_seg += comp_s
+                # enqueue chunk k, then read chunk k-1's records
+                (primary, out_seq, hidden, e_tl, l_tl, ev_tl, carries,
+                 prev_ys) = step(x_chunk, k0, carries, prev_ys, banks)
+                k0 += tc
+                records = [primary, out_seq if last_lif else None, e_tl,
+                           l_tl, ev_tl, *hidden]
+                due = acc is not None and (
+                    -(-k0 // int(chunk_ticks)) % checkpoint_every == 0)
+                (host, *snap), event = self._to_host(
+                    records, *((_carry_leaves(carries), prev_ys) if due
+                               else ()))
+                inflight = event
+                if pending is not None:
+                    yield finalize(pending, np.zeros((n_layers,),
+                                                     np.float32))
+                pending = (host, snap or None, event, comp_s, k0)
+                if k0 > 2 ** 24 and k0 - tc <= 2 ** 24:
+                    # tick times and LasanaState.t_last are f32: past 2^24
+                    # ticks consecutive tick times collide, so tau-dependent
+                    # records (merged-E2 idle energy, flush) lose precision
+                    warnings.warn(
+                        f"stream passed tick 2^24 ({k0} ticks): f32 tick "
+                        "times can no longer distinguish consecutive ticks; "
+                        "tau-dependent energy records degrade beyond here",
+                        RuntimeWarning, stacklevel=2)
+                cur = next(chunks, None)
+
+            flush = np.zeros((n_layers,), np.float32)
+            if self.backend == "lasana":
+                fkey = self._program_key("flush", b, None, banks)
+                flush_fn, comp_s = self._compiled(
+                    fkey, self._build_flush)
+                comp_seg += comp_s
+                t_ends = [_t_end(k0, c) for c in self.circs]
+                ((flush_t,),), ev = self._to_host(
+                    [flush_fn(carries, t_ends, banks)])
+                if ev is not None:
+                    ev.synchronize()
+                flush = flush_t.numpy()
+            # the final chunk never carries a checkpoint: its record holds
+            # the end-of-run flush, which a resumed tail would charge again
+            host, _, event, comp_s, k_end = pending
+            yield finalize((host, None, event, comp_s, k_end), flush)
+        finally:
+            # a consumer that stops mid-stream closes the generator with a
+            # chunk in flight: let it finish before its buffers are dropped
+            if inflight is not None:
+                inflight.synchronize()
+
+    def _upload(self, a):
+        """A host block (numpy or tensor) as a float32 tensor on the
+        engine's device; a CPU block reaches the card through pinned
+        memory and an asynchronous copy (no host synchronisation)."""
+        t = torch.as_tensor(a, dtype=torch.float32)
+        if self.device.type != "cuda" or t.device == self.device:
+            return t.to(self.device)
+        if t.device.type == "cpu":
+            t = t.contiguous().pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _to_host(self, *groups):
+        """``(groups, event)``: each group (a list of tensors or None) as
+        host tensors. On CUDA each tensor is copied into pinned host
+        memory asynchronously and one CUDA event is recorded behind the
+        copies (wait on it, not on the device); on the CPU the tensors
+        are their own host copies and there is no event."""
+        if self.device.type != "cuda":
+            return [list(g) for g in groups], None
+        out = []
+        for group in groups:
+            host = []
+            for t in group:
+                h = None
+                if t is not None:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                host.append(h)
+            out.append(host)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return out, event
+
+    def _restore_state(self, ckpt, init_carries, init_prev, b: int):
+        """Device carries and prev_ys from a checkpoint's host leaves,
+        poured into the structure of fresh tick-0 carries for batch ``b``;
+        shape mismatches fail here, at resume."""
+        if ckpt.batch != b:
+            raise ValueError(f"checkpoint batch {ckpt.batch} != stimulus "
+                             f"batch {b}")
+        flat = _carry_leaves(init_carries)
+        if len(ckpt.carry_leaves) != len(flat):
+            raise ValueError(
+                f"checkpoint has {len(ckpt.carry_leaves)} carry leaves, "
+                f"engine expects {len(flat)} — different network or "
+                "backend")
+        leaves = []
+        for ref, leaf in zip(flat, ckpt.carry_leaves):
+            if tuple(ref.shape) != tuple(np.shape(leaf)):
+                raise ValueError(
+                    f"checkpoint carry leaf shape {tuple(np.shape(leaf))} "
+                    f"!= engine's {tuple(ref.shape)}")
+            leaves.append(self._upload(np.asarray(leaf, np.float32)))
+        carries, it = [], iter(leaves)
+        for c in init_carries:
+            vals = [next(it) for _ in c]
+            carries.append(type(c)(*vals) if isinstance(c, LasanaState)
+                           else tuple(vals))
+        if len(ckpt.prev_ys) != len(init_prev):
+            raise ValueError(
+                f"checkpoint has {len(ckpt.prev_ys)} prev_ys entries, "
+                f"engine expects {len(init_prev)}")
+        prev_ys = []
+        for ref, p in zip(init_prev, ckpt.prev_ys):
+            if tuple(ref.shape) != tuple(np.shape(p)):
+                raise ValueError(
+                    f"checkpoint prev_ys shape {tuple(np.shape(p))} != "
+                    f"engine's {tuple(ref.shape)}")
+            prev_ys.append(self._upload(p))
+        return carries, prev_ys
+
+    def _make_checkpoint(self, leaves, prev, k0: int, chunk_ticks: int,
+                         b: int, acc):
+        """Freeze one chunk-boundary snapshot into a StreamCheckpoint."""
+        from repro_torch.resilience.checkpoint import (StreamCheckpoint,
+                                                       spec_key_of)
+        return StreamCheckpoint(
+            k0=int(k0), chunk_ticks=int(chunk_ticks), batch=int(b),
+            spec_key=spec_key_of(self.spec), backend=self.backend,
+            mode=self.mode, record_hidden=self.record_hidden,
+            carry_leaves=leaves, prev_ys=prev, acc_run=acc.result())
 
     # --- per-layer state ------------------------------------------------------
 
@@ -806,49 +1236,172 @@ class NetworkEngine:
                 packs[kind] = (p, lo)
         return packs
 
+    def _chunk_eligible(self) -> bool:
+        """Whether :meth:`_chunk_fast_path` can replace the per-tick loop:
+        a single-LIF-layer standalone lasana graph with no delayed edges
+        (the only tick-to-tick dataflow is then the LIF carry, which the
+        time-looped kernel owns)."""
+        spec = self.spec
+        return (self.backend == "lasana" and self.mode == "standalone"
+                and self.fused and spec.n_layers == 1
+                and spec.circuits == ("lif",) and not spec.edges)
+
+    def _golden_chunk_eligible(self) -> bool:
+        """Whether :meth:`_golden_chunk` can replace the per-tick loop: a
+        golden single-LIF-layer graph with no delayed edges. Golden LIF
+        steps every neuron every tick, ungated by events, so a chunk is T
+        chained periods — one ``lif_chunk`` launch."""
+        spec = self.spec
+        return (self.backend == "golden" and spec.n_layers == 1
+                and spec.circuits == ("lif",) and not spec.edges)
+
+    def _chunk_inputs(self, x):
+        """``(changed (T, N) bool, LIF inputs (T, N, 3))`` of a one-LIF-layer
+        graph over a chunk ``x`` (T, B, fan_in). Event detection is one
+        product over the chunk, exact in any order (sums of 0/1 terms);
+        the synaptic drive, a float sum whose rounding follows the
+        product's blocking, is computed tick by tick at the per-tick
+        path's shape, so every chunk size gives the same bits."""
+        amp = self.spec.spike_amp
+        t_steps = x.shape[0]
+        drive = torch.stack([ops.div(u @ self._weights[0], amp) for u in x])
+        pre = (torch.abs(x) > event_threshold("input", amp)).float()
+        changed = ((pre @ self._conn[0]) > 0.5).reshape(t_steps, -1)
+        xin = drive_to_circuit_inputs(drive, spike_amp=amp)
+        return changed, xin.reshape(t_steps, -1, 3)
+
+    def _chunk_records(self, carry, spikes, e_seq, l_seq, changed):
+        """A time-looped chunk's per-tick records, reduced as the per-tick
+        path reduces each tick: the energy of tick k is the sum of a fresh
+        (N,) tensor (a row of the chunk that sits at another alignment is
+        copied first: a CUDA reduction's order follows the alignment)."""
+        aligned = e_seq.device.type == "cpu" or e_seq.shape[1] % 4 == 0
+        es = torch.stack([(r if aligned else r.clone()).sum() for r in e_seq])
+        out = (spikes, [spikes] if self.record_hidden else [], es[:, None],
+               l_seq.amax(1)[:, None],
+               changed.sum(1, dtype=torch.int32)[:, None])
+        return [carry], [spikes[-1]], *out
+
+    def _chunk_fast_path(self, pack_layout, carries, x, ks):
+        """The whole chunk as ONE ``network_tick_chunk`` launch; returns
+        what :meth:`_run_ticks` returns."""
+        from repro_torch.kernels.tick_megakernel import megakernel_chunk
+        layer = self.spec.layers[0]
+        amp = self.spec.spike_amp
+        clock = self.circs[0].clock_ns
+        pack, layout = pack_layout
+        t_steps, b = x.shape[0], x.shape[1]
+        changed, xin = self._chunk_inputs(x)
+        new_state, o_seq, e_seq, l_seq = megakernel_chunk(
+            pack, layer.circuit, carries[0], changed, xin, (ks + 1.0) * clock,
+            clock, spiking=True, vdd=amp, layout=layout)
+        spikes = torch.where(changed, o_seq, 0.0
+                             ).reshape(t_steps, b, layer.n_out)
+        return self._chunk_records(new_state, spikes, e_seq, l_seq, changed)
+
+    def _golden_chunk(self, carries, x):
+        """The whole golden chunk as ONE ``lif_chunk`` launch over the
+        chunk's circuit inputs; spikes, energy, latency and events as
+        :meth:`_lif_tick`'s golden branch derives them."""
+        layer = self.spec.layers[0]
+        amp = self.spec.spike_amp
+        t_steps, b = x.shape[0], x.shape[1]
+        changed, xin = self._chunk_inputs(x)
+        state, params = carries[0]
+        new_state, obs = ops.lif_chunk(state, xin, params, circ=self.circs[0])
+        spiked = obs["spiked"]
+        spikes = torch.where(spiked, amp, 0.0).reshape(t_steps, b,
+                                                       layer.n_out)
+        l_seq = torch.where(spiked, obs["latency"], 0.0)
+        return self._chunk_records((new_state, params), spikes,
+                                   obs["energy"], l_seq, changed)
+
+    def _run_ticks(self, cascade, banks, carries, prev_ys, x, ks):
+        """Advance the graph over one block of ticks ``x`` (T, B, fan_in)
+        with global tick indices ``ks`` (T,) f32. Returns ``(carries,
+        prev_ys, out_seq (T, B, n_last), hidden, e (T, L), l (T, L),
+        events (T, L))``. The megakernel head packs are built here, once
+        per block; eligible one-LIF-layer graphs take a time-looped
+        kernel instead of the per-tick loop."""
+        packs = self._mk_pack(banks)
+        if "lif" in packs and self._chunk_eligible():
+            return self._chunk_fast_path(packs["lif"], carries, x, ks)
+        if self._golden_chunk_eligible():
+            return self._golden_chunk(carries, x)
+        ts = [(ks + 1.0) * c.clock_ns for c in self.circs]
+        outs, hidden, es, ls, evs = [], [], [], [], []
+        for k in range(x.shape[0]):
+            carries, prev_ys, e, l, ev = cascade(
+                banks, carries, prev_ys, x[k], [t[k] for t in ts], packs)
+            outs.append(prev_ys[-1])
+            if self.record_hidden:
+                hidden.append(prev_ys)
+            es.append(e)
+            ls.append(l)
+            evs.append(ev)
+        hid = [torch.stack([h[i] for h in hidden])
+               for i in range(self.spec.n_layers)] if self.record_hidden \
+            else []
+        return (carries, prev_ys, torch.stack(outs), hid, torch.stack(es),
+                torch.stack(ls), torch.stack(evs))
+
+    def _primary(self, out_seq):
+        """The last layer's spike counts (lif) or its final codes."""
+        if self.spec.circuits[-1] == "lif":
+            return (out_seq > 0.5 * self.spec.spike_amp).sum(
+                0, dtype=torch.int32)
+        return out_seq[-1]
+
+    def _flush_all(self, carries, t_ends, banks):
+        kinds = self.spec.circuits
+        return torch.stack([
+            self._flush(carries[i], i, t_ends[i], banks.get(kinds[i]))
+            for i in range(self.spec.n_layers)])
+
     def _build_sim(self, b: int, t_steps: int):
         """The runner for batch ``b`` and ``t_steps`` ticks: ``runner(x,
         carries, banks)`` enqueues every tick and returns device tensors
         ``(primary, out_seq, hidden, e, l, events, flush)``; ``primary`` is
         the last layer's spike counts (lif) or its final codes (crossbar)."""
         spec = self.spec
-        amp = spec.spike_amp
-        kinds = spec.circuits
         cascade = self._make_cascade()
-        record_hidden = self.record_hidden
-        dev = self.device
-        # t = (k + 1) * clock in f32, per layer clock, computed once
-        ks = torch.arange(t_steps, dtype=torch.float32, device=dev)
-        ts = [(ks + 1.0) * c.clock_ns for c in self.circs]
-        t_ends = [t_steps * c.clock_ns for c in self.circs]
+        ks = torch.arange(t_steps, dtype=torch.float32, device=self.device)
+        t_ends = [_t_end(t_steps, c) for c in self.circs]
 
         def runner(x, carries, banks):
-            packs = self._mk_pack(banks)
             prev_ys = [x.new_zeros((b, l.n_out)) for l in spec.layers]
-            outs, hidden, es, ls, evs = [], [], [], [], []
-            for k in range(t_steps):
-                carries, prev_ys, e, l, ev = cascade(
-                    banks, carries, prev_ys, x[k], [t[k] for t in ts], packs)
-                outs.append(prev_ys[-1])
-                if record_hidden:
-                    hidden.append(prev_ys)
-                es.append(e)
-                ls.append(l)
-                evs.append(ev)
-            out_seq = torch.stack(outs)
-            if kinds[-1] == "lif":
-                primary = (out_seq > 0.5 * amp).sum(0, dtype=torch.int32)
-            else:
-                primary = out_seq[-1]
-            hid = [torch.stack([h[i] for h in hidden])
-                   for i in range(spec.n_layers)] if record_hidden else []
-            flush = torch.stack([
-                self._flush(carries[i], i, t_ends[i], banks.get(kinds[i]))
-                for i in range(spec.n_layers)])
-            return (primary, out_seq, hid, torch.stack(es), torch.stack(ls),
-                    torch.stack(evs), flush)
+            carries, _, out_seq, hid, e, l, ev = self._run_ticks(
+                cascade, banks, carries, prev_ys, x, ks)
+            return (self._primary(out_seq), out_seq, hid, e, l, ev,
+                    self._flush_all(carries, t_ends, banks))
 
         return runner
+
+    def _build_stream_step(self, t_steps: int):
+        """The chunk runner of the stream: ``step(x, k0, carries, prev_ys,
+        banks)`` runs ``t_steps`` ticks from global tick ``k0`` and returns
+        ``(primary, out_seq, hidden, e, l, events, carries, prev_ys)``,
+        ``primary`` reduced over this chunk only (spike counts, or the last
+        tick's codes) so that :class:`StreamingRun` merges exactly. The
+        caller's carries and surrogates are read, never written."""
+        cascade = self._make_cascade()
+        base = torch.arange(t_steps, dtype=torch.float32, device=self.device)
+
+        def step(x, k0, carries, prev_ys, banks):
+            ks = base + float(k0)           # exact: integers below 2^24
+            carries, prev_ys, out_seq, hid, e, l, ev = self._run_ticks(
+                cascade, banks, carries, prev_ys, x, ks)
+            return (self._primary(out_seq), out_seq, hid, e, l, ev,
+                    carries, prev_ys)
+
+        return step
+
+    def _build_flush(self):
+        """The end-of-stream flush runner: ``flush_fn(carries, t_ends,
+        banks) -> (L,)``, the trailing idle static energy from the final
+        carries with per-layer run-end times ``t_ends`` — the monolithic
+        runner's flush, applied once at the true end of the stream."""
+        return self._flush_all
 
     def _program_key(self, kind: str, b: int, t_steps, banks) -> tuple:
         """Runner cache key: shapes, the ``fused`` flag, the resolved
@@ -871,3 +1424,10 @@ class NetworkEngine:
             self._runners[key] = runner
             self.compile_count += 1
         return runner, time.time() - t0
+
+
+def _carry_leaves(carries) -> list:
+    """The carries' tensors in the reference's pytree flatten order: layer
+    by layer, ``(state, params)`` (golden), ``(v, params)`` (behavioral)
+    or ``LasanaState(v, o, t_last, params)`` (lasana)."""
+    return [leaf for c in carries for leaf in c]

@@ -45,6 +45,8 @@ struct Stack {
   const float* w2;
   const float* b2;
   const float* scale;  // null: every head's scale is 1
+                       // x_mu, x_sd, y_mu, y_sd null: the identity
+                       // standardizer (means 0, deviations 1)
   int p, f, h1, h2;    // heads and widths as the arrays hold them
   int fs;              // feature columns staged and evaluated (<= f)
 };
@@ -68,6 +70,13 @@ __device__ inline void copy_block(float* dst, const float* src, int count) {
   for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
+// copy_block, or fill with `value` where the source is null
+__device__ inline void fill_block(float* dst, const float* src, int count,
+                                  float value) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = src ? src[i] : value;
+}
+
 // Stage heads h0 .. h0+count-1 of s into smem at width s.fs; the whole
 // block calls it, then syncs. w0's first fs rows are its first fs*h1
 // floats, so every part is one contiguous copy.
@@ -76,9 +85,9 @@ __device__ inline void stage(const Stack& s, int h0, int count, float* smem) {
   for (int j = 0; j < count; ++j) {
     const int h = h0 + j;
     float* d = smem + j * per;
-    copy_block(d, s.x_mu + h * s.f, s.fs);
+    fill_block(d, s.x_mu ? s.x_mu + h * s.f : nullptr, s.fs, 0.0f);
     d += s.fs;
-    copy_block(d, s.x_sd + h * s.f, s.fs);
+    fill_block(d, s.x_sd ? s.x_sd + h * s.f : nullptr, s.fs, 1.0f);
     d += s.fs;
     copy_block(d, s.w0 + h * s.f * s.h1, s.fs * s.h1);
     d += s.fs * s.h1;
@@ -91,8 +100,8 @@ __device__ inline void stage(const Stack& s, int h0, int count, float* smem) {
     copy_block(d, s.w2 + h * s.h2, s.h2);
     d += s.h2;
     if (threadIdx.x == 0) {
-      d[0] = s.y_mu[h];
-      d[1] = s.y_sd[h];
+      d[0] = s.y_mu ? s.y_mu[h] : 0.0f;
+      d[1] = s.y_sd ? s.y_sd[h] : 1.0f;
       d[2] = s.b2[h];
       d[3] = s.scale ? s.scale[h] : 1.0f;
     }

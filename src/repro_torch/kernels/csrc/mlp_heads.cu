@@ -1,8 +1,12 @@
-// P stacked 3-layer MLP surrogate heads over N feature rows -> (P, N).
+// P stacked 3-layer MLP surrogate heads over N feature rows -> (P, N),
+// and the single unstandardized head (N, F) -> (N,).
 //
 // Replaces: src/repro/kernels/mlp_surrogate.py:mlp_surrogate_heads (the
 // pallas_call with every head's weights VMEM-resident), reached through
-// Surrogate.predict_heads -> _predict_mlp_stacked.
+// Surrogate.predict_heads -> _predict_mlp_stacked; and
+// mlp_surrogate.py:mlp_surrogate (one head, no standardizers), which is
+// the same template at P = 1 with the identity standardizer (null
+// pointers in the Stack: x - 0, / 1, * 1 + 0, each exact in fp32).
 //
 // Bound on the H100: operations. On the LIF path (F = 10 or 12, H1 = 100,
 // H2 = 50, P <= 3) a row costs ~6,250 multiply-adds per head against
@@ -72,6 +76,23 @@ extern "C" int mlp_heads_launch(const float* x, const float* const* arrays,
                        arrays[5], arrays[6], arrays[7], arrays[8], arrays[9],
                        nullptr, p, f, h1, h2, f};
   const size_t bytes = sizeof(float) * p * repro::head_floats(f, h1, h2);
+  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f <= repro::kNarrowF) return launch<repro::kNarrowF>(x, s, out, n, bytes, st);
+  return launch<repro::kWideF>(x, s, out, n, bytes, st);
+}
+
+extern "C" int mlp_surrogate_launch(const float* x, const float* const* arrays,
+                                    float* out, int n, int f, int h1, int h2,
+                                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (f > repro::kWideF || h1 > repro::kMaxH1) return cudaErrorInvalidValue;
+  // arrays: w1 (F, H1), b1 (H1), w2 (H1, H2), b2 (H2), w3 (H2, 1), b3 (1)
+  const repro::Stack s{nullptr, nullptr, nullptr, nullptr, arrays[0],
+                       arrays[1], arrays[2], arrays[3], arrays[4], arrays[5],
+                       nullptr, 1, f, h1, h2, f};
+  const size_t bytes = sizeof(float) * repro::head_floats(f, h1, h2);
   if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f <= repro::kNarrowF) return launch<repro::kNarrowF>(x, s, out, n, bytes, st);

@@ -1,9 +1,13 @@
 // One whole LASANA tick (Algorithm 1: idle catch-up -> active heads ->
-// output resolution -> transition heads -> record tail) in one launch.
+// output resolution -> transition heads -> record tail) in one launch,
+// and a chunk of T such ticks in one launch.
 //
 // Replaces: src/repro/kernels/tick_megakernel.py:network_tick (the
 // pallas_call over _tick_arrays), reached through wrapper.lasana_step
-// whenever the surrogate's five heads pack (mean / linear / 3-layer MLP).
+// whenever the surrogate's five heads pack (mean / linear / 3-layer MLP);
+// and tick_megakernel.py:network_tick_chunk (its time-looped variant, v /
+// o / t_last resident across the chunk), reached through the engine's
+// single-LIF-layer fast path (network.NetworkEngine._chunk_fast_path).
 //
 // Bound on the H100: operations. With every head an MLP(100, 50), a
 // changed row that catches up and emits an event evaluates seven heads,
@@ -51,6 +55,22 @@ struct TickIO {
   float* tl_out;
   float* e_out;
   float* l_out;
+};
+
+struct ChunkIO {
+  const float* v;
+  const float* o;
+  const float* t_last;
+  const float* params;  // (N, n_p)
+  const bool* changed;  // (T, N)
+  const float* x;       // (T, N, n_in)
+  const float* t;       // (T,) tick times
+  float* v_out;
+  float* o_out;
+  float* tl_out;
+  float* o_seq;         // (T, N)
+  float* e_seq;
+  float* l_seq;
 };
 
 // Mirrored field for field by tick_megakernel._TickScalars (ctypes).
@@ -135,12 +155,98 @@ __device__ __forceinline__ float eval_head(const float* smem,
   return (y * hd.y_sd + hd.y_mu) / hd.scale;
 }
 
+// What the idle, active and output-resolution stages leave for the
+// transition stage and the record tail, for one changed row.
+struct RowTick {
+  float v_cur, v_new, o_hat, o_res, e_s_idle, e_s;
+  bool stale, out_changed;
+};
+
+// Algorithm 1 lines 3-25 for one changed row: the idle catch-up (merged
+// E2 event), the active heads on the caught-up state and the output
+// resolution. The A stack's heads are staged at smem.
+template <class Row>
+__device__ __forceinline__ RowTick active_stage(const float* smem,
+                                                const repro::Stack& sa,
+                                                const TickScalars& sc,
+                                                const float* x, const float* p,
+                                                float v, float o, float t_last,
+                                                float t, float known) {
+  constexpr int FA = Row::kFa;
+  float feat[Row::kF];
+  RowTick rt;
+  rt.e_s_idle = 0.0f;
+  // idle stage (Algorithm 1 lines 3-9): one merged catch-up event
+  rt.stale = t_last < t - sc.clock;
+  float v_hat = 0.0f;
+  if (rt.stale) {
+    const float zero_x[Row::kIn] = {};
+    const float tau_idle = fmaxf(t - t_last - sc.clock, 0.0f);
+    features<Row>(feat, zero_x, p, v, tau_idle, false, 0.0f, 0.0f,
+                  sc.v_bias);
+    rt.e_s_idle = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
+    if (!sc.annotate) v_hat = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
+  }
+
+  // active stage (lines 10-22) on the caught-up state
+  rt.v_cur = (!sc.annotate && rt.stale) ? v_hat : v;
+  features<Row>(feat, x, p, rt.v_cur, sc.clock, false, 0.0f, 0.0f,
+                sc.v_bias);
+  rt.e_s = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
+  if (sc.annotate) {
+    rt.v_new = rt.v_cur;
+    rt.o_hat = known;
+  } else {
+    rt.v_new = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
+    rt.o_hat = eval_head(smem, sa, 2, sc.a_fam[2], FA, feat);
+  }
+
+  // output resolution (lines 23-25)
+  if (sc.spiking) {
+    rt.out_changed = rt.o_hat > sc.half_vdd;
+    rt.o_res = rt.out_changed ? sc.vdd : 0.0f;
+  } else {
+    rt.out_changed = fabsf(rt.o_hat - o) > sc.out_eps;
+    rt.o_res = rt.o_hat;
+  }
+  return rt;
+}
+
+// Transition heads (lines 23-29) of a row whose output changed; the T
+// stack's heads are staged at smem_t. Returns (e_d, latency).
+template <class Row>
+__device__ __forceinline__ void transition_stage(const float* smem_t,
+                                                 const repro::Stack& st,
+                                                 const TickScalars& sc,
+                                                 const float* x, const float* p,
+                                                 float o, const RowTick& rt,
+                                                 float& e_d, float& lat) {
+  constexpr int FT = Row::kFa + 2;
+  float feat[Row::kF];
+  features<Row>(feat, x, p, rt.v_cur, sc.clock, true, o, rt.o_res,
+                sc.v_bias);
+  e_d = eval_head(smem_t, st, 0, sc.t_fam[0], FT, feat);
+  lat = eval_head(smem_t, st, 1, sc.t_fam[1], FT, feat);
+}
+
+// Record tail (wrapper._finish_tick) of a changed row: its new v, o,
+// t_last and this tick's energy and latency.
+__device__ __forceinline__ void record_tail(const TickScalars& sc,
+                                            const RowTick& rt, float e_d,
+                                            float lat, float t, float& v,
+                                            float& o, float& t_last, float& e,
+                                            float& l) {
+  e = (rt.stale ? rt.e_s_idle : 0.0f) + (rt.out_changed ? e_d : rt.e_s);
+  l = rt.out_changed ? lat : 0.0f;
+  o = sc.spiking ? (rt.out_changed ? sc.vdd : 0.0f) : rt.o_hat;
+  v = rt.v_new;
+  t_last = t;
+}
+
 template <class Row>
 __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
                                     TickIO io, TickScalars sc, int t_base) {
   extern __shared__ float smem[];
-  constexpr int KF = Row::kF;
-  constexpr int FA = Row::kFa, FT = FA + 2;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = r < sc.n;
   const bool changed = valid && io.changed[r];
@@ -160,84 +266,97 @@ __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
   __syncthreads();
 
   float v = 0.0f, o = 0.0f, t_last = 0.0f, t = 0.0f;
-  float v_cur = 0.0f, v_new = 0.0f, o_hat = 0.0f, o_res = 0.0f;
-  float e_s_idle = 0.0f, e_s = 0.0f;
-  bool stale = false, out_changed = false;
   const float* x = io.x + static_cast<size_t>(r) * Row::kIn;
   const float* p = io.params + static_cast<size_t>(r) * Row::kP;
-  float feat[KF];
   if (valid) {
     v = io.v[r];
     o = io.o[r];
     t_last = io.t_last[r];
   }
+  RowTick rt{};
   if (changed) {
     t = *io.t;
-    // idle stage (Algorithm 1 lines 3-9): one merged catch-up event
-    stale = t_last < t - sc.clock;
-    float v_hat = 0.0f;
-    if (stale) {
-      const float zero_x[Row::kIn] = {};
-      const float tau_idle = fmaxf(t - t_last - sc.clock, 0.0f);
-      features<Row>(feat, zero_x, p, v, tau_idle, false, 0.0f, 0.0f,
-                    sc.v_bias);
-      e_s_idle = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
-      if (!sc.annotate) v_hat = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
-    }
-
-    // active stage (lines 10-22) on the caught-up state
-    v_cur = (!sc.annotate && stale) ? v_hat : v;
-    features<Row>(feat, x, p, v_cur, sc.clock, false, 0.0f, 0.0f, sc.v_bias);
-    e_s = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
-    if (sc.annotate) {
-      v_new = v_cur;
-      o_hat = io.known[r];
-    } else {
-      v_new = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
-      o_hat = eval_head(smem, sa, 2, sc.a_fam[2], FA, feat);
-    }
-
-    // output resolution (lines 23-25)
-    if (sc.spiking) {
-      out_changed = o_hat > sc.half_vdd;
-      o_res = out_changed ? sc.vdd : 0.0f;
-    } else {
-      out_changed = fabsf(o_hat - o) > sc.out_eps;
-      o_res = o_hat;
-    }
+    rt = active_stage<Row>(smem, sa, sc, x, p, v, o, t_last, t,
+                           sc.annotate ? io.known[r] : 0.0f);
   }
 
   // transition stage (lines 23-29), only where its heads are read; in
   // two phases the barrier also ends every read of the A stack before T
   // overwrites it (t_base is the same for the whole block)
   float e_d = 0.0f, lat = 0.0f;
-  if (t_base > 0 || __syncthreads_or(out_changed)) {
+  if (t_base > 0 || __syncthreads_or(rt.out_changed)) {
     if (t_base == 0) {
       repro::stage(st, sc.t_off, kTHeads, smem);
       __syncthreads();
     }
-    if (out_changed) {
-      features<Row>(feat, x, p, v_cur, sc.clock, true, o, o_res, sc.v_bias);
-      e_d = eval_head(smem + t_base, st, 0, sc.t_fam[0], FT, feat);
-      lat = eval_head(smem + t_base, st, 1, sc.t_fam[1], FT, feat);
-    }
+    if (rt.out_changed)
+      transition_stage<Row>(smem + t_base, st, sc, x, p, o, rt, e_d, lat);
   }
   if (!valid) return;
-  if (!changed) {
+  float e = 0.0f, l = 0.0f;
+  if (changed) record_tail(sc, rt, e_d, lat, t, v, o, t_last, e, l);
+  io.v_out[r] = v;
+  io.o_out[r] = o;
+  io.tl_out[r] = t_last;
+  io.e_out[r] = e;
+  io.l_out[r] = l;
+}
+
+// T ticks of network_tick_kernel in one launch (replaces
+// tick_megakernel.py:network_tick_chunk), LIF rows, standalone mode. Both
+// stacks are staged once, up front; v, o and t_last stay in registers
+// across the chunk, and each tick runs the same stage functions as
+// network_tick_kernel, so the chunk equals T network_tick launches bit for
+// bit. With both stacks staged before the tick loop, no barrier sits
+// inside it: a row with no event this tick writes the copy-through that
+// network_tick writes for it (o, e = 0, l = 0), and padding rows past N
+// only helped stage.
+template <class Row>
+__global__ void network_tick_chunk_kernel(repro::Stack sa, repro::Stack st,
+                                          ChunkIO io, TickScalars sc,
+                                          int t_base, int t_steps) {
+  extern __shared__ float smem[];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = r < sc.n;
+  repro::stage(sa, sc.a_off, kAHeads, smem);
+  repro::stage(st, sc.t_off, kTHeads, smem + t_base);
+  __syncthreads();
+
+  float v = 0.0f, o = 0.0f, t_last = 0.0f;
+  float p[Row::kP];
+#pragma unroll
+  for (int k = 0; k < Row::kP; ++k)
+    p[k] = valid ? io.params[static_cast<size_t>(r) * Row::kP + k] : 0.0f;
+  if (valid) {
+    v = io.v[r];
+    o = io.o[r];
+    t_last = io.t_last[r];
+  }
+  for (int k = 0; k < t_steps; ++k) {
+    const size_t i = static_cast<size_t>(k) * sc.n + r;
+    const bool changed = valid && io.changed[i];
+    float e = 0.0f, l = 0.0f;
+    if (changed) {
+      const float t = io.t[k];
+      const float* x = io.x + i * Row::kIn;
+      const RowTick rt = active_stage<Row>(smem, sa, sc, x, p, v, o, t_last,
+                                           t, 0.0f);
+      float e_d = 0.0f, lat = 0.0f;
+      if (rt.out_changed)
+        transition_stage<Row>(smem + t_base, st, sc, x, p, o, rt, e_d, lat);
+      record_tail(sc, rt, e_d, lat, t, v, o, t_last, e, l);
+    }
+    if (valid) {
+      io.o_seq[i] = o;
+      io.e_seq[i] = e;
+      io.l_seq[i] = l;
+    }
+  }
+  if (valid) {
     io.v_out[r] = v;
     io.o_out[r] = o;
     io.tl_out[r] = t_last;
-    io.e_out[r] = 0.0f;
-    io.l_out[r] = 0.0f;
-    return;
   }
-
-  // record tail (wrapper._finish_tick) for a changed row
-  io.e_out[r] = (stale ? e_s_idle : 0.0f) + (out_changed ? e_d : e_s);
-  io.l_out[r] = out_changed ? lat : 0.0f;
-  io.o_out[r] = sc.spiking ? (out_changed ? sc.vdd : 0.0f) : o_hat;
-  io.v_out[r] = v_new;
-  io.tl_out[r] = t;
 }
 
 template <class Row>
@@ -269,7 +388,70 @@ cudaError_t launch(const repro::Stack& sa, const repro::Stack& st,
   return cudaGetLastError();
 }
 
+template <class Row>
+cudaError_t launch_chunk(const repro::Stack& sa, const repro::Stack& st,
+                         const ChunkIO& io, const TickScalars& sc,
+                         int t_steps, cudaStream_t stream) {
+  constexpr int FA = Row::kFa;
+  if (sc.n_in != Row::kIn || sc.n_p != Row::kP || sc.f_a < FA ||
+      sc.f_t < FA + 2 || sc.h1 > repro::kMaxH1 || sc.annotate ||
+      sc.a_off + kAHeads > sc.a_heads || sc.t_off + kTHeads > sc.t_heads)
+    return cudaErrorInvalidValue;
+  repro::Stack a = sa, t = st;
+  a.fs = FA;
+  t.fs = FA + 2;
+  const size_t per_a = kAHeads * repro::head_floats(a.fs, sc.h1, sc.h2);
+  const size_t per_t = kTHeads * repro::head_floats(t.fs, sc.h1, sc.h2);
+  const size_t bytes = sizeof(float) * (per_a + per_t);
+  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      network_tick_chunk_kernel<Row>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (sc.n + kThreads - 1) / kThreads;
+  network_tick_chunk_kernel<Row><<<blocks, kThreads, bytes, stream>>>(
+      a, t, io, sc, static_cast<int>(per_a), t_steps);
+  return cudaGetLastError();
+}
+
+repro::Stack make_stack(const float* const* arr, int p, int f, int h1,
+                        int h2) {
+  return repro::Stack{arr[0], arr[1], arr[2], arr[3], arr[4], arr[5],
+                      arr[6], arr[7], arr[8], arr[9], arr[10], p, f, h1, h2,
+                      f};
+}
+
 }  // namespace
+
+extern "C" int network_tick_chunk_launch(const float* const* a_stack,
+                                         const float* const* t_stack,
+                                         const void* const* io_ptrs,
+                                         const TickScalars* sc, int t_steps,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(sc->device);
+  if (err != cudaSuccess) return err;
+  if (sc->circuit != LifRow::kCode) return cudaErrorInvalidValue;
+  const repro::Stack sa = make_stack(a_stack, sc->a_heads, sc->f_a, sc->h1,
+                                     sc->h2);
+  const repro::Stack st = make_stack(t_stack, sc->t_heads, sc->f_t, sc->h1,
+                                     sc->h2);
+  ChunkIO io;
+  io.v = static_cast<const float*>(io_ptrs[0]);
+  io.o = static_cast<const float*>(io_ptrs[1]);
+  io.t_last = static_cast<const float*>(io_ptrs[2]);
+  io.params = static_cast<const float*>(io_ptrs[3]);
+  io.changed = static_cast<const bool*>(io_ptrs[4]);
+  io.x = static_cast<const float*>(io_ptrs[5]);
+  io.t = static_cast<const float*>(io_ptrs[6]);
+  io.v_out = static_cast<float*>(const_cast<void*>(io_ptrs[7]));
+  io.o_out = static_cast<float*>(const_cast<void*>(io_ptrs[8]));
+  io.tl_out = static_cast<float*>(const_cast<void*>(io_ptrs[9]));
+  io.o_seq = static_cast<float*>(const_cast<void*>(io_ptrs[10]));
+  io.e_seq = static_cast<float*>(const_cast<void*>(io_ptrs[11]));
+  io.l_seq = static_cast<float*>(const_cast<void*>(io_ptrs[12]));
+  return launch_chunk<LifRow>(sa, st, io, *sc, t_steps,
+                              static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int network_tick_launch(const float* const* a_stack,
                                    const float* const* t_stack,
@@ -277,14 +459,10 @@ extern "C" int network_tick_launch(const float* const* a_stack,
                                    const TickScalars* sc, void* stream) {
   cudaError_t err = cudaSetDevice(sc->device);
   if (err != cudaSuccess) return err;
-  const repro::Stack sa{a_stack[0], a_stack[1], a_stack[2], a_stack[3],
-                        a_stack[4], a_stack[5], a_stack[6], a_stack[7],
-                        a_stack[8], a_stack[9], a_stack[10], sc->a_heads,
-                        sc->f_a, sc->h1, sc->h2, sc->f_a};
-  const repro::Stack st{t_stack[0], t_stack[1], t_stack[2], t_stack[3],
-                        t_stack[4], t_stack[5], t_stack[6], t_stack[7],
-                        t_stack[8], t_stack[9], t_stack[10], sc->t_heads,
-                        sc->f_t, sc->h1, sc->h2, sc->f_t};
+  const repro::Stack sa = make_stack(a_stack, sc->a_heads, sc->f_a, sc->h1,
+                                     sc->h2);
+  const repro::Stack st = make_stack(t_stack, sc->t_heads, sc->f_t, sc->h1,
+                                     sc->h2);
   TickIO io;
   io.v = static_cast<const float*>(io_ptrs[0]);
   io.o = static_cast<const float*>(io_ptrs[1]);

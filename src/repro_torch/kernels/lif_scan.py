@@ -5,7 +5,11 @@ reference's ``kernels/lif_scan.py:_period_math`` (itself the same math as
 ``circuits.LIFNeuron.step``), with the per-neuron constants hoisted out
 of the 64-substep loop. :func:`lif_step` runs it on CPU tensors and
 launches ``csrc/lif_step.cu`` — one thread per neuron, the substep loop in
-registers — on CUDA tensors.
+registers — on CUDA tensors. :func:`lif_chunk` is the time-looped variant:
+T periods in one launch, the state resident across the chunk; its plain
+version chains :func:`_period_math` T times, and the kernel calls the same
+device function as ``lif_step``, so both equal T ``lif_step`` calls bit
+for bit.
 """
 
 from __future__ import annotations
@@ -66,14 +70,34 @@ def _period_math(circ: LIFNeuron, st, xx, pp):
     return new_state, out, energy, latency, spiked
 
 
+def chunk_plain(circ: LIFNeuron, state, x_seq, params):
+    """T chained periods: ``(new_state, out, energy, latency, spiked)``,
+    the last four ``(T, N)``."""
+    outs = []
+    for x in x_seq:
+        state, *obs = _period_math(circ, state, x, params)
+        outs.append(obs)
+    if not outs:
+        empty = state.new_zeros((0, state.shape[0]))
+        return state, empty, empty, empty, empty.bool()
+    return (state, *(torch.stack(col) for col in zip(*outs)))
+
+
 @functools.cache
-def _kernel():
+def _kernel(name: str = "lif_step"):
     lib = _build.library("lif_step")
-    fn = lib.lif_step_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    n_int = 4 if name == "lif_chunk" else 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int
                    + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return lib, fn
+
+
+def _consts(circ: LIFNeuron):
+    return (circ.clock_ns / circ.n_substeps, circ.clock_ns, circ.g_syn,
+            circ.c_mem, circ.i_leak0 / circ.c_mem, circ.ut, circ.vdd,
+            circ.g_static, circ.c_spike * circ.vdd ** 2)
 
 
 def _launch(circ: LIFNeuron, state, x, params):
@@ -91,10 +115,7 @@ def _launch(circ: LIFNeuron, state, x, params):
         code = fn(state.data_ptr(), x.data_ptr(), params.data_ptr(),
                   new_state.data_ptr(), out.data_ptr(), energy.data_ptr(),
                   latency.data_ptr(), spiked.data_ptr(), n,
-                  circ.n_substeps, dev.index or 0,
-                  circ.clock_ns / circ.n_substeps, circ.clock_ns,
-                  circ.g_syn, circ.c_mem, circ.i_leak0 / circ.c_mem, circ.ut,
-                  circ.vdd, circ.g_static, circ.c_spike * circ.vdd ** 2,
+                  circ.n_substeps, dev.index or 0, *_consts(circ),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "lif_step")
         ops.count_launch("lif_step")
@@ -109,6 +130,45 @@ def lif_step(state, x, params, *, circ: LIFNeuron | None = None):
         res = _period_math(circ, state, x, params)
     else:
         res = _launch(circ, state, x, params)
+    new_state, out, energy, latency, spiked = res
+    return new_state, {"output": out, "energy": energy, "latency": latency,
+                       "spiked": spiked}
+
+
+def _launch_chunk(circ: LIFNeuron, state, x_seq, params):
+    dev = ops.same_cuda_device(state, x_seq, params)
+    n = state.shape[0]
+    t_steps = x_seq.shape[0]
+    ops.check(state, "state", (n, 3))
+    ops.check(x_seq, "x_seq", (t_steps, n, 3))
+    ops.check(params, "params", (n, 4))
+    new_state = torch.empty_like(state)
+    out, energy, latency = (torch.empty((t_steps, n), dtype=torch.float32,
+                                        device=dev) for _ in range(3))
+    spiked = torch.empty((t_steps, n), dtype=torch.bool, device=dev)
+    if n and t_steps:
+        lib, fn = _kernel("lif_chunk")
+        code = fn(state.data_ptr(), x_seq.data_ptr(), params.data_ptr(),
+                  new_state.data_ptr(), out.data_ptr(), energy.data_ptr(),
+                  latency.data_ptr(), spiked.data_ptr(), n, t_steps,
+                  circ.n_substeps, dev.index or 0, *_consts(circ),
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "lif_chunk")
+        ops.count_launch("lif_chunk")
+    else:
+        new_state.copy_(state)
+    return new_state, out, energy, latency, spiked
+
+
+def lif_chunk(state, x_seq, params, *, circ: LIFNeuron | None = None):
+    """T clock periods in one launch. state (N, 3), x_seq (T, N, 3),
+    params (N, 4) -> ``(new_state, {"output", "energy", "latency",
+    "spiked"})`` with (T, N) observables (``spiked`` bool)."""
+    circ = circ or LIFNeuron()
+    if all(t.device.type == "cpu" for t in (state, x_seq, params)):
+        res = chunk_plain(circ, state, x_seq, params)
+    else:
+        res = _launch_chunk(circ, state, x_seq, params)
     new_state, out, energy, latency, spiked = res
     return new_state, {"output": out, "energy": energy, "latency": latency,
                        "spiked": spiked}

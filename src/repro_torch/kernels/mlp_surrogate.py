@@ -7,6 +7,10 @@ Its plain PyTorch version is the einsum path of the reference's
 ``csrc/mlp_heads.cu``, which keeps every head's weights in shared memory
 and carries one row per thread through all heads, at the LIF widths
 (F = 10, 12) and the crossbar's (F = 68, 70).
+
+:func:`mlp_surrogate` is the single unstandardized head, ``(N, F) ->
+(N,)``: the same kernel at P = 1 with the identity standardizer, any
+F <= 72.
 """
 
 from __future__ import annotations
@@ -32,13 +36,21 @@ def mlp_heads_plain(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     return h[..., 0] * y_sd[:, :1] + y_mu[:, :1]
 
 
+def mlp_plain(x, w1, b1, w2, b2, w3, b3):
+    """``relu(relu(x @ w1 + b1) @ w2 + b2) @ w3 + b3`` in fp32 -> (N,)."""
+    h = torch.relu(x.float() @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    return (h @ w3 + b3)[:, 0]
+
+
 @functools.cache
-def _kernel():
+def _kernel(name: str = "mlp_heads"):
     lib = _build.library("mlp_heads")
-    fn = lib.mlp_heads_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
+    n_int = 6 if name == "mlp_heads" else 5
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * n_int + [ctypes.c_void_p])
     return lib, fn
 
 
@@ -79,3 +91,38 @@ def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     if all(a.device.type == "cpu" for a in args):
         return mlp_heads_plain(*args)
     return _launch(*args)
+
+
+def _launch_single(x, w1, b1, w2, b2, w3, b3):
+    arrays = (w1, b1, w2, b2, w3, b3)
+    dev = ops.same_cuda_device(x, *arrays)
+    x = x.float()
+    n, f = x.shape
+    h1, h2 = w1.shape[1], w2.shape[1]
+    if f > MAX_F or h1 > MAX_H1:
+        raise ValueError(f"mlp_surrogate kernel takes F <= {MAX_F} and "
+                         f"H1 <= {MAX_H1}, got F={f}, H1={h1}")
+    ops.check(x, "x", (n, f))
+    for name, a, shape in (("w1", w1, (f, h1)), ("b1", b1, (h1,)),
+                           ("w2", w2, (h1, h2)), ("b2", b2, (h2,)),
+                           ("w3", w3, (h2, 1)), ("b3", b3, (1,))):
+        ops.check(a, name, shape)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n:
+        lib, fn = _kernel("mlp_surrogate")
+        ptrs = (ctypes.c_void_p * 6)(*(a.data_ptr() for a in arrays))
+        code = fn(x.data_ptr(), ptrs, out.data_ptr(), n, f, h1, h2,
+                  dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "mlp_surrogate")
+        ops.count_launch("mlp_surrogate")
+    return out
+
+
+def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
+    """One fused 3-layer ReLU MLP: x (N, F) fp32 or bf16 (cast to fp32),
+    w1 (F, H1), b1 (H1,), w2 (H1, H2), b2 (H2,), w3 (H2, 1), b3 (1,) ->
+    (N,) fp32. The kernel takes F <= 72 and H1 <= 128."""
+    args = (x, w1, b1, w2, b2, w3, b3)
+    if all(a.device.type == "cpu" for a in args):
+        return mlp_plain(*args)
+    return _launch_single(*args)

@@ -19,8 +19,9 @@ import os
 
 import torch
 
-LAUNCHES = {"crossbar_target": 0, "lif_step": 0, "mlp_surrogate_heads": 0,
-            "network_tick": 0}
+LAUNCHES = {"crossbar_target": 0, "lif_chunk": 0, "lif_step": 0,
+            "mlp_surrogate": 0, "mlp_surrogate_heads": 0, "network_tick": 0,
+            "network_tick_chunk": 0}
 
 
 def count_launch(name: str) -> None:
@@ -105,6 +106,13 @@ def lif_step(state, x, params, *, circ=None):
     return lif_scan.lif_step(state, x, params, circ=circ)
 
 
+def lif_chunk(state, x_seq, params, *, circ=None):
+    """T golden LIF clock periods in one launch: ``(new_state (N, 3),
+    obs)`` with (T, N) observables."""
+    from repro_torch.kernels import lif_scan
+    return lif_scan.lif_chunk(state, x_seq, params, circ=circ)
+
+
 def crossbar_target(v, w, *, circ=None):
     """Crossbar rows' DC target and pole: ``(v_tgt (N,), tau (N,))``."""
     from repro_torch.kernels import crossbar_mvm
@@ -115,6 +123,12 @@ def crossbar_step(state, x, params, *, circ=None):
     """One golden crossbar-row clock period: ``(new_state (N, 1), obs)``."""
     from repro_torch.kernels import crossbar_mvm
     return crossbar_mvm.crossbar_step(state, x, params, circ=circ)
+
+
+def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
+    """(N, F) -> (N,): one fused 3-layer ReLU MLP in fp32."""
+    from repro_torch.kernels import mlp_surrogate
+    return mlp_surrogate.mlp_surrogate(x, w1, b1, w2, b2, w3, b3)
 
 
 def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
@@ -128,3 +142,9 @@ def network_tick(*args, **kwargs):
     """One whole LASANA tick (idle -> act -> transition) as ONE kernel."""
     from repro_torch.kernels import tick_megakernel
     return tick_megakernel.network_tick(*args, **kwargs)
+
+
+def network_tick_chunk(*args, **kwargs):
+    """A whole chunk of LASANA ticks as ONE time-looped kernel launch."""
+    from repro_torch.kernels import tick_megakernel
+    return tick_megakernel.network_tick_chunk(*args, **kwargs)

@@ -10,7 +10,10 @@ one broadcast, a linear head one dot).
 
 :func:`network_tick` is the kernel entry: ``_tick_arrays`` (the
 reference's body with ``skip=False``, which its docstring states is
-exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors. The
+exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors.
+:func:`network_tick_chunk` runs T ticks in one launch (LIF rows, v / o /
+t_last resident); its plain version is a loop of the plain tick, and its
+kernel runs the same per-row device code as ``network_tick``. The
 kernel takes the stacks as they are; nothing is padded to lane widths.
 It derives the feature row of a LIF neuron or a crossbar row itself, and
 stages only the launching kind's heads of a cross-kind
@@ -280,7 +283,43 @@ def megakernel_step(pack, circuit, state, changed, x, t, clock_ns, *,
     return new_state, e, l, new_state.o
 
 
-# --- the CUDA launcher ---------------------------------------------------------
+def chunk_plain(pack, circuit, state, changed_seq, x_seq, t_seq, clock_ns,
+                *, out_eps: float = 0.02, spiking: bool = True,
+                vdd: float = 1.5, layout: PackLayout):
+    """T ticks as a loop of the plain tick: ``(new_state, o_seq, e_seq,
+    l_seq)``, the sequences ``(T, N)`` (the reference's ``pallas=False``
+    body, a ``lax.scan`` of ``megakernel_step``)."""
+    os_, es, ls = [], [], []
+    for ch, x, t in zip(changed_seq, x_seq, t_seq):
+        v, o, tl, e, l, _ = _tick_arrays(
+            pack["a"], pack["t"], state.v, state.o, state.t_last,
+            state.params, ch, x, t, circuit=circuit, clock_ns=clock_ns,
+            out_eps=out_eps, spiking=spiking, vdd=vdd, annotate=False,
+            known_out=None, layout=layout)
+        state = LasanaState(v=v, o=o, t_last=tl, params=state.params)
+        os_.append(o)
+        es.append(e)
+        ls.append(l)
+    n = state.v.shape[0]
+    seq = lambda xs: torch.stack(xs) if xs else state.v.new_zeros((0, n))
+    return state, seq(os_), seq(es), seq(ls)
+
+
+def megakernel_chunk(pack, circuit, state, changed_seq, x_seq, t_seq,
+                     clock_ns, *, out_eps: float = 0.02, spiking: bool = True,
+                     vdd: float = 1.5, layout: PackLayout):
+    """A whole chunk of standalone ticks: ``(new_state, o_seq, e_seq,
+    l_seq)`` with ``(T, N)`` sequences. ``changed_seq`` (T, N) bool,
+    ``x_seq`` (T, N, n_in), ``t_seq`` (T,) tick times."""
+    v, o, tl, o_seq, e_seq, l_seq = network_tick_chunk(
+        pack, state.v, state.o, state.t_last, state.params, changed_seq,
+        x_seq, t_seq, circuit=circuit, clock_ns=clock_ns, layout=layout,
+        out_eps=out_eps, spiking=spiking, vdd=vdd)
+    return (LasanaState(v=v, o=o, t_last=tl, params=state.params), o_seq,
+            e_seq, l_seq)
+
+
+# --- the CUDA launchers --------------------------------------------------------
 
 
 class _TickScalars(ctypes.Structure):
@@ -304,54 +343,41 @@ _CIRCUIT_CODE = {"lif": 0, "crossbar": 1}
 
 
 @functools.cache
-def _kernel():
+def _kernel(name: str = "network_tick"):
     lib = _build.library("network_tick")
-    fn = lib.network_tick_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(_TickScalars), ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(_TickScalars)]
+                   + ([ctypes.c_int] if name == "network_tick_chunk" else [])
+                   + [ctypes.c_void_p])
     return lib, fn
 
 
-def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
-            clock_ns, layout, out_eps, spiking, vdd, annotate):
+def _check_pack(kernel, pack, circuit, layout):
+    """Validate a pack for ``circuit`` rows; returns the stacks' widths
+    ``(p_a, p_t, f_a, f_t, h1, h2)``."""
     if circuit not in _CIRCUIT_CODE:
-        raise ValueError(f"network_tick kernel: no feature row for circuit "
+        raise ValueError(f"{kernel} kernel: no feature row for circuit "
                          f"{circuit!r}; it takes {sorted(_CIRCUIT_CODE)}")
     circ = get_circuit(circuit)
-    n_in, n_p = circ.n_inputs, circ.n_params
     sA, sT = pack["a"], pack["t"]
-    n = v.shape[0]
-    if not isinstance(t, torch.Tensor):
-        t = v.new_full((), t)
-    known_ = known if annotate else None
-    io_in = [v, o, t_last, params, changed, x, t] + (
-        [known_] if annotate else [])
-    dev = ops.same_cuda_device(*io_in, *sA.values(), *sT.values())
     p_a, f_a, h1 = sA["w0"].shape
     p_t, f_t, _ = sT["w0"].shape
     h2 = sA["w1"].shape[2]
     # the circuit's own feature widths (x, v, tau, params, derived column)
-    fa_row = n_in + 2 + n_p + 1
+    fa_row = circ.n_inputs + 2 + circ.n_params + 1
     if (f_a < fa_row or f_t < fa_row + 2 or fa_row + 2 > mlp_surrogate.MAX_F
             or h1 > mlp_surrogate.MAX_H1):
-        raise ValueError(f"network_tick kernel: {circuit} rows take stacks "
+        raise ValueError(f"{kernel} kernel: {circuit} rows take stacks "
                          f"of F >= {fa_row}/{fa_row + 2} (at most "
                          f"{mlp_surrogate.MAX_F}) and H1 <= "
                          f"{mlp_surrogate.MAX_H1}, got F={f_a}/{f_t}, "
                          f"H1={h1}")
     if layout.a_off + len(PACK_HEADS_A) > p_a or \
             layout.t_off + len(PACK_HEADS_T) > p_t:
-        raise ValueError(f"network_tick kernel: offsets {layout.a_off}/"
+        raise ValueError(f"{kernel} kernel: offsets {layout.a_off}/"
                          f"{layout.t_off} outside stacks of {p_a}/{p_t} heads")
-    for name, a in (("v", v), ("o", o), ("t_last", t_last)):
-        ops.check(a, name, (n,))
-    ops.check(params, "params", (n, n_p))
-    ops.check(x, "x", (n, n_in))
-    ops.check(changed, "changed", (n,), dtype=torch.bool)
-    ops.check(t, "t", ())
-    if annotate:
-        ops.check(known_, "known", (n,))
     for s, p, f in ((sA, p_a, f_a), (sT, p_t, f_t)):
         for k, shape in (("x_mu", (p, f)), ("x_sd", (p, f)), ("y_mu", (p, 1)),
                          ("y_sd", (p, 1)), ("w0", (p, f, h1)),
@@ -359,31 +385,107 @@ def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
                          ("b1", (p, h2)), ("w2", (p, h2, 1)), ("b2", (p, 1)),
                          ("scale", (p, 1))):
             ops.check(s[k], k, shape)
+    return p_a, p_t, f_a, f_t, h1, h2
+
+
+def _scalars(n, widths, circuit, layout, *, clock_ns, out_eps, spiking, vdd,
+             annotate, dev):
+    p_a, p_t, f_a, f_t, h1, h2 = widths
+    circ = get_circuit(circuit)
+    return _TickScalars(
+        n=n, a_heads=p_a, t_heads=p_t, f_a=f_a, f_t=f_t, h1=h1, h2=h2,
+        a_off=layout.a_off, t_off=layout.t_off,
+        a_fam=(ctypes.c_int * 3)(*(_FAMILY_CODE[f] for f in layout.a_fams)),
+        t_fam=(ctypes.c_int * 2)(*(_FAMILY_CODE[f] for f in layout.t_fams)),
+        circuit=_CIRCUIT_CODE[circuit], n_in=circ.n_inputs,
+        n_p=circ.n_params, spiking=int(spiking), annotate=int(annotate),
+        device=dev.index or 0, clock=clock_ns, out_eps=out_eps, vdd=vdd,
+        half_vdd=0.5 * vdd, v_bias=getattr(circ, "v_bias", 0.0))
+
+
+def _stack_ptrs(pack):
+    return tuple((ctypes.c_void_p * 11)(*(pack[s][k].data_ptr()
+                                          for k in _STACK_KEYS))
+                 for s in ("a", "t"))
+
+
+def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
+            clock_ns, layout, out_eps, spiking, vdd, annotate):
+    widths = _check_pack("network_tick", pack, circuit, layout)
+    circ = get_circuit(circuit)
+    n = v.shape[0]
+    if not isinstance(t, torch.Tensor):
+        t = v.new_full((), t)
+    known_ = known if annotate else None
+    io_in = [v, o, t_last, params, changed, x, t] + (
+        [known_] if annotate else [])
+    dev = ops.same_cuda_device(*io_in, *pack["a"].values(),
+                               *pack["t"].values())
+    for name, a in (("v", v), ("o", o), ("t_last", t_last)):
+        ops.check(a, name, (n,))
+    ops.check(params, "params", (n, circ.n_params))
+    ops.check(x, "x", (n, circ.n_inputs))
+    ops.check(changed, "changed", (n,), dtype=torch.bool)
+    ops.check(t, "t", ())
+    if annotate:
+        ops.check(known_, "known", (n,))
     outs = [torch.empty((n,), dtype=torch.float32, device=dev)
             for _ in range(5)]
     if n:
         lib, fn = _kernel()
-        a_ptrs = (ctypes.c_void_p * 11)(*(sA[k].data_ptr() for k in _STACK_KEYS))
-        t_ptrs = (ctypes.c_void_p * 11)(*(sT[k].data_ptr() for k in _STACK_KEYS))
         io = (ctypes.c_void_p * 13)(
             v.data_ptr(), o.data_ptr(), t_last.data_ptr(), params.data_ptr(),
             changed.data_ptr(), x.data_ptr(), t.data_ptr(),
             known_.data_ptr() if annotate else None,
             *(a.data_ptr() for a in outs))
-        sc = _TickScalars(
-            n=n, a_heads=p_a, t_heads=p_t, f_a=f_a, f_t=f_t, h1=h1, h2=h2,
-            a_off=layout.a_off, t_off=layout.t_off,
-            a_fam=(ctypes.c_int * 3)(*(_FAMILY_CODE[f] for f in layout.a_fams)),
-            t_fam=(ctypes.c_int * 2)(*(_FAMILY_CODE[f] for f in layout.t_fams)),
-            circuit=_CIRCUIT_CODE[circuit], n_in=n_in, n_p=n_p,
-            spiking=int(spiking), annotate=int(annotate),
-            device=dev.index or 0, clock=clock_ns, out_eps=out_eps, vdd=vdd,
-            half_vdd=0.5 * vdd, v_bias=getattr(circ, "v_bias", 0.0))
-        code = fn(a_ptrs, t_ptrs, io, ctypes.byref(sc),
+        sc = _scalars(n, widths, circuit, layout, clock_ns=clock_ns,
+                      out_eps=out_eps, spiking=spiking, vdd=vdd,
+                      annotate=annotate, dev=dev)
+        code = fn(*_stack_ptrs(pack), io, ctypes.byref(sc),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "network_tick")
         ops.count_launch("network_tick")
     return tuple(outs)
+
+
+def _launch_chunk(pack, v, o, t_last, params, changed_seq, x_seq, t_seq, *,
+                  circuit, clock_ns, layout, out_eps, spiking, vdd):
+    if circuit != "lif":
+        raise ValueError("network_tick_chunk kernel: LIF rows only (both "
+                         f"stacks staged once per launch), got {circuit!r}")
+    widths = _check_pack("network_tick_chunk", pack, circuit, layout)
+    circ = get_circuit(circuit)
+    n = v.shape[0]
+    t_steps = changed_seq.shape[0]
+    dev = ops.same_cuda_device(v, o, t_last, params, changed_seq, x_seq,
+                               t_seq, *pack["a"].values(),
+                               *pack["t"].values())
+    for name, a in (("v", v), ("o", o), ("t_last", t_last)):
+        ops.check(a, name, (n,))
+    ops.check(params, "params", (n, circ.n_params))
+    ops.check(changed_seq, "changed_seq", (t_steps, n), dtype=torch.bool)
+    ops.check(x_seq, "x_seq", (t_steps, n, circ.n_inputs))
+    ops.check(t_seq, "t_seq", (t_steps,))
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = [torch.empty((n,), **f32) for _ in range(3)]
+    seqs = [torch.empty((t_steps, n), **f32) for _ in range(3)]
+    if n and t_steps:
+        lib, fn = _kernel("network_tick_chunk")
+        io = (ctypes.c_void_p * 13)(
+            v.data_ptr(), o.data_ptr(), t_last.data_ptr(), params.data_ptr(),
+            changed_seq.data_ptr(), x_seq.data_ptr(), t_seq.data_ptr(),
+            *(a.data_ptr() for a in state + seqs))
+        sc = _scalars(n, widths, circuit, layout, clock_ns=clock_ns,
+                      out_eps=out_eps, spiking=spiking, vdd=vdd,
+                      annotate=False, dev=dev)
+        code = fn(*_stack_ptrs(pack), io, ctypes.byref(sc), t_steps,
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "network_tick_chunk")
+        ops.count_launch("network_tick_chunk")
+    else:
+        for dst, src in zip(state, (v, o, t_last)):
+            dst.copy_(src)
+    return (*state, *seqs)
 
 
 def network_tick(pack, v, o, t_last, params, changed, x, t, known, *,
@@ -402,3 +504,23 @@ def network_tick(pack, v, o, t_last, params, changed, x, t, known, *,
                             changed, x, t, known_out=known if annotate
                             else None, **kw)[:5]
     return _launch(pack, v, o, t_last, params, changed, x, t, known, **kw)
+
+
+def network_tick_chunk(pack, v, o, t_last, params, changed_seq, x_seq, t_seq,
+                       *, circuit, clock_ns, layout: PackLayout,
+                       out_eps: float = 0.02, spiking: bool = True,
+                       vdd: float = 1.5):
+    """T standalone ticks in one launch: ``(v', o', t_last', o_seq, e_seq,
+    l_seq)``, the sequences ``(T, N)``. ``changed_seq`` (T, N) bool,
+    ``x_seq`` (T, N, n_in), ``t_seq`` (T,) float32 tick times. The kernel
+    takes LIF rows; its plain version is T plain ticks."""
+    kw = dict(out_eps=out_eps, spiking=spiking, vdd=vdd, layout=layout)
+    tensors = (v, o, t_last, params, changed_seq, x_seq, t_seq)
+    if all(a.device.type == "cpu" for a in tensors):
+        st, o_seq, e_seq, l_seq = chunk_plain(
+            pack, circuit, LasanaState(v=v, o=o, t_last=t_last,
+                                       params=params),
+            changed_seq, x_seq, t_seq, clock_ns, **kw)
+        return st.v, st.o, st.t_last, o_seq, e_seq, l_seq
+    return _launch_chunk(pack, v, o, t_last, params, changed_seq, x_seq,
+                         t_seq, circuit=circuit, clock_ns=clock_ns, **kw)

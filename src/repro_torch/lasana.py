@@ -18,9 +18,23 @@ The counterpart of ``repro.lasana`` for simulation::
     run = lasana.simulate(mspec, volts_seq, surrogates=lasana.SurrogateLibrary(
         {"crossbar": xbar_sur, "lif": lif_sur}))
 
-Surrogates load from the reference's ``.npz`` artifacts; training, streaming,
-exploration and serving come with later slices of the port. Everything
-runs on ``cuda`` unless ``device=`` says otherwise.
+Long horizons stream: :func:`simulate_stream` cuts the T axis into chunks
+(the same record, bit for bit, in memory bounded by the chunk),
+:func:`stream` yields per-chunk records for live consumers, and
+:func:`resume` continues a stream from a :class:`StreamCheckpoint`::
+
+    run = lasana.simulate_stream(spec, blocks, chunk_ticks=512,
+                                 surrogates=sur)       # blocks: iterator
+    for chunk in lasana.stream(spec, x, chunk_ticks=512, surrogates=sur,
+                               checkpoint_every=2):
+        if chunk.checkpoint is not None:
+            chunk.checkpoint.save("ckpt.npz")
+    run = lasana.resume("ckpt.npz", spec, x, surrogates=sur)
+
+Surrogates load from the reference's ``.npz`` artifacts, and checkpoints
+cross between the two packages; training, exploration, serving and
+multi-device batches come with later slices of the port. Everything runs
+on ``cuda`` unless ``device=`` says otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -35,21 +49,28 @@ import os
 import threading
 from typing import Optional
 
-from repro_torch.core.network import NetworkEngine, NetworkRun, NetworkSpec
+from repro_torch.core.network import (NetworkEngine, NetworkRun, NetworkSpec,
+                                      StreamingRun)
 from repro_torch.core.surrogate import (FORMAT_VERSION, Manifest, Surrogate,
                                         SurrogateLibrary)
 from repro_torch.kernels import ops
+from repro_torch.resilience.checkpoint import StreamCheckpoint
 
 __all__ = [
     "FORMAT_VERSION",
     "Manifest",
     "NetworkRun",
+    "StreamCheckpoint",
+    "StreamingRun",
     "Surrogate",
     "SurrogateLibrary",
     "engine",
     "load",
+    "resume",
     "save",
     "simulate",
+    "simulate_stream",
+    "stream",
 ]
 
 _ENGINE_ATTR = "_lasana_engine_cache"
@@ -130,3 +151,78 @@ def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
                   record_hidden=record_hidden, fused=fused,
                   fused_kernel=fused_kernel,
                   device=device).run(stimulus, surrogates=surrogates)
+
+
+def simulate_stream(spec: NetworkSpec, stimulus, *,
+                    chunk_ticks: Optional[int] = None,
+                    backend: str = "lasana", surrogates=None,
+                    mode: str = "standalone", record_hidden: bool = False,
+                    fused_kernel: Optional[bool] = None,
+                    device=None) -> NetworkRun:
+    """Streaming-chunked :func:`simulate`: the same record, bit for bit,
+    in memory bounded by the chunk.
+
+    ``stimulus`` is a (T, B, fan_in) array or tensor, or an iterator of
+    (t_i, B, fan_in) host blocks re-buffered to ``chunk_ticks``;
+    ``surrogates`` may be an iterator of surrogates or libraries that
+    hot-swaps the weights per chunk (an equal-structure swap builds
+    nothing). At most two stream runners (full chunk and remainder) and
+    one flush runner are built per batch and surrogate structure.
+    ``record_hidden`` defaults to False here: per-layer traces of an
+    unbounded stream defeat the point."""
+    return engine(spec, backend=backend, mode=mode,
+                  record_hidden=record_hidden, fused_kernel=fused_kernel,
+                  device=device).run_stream(stimulus,
+                                            chunk_ticks=chunk_ticks,
+                                            surrogates=surrogates)
+
+
+def stream(spec: NetworkSpec, stimulus, *,
+           chunk_ticks: Optional[int] = None, backend: str = "lasana",
+           surrogates=None, mode: str = "standalone",
+           record_hidden: bool = False,
+           fused_kernel: Optional[bool] = None,
+           checkpoint_every: Optional[int] = None, device=None):
+    """Generator variant of :func:`simulate_stream`: one :class:`NetworkRun`
+    per chunk (chunk k is read while chunk k+1 runs); only the final chunk
+    carries ``flush_energy``. Merge with :class:`StreamingRun` or
+    :meth:`NetworkRun.merge`.
+
+    ``checkpoint_every=N`` attaches a resumable :class:`StreamCheckpoint`
+    to every Nth chunk's record (``run.checkpoint``; persist with
+    ``.save(path)``); :func:`resume` continues from it. Requires
+    ``chunk_ticks``."""
+    return engine(spec, backend=backend, mode=mode,
+                  record_hidden=record_hidden, fused_kernel=fused_kernel,
+                  device=device).stream(
+                      stimulus, chunk_ticks=chunk_ticks,
+                      surrogates=surrogates,
+                      checkpoint_every=checkpoint_every)
+
+
+def resume(checkpoint, spec: NetworkSpec, stimulus, *, surrogates=None,
+           fused_kernel: Optional[bool] = None,
+           checkpoint_every: Optional[int] = None,
+           device=None) -> NetworkRun:
+    """Continue a checkpointed stream to its end and return the whole-run
+    record: the checkpoint's prefix merged with the streamed tail, equal
+    to the uninterrupted run bit for bit.
+
+    ``checkpoint`` is a :class:`StreamCheckpoint` or the path of one saved
+    with ``.save`` (by this package or by the reference); ``spec`` and
+    ``stimulus`` are the ORIGINAL spec and full stimulus — the checkpoint
+    pins backend, mode and chunking and checks the spec's content hash,
+    and the consumed prefix is skipped. On a warm engine nothing is built.
+    ``checkpoint_every`` re-arms checkpointing on the tail."""
+    if isinstance(checkpoint, (str, os.PathLike)):
+        checkpoint = StreamCheckpoint.load(str(checkpoint))
+    eng = engine(spec, backend=checkpoint.backend, mode=checkpoint.mode,
+                 record_hidden=checkpoint.record_hidden,
+                 fused_kernel=fused_kernel, device=device)
+    acc = StreamingRun()
+    acc.update(checkpoint.acc_run)
+    for chunk in eng.stream(stimulus, surrogates=surrogates,
+                            resume_from=checkpoint,
+                            checkpoint_every=checkpoint_every):
+        acc.update(chunk)
+    return acc.result()

@@ -8,7 +8,8 @@ package produced on the CPU. Regenerate all of them with::
     PYTHONPATH=src python tests/test_torch_fixtures.py --regen
 
 or only the crossbar and mixed-graph files (the LIF four stay as they
-are) with ``--regen-crossbar``.
+are) with ``--regen-crossbar``, or only the stream record with
+``--regen-stream``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -30,6 +31,13 @@ train_front_and_readout(seed=0)``; ``xbar_ref_record`` runs the crossbar
 MNIST wave (``make_digits(200, size=20, seed=999)`` as DAC volts, T = 1)
 and ``mixed_ref_record`` the mixed net (``make_digits(64, size=12,
 seed=777)`` held for 30 ticks) through ``repro.lasana.simulate``.
+
+The stream record (``--regen-stream``) runs the SNN's hidden layer alone
+(784 -> 128 LIF, B = 100) over :func:`stream_blocks`' 2,000 ticks through
+the reference's chunk body with ``fused_kernel=True`` — the jnp body of
+``_chunk_fast_path`` for the packable surrogate — and keeps per-neuron
+spike counts, per-tick energy / latency / events, the flush and the final
+``v`` of the golden and lasana runs.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ XBAR_WEIGHTS = ARTIFACTS / "xbar_400_120_84_10.npz"
 MIXED_WEIGHTS = ARTIFACTS / "mixed_144_24_10.npz"
 XBAR_RECORD = ARTIFACTS / "xbar_ref_record.npz"
 MIXED_RECORD = ARTIFACTS / "mixed_ref_record.npz"
+STREAM_RECORD = ARTIFACTS / "stream_784_128_ref_record.npz"
 
 # the unpackable artifact: every head an MLP(100, 50) except this one
 UNPACKABLE_FAMILIES = {"M_ED": "mlp", "M_ES": "gbdt", "M_L": "mlp",
@@ -84,6 +93,21 @@ def chip_workload(n_images: int = N_IMAGES, t_steps: int = T_STEPS):
     spikes = poisson_encode(imgs, T_STEPS, seed=5) * 1.5
     return (spikes[:t_steps, :n_images].astype(np.float32),
             labels[:n_images])
+
+
+STREAM_TICKS = 2000          # the stream phase's horizon
+STREAM_BLOCK = 250           # ticks per host block
+STREAM_CHUNK = 512           # ticks per chunk (three full + one of 464)
+
+
+def stream_blocks(n_images: int = N_IMAGES, t_steps: int = STREAM_TICKS):
+    """The stream phase's host generator: block j is the chip-smoke digits
+    Poisson-encoded for 250 ticks with seed 5 + j, in V_dd spikes."""
+    from repro_torch.data.mnist import make_digits, poisson_encode
+    imgs, _ = make_digits(N_IMAGES, size=28, seed=777)
+    for j in range(-(-t_steps // STREAM_BLOCK)):
+        blk = poisson_encode(imgs[:n_images], STREAM_BLOCK, seed=5 + j) * 1.5
+        yield blk[:t_steps - j * STREAM_BLOCK].astype(np.float32)
 
 
 def snn_weights():
@@ -331,12 +355,75 @@ def _regen_crossbar():
     print(f"crossbar regen took {time.time() - t0:.0f} s")
 
 
+def _regen_stream():
+    """Write the stream record only: the reference's chunk body
+    (``NetworkEngine._scan_chunk``) over 512-tick chunks of
+    :func:`stream_blocks`, carries passed from chunk to chunk as its
+    stream passes them, then the flush at the stream's end."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.network import (NetworkEngine, _iter_chunks, graph_spec,
+                                    lif_layer)
+    from repro.core.surrogate import Surrogate
+
+    t0 = time.time()
+    weights, knobs = snn_weights()
+    spec = graph_spec([lif_layer(jnp.asarray(weights[0]),
+                                 jnp.asarray(knobs[0]))])
+    record = {}
+    for name, kw in (("golden", {"backend": "golden"}),
+                     ("lasana", {"surrogates": Surrogate.load(str(PACKABLE)),
+                                 "fused_kernel": True})):
+        eng = NetworkEngine(spec, record_hidden=False, **kw)
+        assert eng._chunk_eligible() == (name == "lasana")
+        banks = eng._runtime_banks(None)
+        cascade = eng._make_cascade()
+
+        @jax.jit
+        def body(x, k0, carries, prev, banks):
+            ks = k0 + jnp.arange(x.shape[0], dtype=jnp.float32)
+            return eng._scan_chunk(cascade, banks, carries, prev, x, ks)
+
+        carries = [eng._init_carry(0, N_IMAGES)]
+        prev = [jnp.zeros((N_IMAGES, 128), jnp.float32)]
+        counts, es, ls, evs, k0 = 0, [], [], [], 0
+        for x in _iter_chunks(stream_blocks(), STREAM_CHUNK, 784):
+            (carries, prev), (out_seq, _, e, l, ev) = body(
+                jnp.asarray(x), jnp.float32(k0), carries, prev, banks)
+            counts = counts + np.asarray(jnp.sum(out_seq > 0.75, axis=0))
+            es.append(np.asarray(e)[:, 0])
+            ls.append(np.asarray(l)[:, 0])
+            evs.append(np.asarray(ev)[:, 0])
+            k0 += x.shape[0]
+            print(name, k0, f"{time.time() - t0:.0f} s", flush=True)
+        t_end = float(np.float32(k0 * eng.circs[0].clock_ns))
+        flush = eng._flush(carries[0], 0, jnp.float32(t_end),
+                           banks.get("lif"))
+        v = carries[0][0][:, 0] if name == "golden" else carries[0].v
+        record.update({f"{name}/counts": counts.astype(np.int16),
+                       f"{name}/energy": np.concatenate(es),
+                       f"{name}/latency": np.concatenate(ls),
+                       f"{name}/events": np.concatenate(evs),
+                       f"{name}/flush_energy": np.asarray([flush],
+                                                         np.float32),
+                       f"{name}/v": np.asarray(v, np.float32)})
+    np.savez_compressed(STREAM_RECORD, **record)
+    print(STREAM_RECORD.name, os.path.getsize(STREAM_RECORD), "bytes,",
+          f"{time.time() - t0:.0f} s")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--regen"]:
         _regen()
         _regen_crossbar()
+        _regen_stream()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
+    elif sys.argv[1:] == ["--regen-stream"]:
+        _regen_stream()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
-                 "--regen | --regen-crossbar")
+                 "--regen | --regen-crossbar | --regen-stream")

@@ -35,6 +35,21 @@ def test_no_jax_or_reference_imports_in_the_port():
     assert bad == []
 
 
+@pytest.mark.parametrize("module", [
+    "core/network.py", "kernels/tick_megakernel.py", "kernels/lif_scan.py",
+    "kernels/mlp_surrogate.py", "resilience/checkpoint.py",
+    "resilience/__init__.py", "lasana.py"])
+def test_streaming_modules_import_neither_jax_nor_reference(module):
+    """The modules of the streaming slice, one by one: no ``jax`` and no
+    ``repro`` import, not even a lazy one inside a function (the reference
+    imports ``repro.serve.buckets`` for the checkpoint's spec hash; the
+    port keeps its own copy)."""
+    mods = set(_imported_modules(PORT / module))
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                       "repro")}
+    assert mods
+
+
 def test_port_runs_with_jax_and_reference_unimportable():
     code = textwrap.dedent("""
         import sys
@@ -62,6 +77,14 @@ def test_port_runs_with_jax_and_reference_unimportable():
         xrun = lasana.simulate(xspec, volts, backend="golden", device="cpu")
         assert xrun.outputs.shape == (2, 3) and xrun.out_spikes is None
         assert xrun.events.sum() == 2 * 3 * 2
+        chunks = list(lasana.stream(spec, x, chunk_ticks=2, surrogates=sur,
+                                    checkpoint_every=1, device="cpu"))
+        full = lasana.simulate_stream(spec, x, chunk_ticks=2,
+                                      surrogates=sur, device="cpu")
+        res = lasana.resume(chunks[0].checkpoint, spec, x, surrogates=sur,
+                            device="cpu")
+        assert np.array_equal(res.energy, full.energy)
+        assert np.array_equal(full.outputs, run.outputs)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
