@@ -7,6 +7,11 @@ hands them here. Nothing is reinterpreted — layouts are the reference's.
 
 from __future__ import annotations
 
+import math
+import os
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -16,6 +21,8 @@ from repro_torch.core.network import (crossbar_layer, crossbar_mlp_spec,
 from repro_torch.core.surrogate import from_manifest
 from repro_torch.core.wrapper import LasanaState
 from repro_torch.kernels import ops
+from repro_torch.models import params as prm
+from repro_torch.models.model import Model
 
 
 def surrogate_from_numpy(manifest: dict, arrays: dict, device=None):
@@ -74,3 +81,88 @@ def state_from_numpy(v, o, t_last, params, device=None) -> LasanaState:
     dev = ops.resolve_device(device)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     return LasanaState(v=t(v), o=t(o), t_last=t(t_last), params=t(params))
+
+
+# --- LM zoo -------------------------------------------------------------------
+
+def _lm_std(cfg, name: str):
+    """Std of a parity weight: 1/sqrt(its contracted size); None = ones."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    std = {"wq": d, "wk": d, "wv": d, "wo": h * dh, "up": d, "gate": d,
+           "down": cfg.d_ff, "lm_head": d}
+    if name in std:
+        return 1.0 / math.sqrt(std[name])
+    if name == "embedding":
+        return 0.02
+    if name in ("ln1", "ln2", "final_norm"):
+        return None
+    raise NotImplementedError(f"no parity weights for {name!r} yet")
+
+
+def lm_numpy_params(cfg, seed: int = 0) -> dict:
+    """Well-conditioned float32 weights for ``Model(cfg)``, in the JAX
+    ``Model``'s tree (stacked layers), drawn with numpy from ``seed``.
+
+    Each leaf, and each layer of a stacked leaf, has its own generator,
+    ``np.random.default_rng([seed, crc32(path), layer])``, so the draws
+    run in parallel threads (numpy fills without the GIL) with the same
+    result, and a model cut to fewer layers gets the first layers of the
+    full one. Std is 1/sqrt(contracted size) (d for wq / wk / wv / up /
+    gate / lm_head, H * Dh for wo, d_ff for down), 0.02 for the
+    embedding, ones for norms. Both packages round these to bf16 with
+    round-to-nearest-even."""
+    jobs = []
+
+    def alloc(path, spec):
+        std = _lm_std(cfg, path.rsplit("/", 1)[-1])
+        if std is None:
+            return np.ones(spec.shape, np.float32)
+        out = np.empty(spec.shape, np.float32)
+        key = zlib.crc32(path.encode())
+        if spec.logical[0] == "layers":
+            jobs.extend((out[i], [seed, key, i], std) for i in range(len(out)))
+        else:
+            jobs.append((out, [seed, key], std))
+        return out
+
+    def draw(job):
+        out, entropy, std = job
+        np.random.default_rng(entropy).standard_normal(dtype=np.float32,
+                                                       out=out)
+        out *= np.float32(std)
+
+    tree = prm.map_with_path(alloc, Model(cfg).param_specs())
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(draw, jobs))
+    return tree
+
+
+def _host_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if not a.flags.writeable:             # JAX's arrays are read-only
+        a = a.copy()
+    if a.dtype.name == "bfloat16":        # ml_dtypes, as JAX hands it over
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(cfg, arrays: dict, device=None) -> dict:
+    """The port's parameter tree of ``Model(cfg)`` from the JAX ``Model``'s
+    (numpy leaves, stacked layers; bf16 or float32). Each leaf becomes its
+    spec's dtype on ``device`` (float32 rounds to bf16 to nearest even),
+    one layer at a time for a stacked leaf."""
+    dev = ops.resolve_device(device)
+    flat = dict(prm.leaves(arrays))
+
+    def convert(path, spec):
+        src = _host_tensor(flat[path])
+        if tuple(src.shape) != spec.shape:
+            raise ValueError(f"{path}: shape {tuple(src.shape)}, the model "
+                             f"takes {spec.shape}")
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        parts = zip(out, src) if spec.logical[0] == "layers" else [(out, src)]
+        for dst, part in parts:
+            dst.copy_(part.to(dev))
+        return out
+
+    return prm.map_with_path(convert, Model(cfg).param_specs())

@@ -1,0 +1,96 @@
+"""Causal flash attention forward — the LM zoo's attention kernel.
+
+:func:`flash_attention` takes q of shape (BH, S, D) and k, v of shape
+(BH / G, S, D): query row ``bh`` attends to KV row ``bh // G`` (G = 1 is
+the reference's signature; G > 1 is grouped-query attention without
+repeating K/V). On CPU tensors it runs :func:`attention_plain`, a
+non-blocked version in the kernel's operation order (q in fp32 scaled by
+1/sqrt(D), fp32 logits, the causal mask at -1e30, softmax, fp32 ``@ v``,
+cast to q's dtype); on CUDA tensors it launches ``csrc/flash_attn.cu``
+(the port of ``src/repro/kernels/flash_attn.py:flash_attention``) or
+raises. The same argument checks hold on both devices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ops
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64, 128)
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(q, k, v, groups: int):
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("flash_attention takes (BH, S, D) tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    bh, s, d = q.shape
+    if groups < 1 or bh % groups or k.shape != (bh // groups, s, d) \
+            or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} with groups "
+                         f"{groups} needs k and v of shape "
+                         f"{(bh // max(groups, 1), s, d)}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention takes bf16 or fp32 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def attention_plain(q, k, v, groups: int = 1):
+    """The kernel's function without blocking: (BH, S, D) -> (BH, S, D)."""
+    s, d = q.shape[1], q.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    kf = k.float().repeat_interleave(groups, dim=0)
+    vf = v.float().repeat_interleave(groups, dim=0)
+    logits = (q.float() * scale) @ kf.transpose(1, 2)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(causal, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return (w @ vf).to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    lib = _build.library("flash_attn")
+    fn = lib.flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib, fn
+
+
+def _launch(q, k, v, groups: int):
+    dev = ops.same_cuda_device(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    bh, s, d = q.shape
+    if -(-s // 64) * bh >= 2 ** 31:
+        raise ValueError(f"flash_attention: grid of {bh} x {s} too large")
+    out = torch.empty_like(q)
+    if bh and s:
+        lib, fn = _kernel()
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  bh, s, d, groups, int(q.dtype == torch.bfloat16),
+                  1.0 / (d ** 0.5), dev.index or 0,
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.raise_on_error(lib, code, "flash_attention")
+        ops.count_launch("flash_attention")
+    return out
+
+
+def flash_attention(q, k, v, *, groups: int = 1):
+    """Causal attention. q (BH, S, D), k and v (BH / groups, S, D), bf16 or
+    fp32, D in ``HEAD_DIMS`` -> (BH, S, D) in q's dtype."""
+    _check(q, k, v, groups)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_plain(q, k, v, groups)
+    return _launch(q, k, v, groups)

@@ -19,9 +19,9 @@ import os
 
 import torch
 
-LAUNCHES = {"crossbar_target": 0, "lif_chunk": 0, "lif_step": 0,
-            "mlp_surrogate": 0, "mlp_surrogate_heads": 0, "network_tick": 0,
-            "network_tick_chunk": 0}
+LAUNCHES = {"crossbar_target": 0, "flash_attention": 0, "lif_chunk": 0,
+            "lif_step": 0, "mlp_surrogate": 0, "mlp_surrogate_heads": 0,
+            "network_tick": 0, "network_tick_chunk": 0}
 
 
 def count_launch(name: str) -> None:
@@ -54,7 +54,8 @@ def resolve_device(device=None) -> torch.device:
     and there is no card — a CPU run must say ``device="cpu"``.
 
     On CUDA, float32 matrix products and convolutions run in full fp32
-    (TF32 off), because the reference is fp32 throughout."""
+    (TF32 off), because the reference is fp32 throughout, and bf16
+    products reduce in fp32 as XLA's do."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -64,6 +65,7 @@ def resolve_device(device=None) -> torch.device:
                 "versions on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -148,3 +150,17 @@ def network_tick_chunk(*args, **kwargs):
     """A whole chunk of LASANA ticks as ONE time-looped kernel launch."""
     from repro_torch.kernels import tick_megakernel
     return tick_megakernel.network_tick_chunk(*args, **kwargs)
+
+
+def flash_attention(q, k, v):
+    """Causal attention: q (B, H, S, D), k and v (B, KVH, S, D) with KVH
+    dividing H -> (B, H, S, D). Head h attends to KV head h // (H / KVH)."""
+    from repro_torch.kernels import flash_attn
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    if h % kvh:
+        raise ValueError(f"flash_attention: {h} heads over {kvh} KV heads")
+    out = flash_attn.flash_attention(
+        q.reshape(b * h, s, d), k.reshape(b * kvh, s, d),
+        v.reshape(b * kvh, s, d), groups=h // kvh)
+    return out.reshape(b, h, s, d)

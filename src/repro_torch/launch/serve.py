@@ -1,0 +1,116 @@
+"""Batched serving: one prefill and a greedy decode loop over the zoo's
+dense GQA decoders.
+
+``python -m repro_torch.launch.serve --arch starcoder2-3b --reduced
+--batch 4 --prompt-len 64 --gen 32 --device cpu``
+
+Draws the model's weights from ``--seed`` (``Model.init``), runs a batch
+of synthetic prompts (``SyntheticCorpus``) through one prefill, whose
+causal attention is the port's ``flash_attention`` kernel on the card,
+and ``--gen - 1`` greedy decode steps, and reports tokens/s plus
+per-phase wall time. It runs on ``cuda`` unless ``--device`` says
+otherwise, and raises where there is no card. The reference's mesh
+options (``--model-parallel`` > 1, ``--kv-seq``) raise: they need the
+sharding work (ROADMAP A9, A12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.data.lm_data import SyntheticCorpus
+from repro_torch.kernels import ops
+from repro_torch.models.model import Model
+
+
+def setup(args):
+    """(model, params, prompts, max_seq) for ``args``, on its device."""
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 needs a device mesh, which the port does "
+            "not have yet (ROADMAP A9, A12)")
+    if args.kv_seq:
+        raise NotImplementedError(
+            "--kv-seq (sequence-sharded KV caches) needs a device mesh, "
+            "which the port does not have yet (ROADMAP A9, A12)")
+    dev = ops.resolve_device(getattr(args, "device", None))
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
+                        dev)
+    corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
+    prompts = torch.as_tensor(corpus.batch(0, args.batch, args.prompt_len),
+                              device=dev)
+    return model, params, prompts, args.prompt_len + args.gen
+
+
+def generate(model, params, prompts, *, gen: int, max_seq: int) -> dict:
+    """One prefill and ``gen - 1`` greedy decode steps. Tokens stay on the
+    device until the end (one host copy); each phase is timed on the host
+    clock up to a device synchronisation."""
+    dev = prompts.device
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_seq=max_seq)
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = model.decode(params, cache, tok)
+        finite = finite & torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out_tokens.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+    b = prompts.shape[0]
+    return {"prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens_per_s": b * (gen - 1) / max(t_decode, 1e-9),
+            "generated": torch.cat(out_tokens, dim=1).cpu().numpy(),
+            "logits_finite": bool(finite)}
+
+
+def serve(args) -> dict:
+    model, params, prompts, max_seq = setup(args)
+    res = generate(model, params, prompts, gen=args.gen, max_seq=max_seq)
+    gen = res["generated"]
+    print(f"[serve] {model.cfg.name}: batch {args.batch}, prompt "
+          f"{args.prompt_len}, gen {args.gen}")
+    print(f"[serve] prefill {res['prefill_s']:.2f}s | decode "
+          f"{res['decode_s']:.2f}s ({res['tokens_per_s']:.1f} tok/s)")
+    print(f"[serve] sample continuation: {gen[0, :16].tolist()}")
+    return res
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--kv-seq", action="store_true",
+                    help="sequence-sharded KV caches (not ported: raises)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    return ap
+
+
+def main(argv=None):
+    serve(parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

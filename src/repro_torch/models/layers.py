@@ -1,0 +1,97 @@
+"""Shared layer primitives: norms, rope, embeddings, dense MLPs.
+
+The JAX package's ``models/layers.py`` in PyTorch. All forwards are pure
+functions ``(params, x) -> y``; activations compute in the config dtype
+(bf16) with fp32 norm statistics, rotary angles and activation functions,
+rounding back where the reference does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import ParamSpec
+
+
+# --- norms -------------------------------------------------------------------
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), init="ones")
+
+
+def rmsnorm(w, x, eps: float = 1e-5):
+    """Statistics in fp32, the result cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+# --- rotary embeddings ---------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None):
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)                             # (dim/2,)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S). Rotates the two HALVES of
+    the head dimension (not interleaved pairs), in fp32."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                    # (d/2,)
+    ang = positions[..., None].float() * inv                # (..., S, d/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, d/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- embedding -----------------------------------------------------------------
+
+def embed_specs(cfg: ModelConfig) -> dict:
+    specs = {"embedding": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", None),
+                                    init="embed", scale=0.02)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    return specs
+
+
+def embed(params, tokens):
+    return params["embedding"][tokens]
+
+
+def unembed(params, x, cfg: ModelConfig):
+    """Logits as the product in ``x``'s dtype (bf16), then cast to fp32:
+    the values are bf16 values, as the reference's are."""
+    w = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("...d,dv->...v", x, w).float()
+
+
+# --- dense MLP -----------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    specs = {
+        "up": ParamSpec((d, f), ("embed", "mlp")),
+        "down": ParamSpec((f, d), ("mlp", "embed")),
+    }
+    if cfg.mlp_gated:
+        specs["gate"] = ParamSpec((d, f), ("embed", "mlp"))
+    return specs
+
+
+def mlp(params, x, cfg: ModelConfig):
+    """SwiGLU (gated) or GELU MLP. ``jax.nn.gelu`` defaults to the tanh
+    approximation, so this one does too."""
+    up = torch.einsum("...d,df->...f", x, params["up"])
+    if cfg.mlp_gated:
+        gate = torch.einsum("...d,df->...f", x, params["gate"])
+        h = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
+    return torch.einsum("...f,fd->...d", h, params["down"])

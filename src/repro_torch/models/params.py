@@ -1,0 +1,139 @@
+"""Abstract parameter specifications, materialized with ``torch``.
+
+Models declare their parameters as a nested dict of ``ParamSpec`` (shape,
+dtype, logical sharding axes, initializer), the JAX package's layout leaf
+for leaf. :func:`materialize` draws real tensors from an explicit
+``torch.Generator`` on a given device; :func:`param_count` and
+:func:`param_bytes` read the specs without allocating anything. The
+reference's ``abstract`` and ``shardings`` wait for the sharding work
+(ROADMAP A12).
+
+Each element gets the reference's distribution, not its bits:
+``jax.random`` cannot be replayed in ``torch``. Tests that compare the
+two packages draw their weights with numpy instead
+(``repro_torch.convert.lm_numpy_params``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    init: str = "normal"              # normal | zeros | ones | embed
+    scale: float = 1.0
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(
+                f"spec rank mismatch: shape {self.shape} vs logical {self.logical}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor that is not allocated (a cache leaf)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict / list, depth first in key
+    order, paths joined with "/" (``"layers/attn/wq"``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf (a ``ParamSpec`` is a leaf)."""
+    return map_with_path(lambda _, leaf: fn(leaf), tree)
+
+
+def map_with_path(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` applied to every leaf, paths as in :func:`leaves`."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, f"{prefix}{i}/")
+                for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def _fan_in(shape: tuple[int, ...]) -> int:
+    # The reference's rule, kept as it is: the second-to-last dim. For the
+    # attention weights (d, h, dh) that is the head axis, not the
+    # contraction over d (ROADMAP "Known reference caveats", _fan_in).
+    if len(shape) == 1:
+        return shape[0]
+    return int(np.prod(shape[:-1][-2:][-1:])) or shape[-2]
+
+
+def _init_one(generator: torch.Generator, spec: ParamSpec,
+              device: torch.device) -> torch.Tensor:
+    shape, dtype = spec.shape, spec.dtype
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init not in ("normal", "embed"):
+        raise NotImplementedError(
+            f"init {spec.init!r} belongs to a family the port does not run "
+            "yet (ROADMAP A12)")
+    std = spec.scale / math.sqrt(max(_fan_in(shape), 1))
+    if spec.init == "embed":
+        std = spec.scale
+    out = torch.empty(shape, dtype=dtype, device=device)
+    # one layer at a time: a stacked leaf's fp32 draw never exists whole
+    # ((30, 3072, 12288) is 4.5 GB in fp32)
+    for part in (out if spec.logical[0] == "layers" else (out,)):
+        draw = torch.randn(part.shape, generator=generator,
+                           dtype=torch.float32, device=device)
+        part.copy_(draw * std)
+    return out
+
+
+def materialize(generator: torch.Generator, spec_tree, device=None):
+    """Seeded init of the full parameter tree on ``device`` (the
+    generator's own device by default)."""
+    dev = torch.device(device) if device is not None else generator.device
+    return tree_map(lambda s: _init_one(generator, s, dev), spec_tree)
+
+
+def param_bytes(spec_tree) -> int:
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize
+               for _, s in leaves(spec_tree))
+
+
+def param_count(spec_tree) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in leaves(spec_tree))
+
+
+def stacked(spec: ParamSpec, n: int) -> ParamSpec:
+    """Prepend a layers dim (logical axis 'layers', never sharded)."""
+    return ParamSpec(
+        shape=(n, *spec.shape),
+        logical=("layers", *spec.logical),
+        init=spec.init,
+        scale=spec.scale,
+        dtype=spec.dtype,
+    )
+
+
+def map_stacked(tree, n: int):
+    return tree_map(lambda s: stacked(s, n), tree)
+

@@ -8,8 +8,8 @@ package produced on the CPU. Regenerate all of them with::
     PYTHONPATH=src python tests/test_torch_fixtures.py --regen
 
 or only the crossbar and mixed-graph files (the LIF four stay as they
-are) with ``--regen-crossbar``, or only the stream record with
-``--regen-stream``.
+are) with ``--regen-crossbar``, only the stream record with
+``--regen-stream``, or only the LM record with ``--regen-lm``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -31,6 +31,15 @@ train_front_and_readout(seed=0)``; ``xbar_ref_record`` runs the crossbar
 MNIST wave (``make_digits(200, size=20, seed=999)`` as DAC volts, T = 1)
 and ``mixed_ref_record`` the mixed net (``make_digits(64, size=12,
 seed=777)`` held for 30 ticks) through ``repro.lasana.simulate``.
+
+The LM record (``--regen-lm``, ``starcoder2_3b_ref_record.npz``) runs the
+reference ``Model`` of StarCoder2-3B at full width, cut to
+:data:`LM_RECORD_LAYERS` layers, on the CPU with ``lm_numpy_params(cfg,
+0)`` (the first layers of the full model's parity weights) and the
+4 x 512 prompt ``SyntheticCorpus(49152, seed=0).batch(0, 4, 512)``: the
+prefill's last-position logits of the 4 rows, the 8 greedy tokens fed to
+8 decode steps, and rows 0-1's logits of those steps (float16, exact for
+the bf16 values the logits are).
 
 The stream record (``--regen-stream``) runs the SNN's hidden layer alone
 (784 -> 128 LIF, B = 100) over :func:`stream_blocks`' 2,000 ticks through
@@ -94,6 +103,13 @@ def chip_workload(n_images: int = N_IMAGES, t_steps: int = T_STEPS):
     return (spikes[:t_steps, :n_images].astype(np.float32),
             labels[:n_images])
 
+
+# the LM record: StarCoder2-3B at full width, depth cut to 4 of 30 layers
+LM_RECORD = ARTIFACTS / "starcoder2_3b_ref_record.npz"
+LM_RECORD_LAYERS = 4
+LM_PROMPT = (4, 512)         # batch, prompt length
+LM_DECODE_STEPS = 8
+LM_DECODE_ROWS = 2           # rows whose decode logits the record keeps
 
 STREAM_TICKS = 2000          # the stream phase's horizon
 STREAM_BLOCK = 250           # ticks per host block
@@ -415,15 +431,70 @@ def _regen_stream():
           f"{time.time() - t0:.0f} s")
 
 
+def _regen_lm():
+    """Write the LM record only (JAX on the CPU)."""
+    import dataclasses
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.models.model import Model
+    from repro_torch import configs
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.data.lm_data import SyntheticCorpus
+
+    t0 = time.time()
+    n = LM_RECORD_LAYERS
+    cfg = dataclasses.replace(configs.get_config("starcoder2-3b"), n_layers=n)
+    arrays = lm_numpy_params(cfg, 0)
+    params = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                          arrays)
+    del arrays
+    t_draw = time.time() - t0
+    model = Model(dataclasses.replace(get_config("starcoder2-3b"), n_layers=n))
+    b, s = LM_PROMPT
+    tokens = SyntheticCorpus(cfg.vocab, seed=0).batch(0, b, s)
+    max_seq = s + LM_DECODE_STEPS
+    logits, cache = jax.jit(lambda p, t: model.prefill(
+        p, {"tokens": t}, max_seq=max_seq))(params, tokens)
+    prefill = np.asarray(logits[:, 0], np.float32)
+    t_prefill = time.time() - t0 - t_draw
+    decode = jax.jit(model.decode)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    fed, dec_logits = [], []
+    for _ in range(LM_DECODE_STEPS):
+        fed.append(np.asarray(tok)[:, 0])
+        logits, cache = decode(params, cache, tok)
+        dec_logits.append(np.asarray(logits[:LM_DECODE_ROWS, 0], np.float32))
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    for a in (prefill, *dec_logits):
+        # bf16 values fit float16 exactly down to its subnormals (6e-8)
+        err = np.abs(a.astype(np.float16).astype(np.float32) - a)
+        assert float(err.max()) <= 2.0 ** -25 and np.abs(a).max() < 6e4
+    np.savez_compressed(
+        LM_RECORD, tokens=tokens, prefill_logits=prefill.astype(np.float16),
+        decode_tokens=np.stack(fed, 1).astype(np.int32),
+        decode_logits=np.stack(dec_logits).astype(np.float16),
+        n_layers=np.int32(n), seed=np.int32(0))
+    print(LM_RECORD.name, os.path.getsize(LM_RECORD), "bytes;",
+          f"weights {t_draw:.1f} s, prefill {t_prefill:.1f} s, total "
+          f"{time.time() - t0:.1f} s")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--regen"]:
         _regen()
         _regen_crossbar()
         _regen_stream()
+        _regen_lm()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
     elif sys.argv[1:] == ["--regen-stream"]:
         _regen_stream()
+    elif sys.argv[1:] == ["--regen-lm"]:
+        _regen_lm()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
-                 "--regen | --regen-crossbar | --regen-stream")
+                 "--regen | --regen-crossbar | --regen-stream | --regen-lm")

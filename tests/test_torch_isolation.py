@@ -38,12 +38,18 @@ def test_no_jax_or_reference_imports_in_the_port():
 @pytest.mark.parametrize("module", [
     "core/network.py", "kernels/tick_megakernel.py", "kernels/lif_scan.py",
     "kernels/mlp_surrogate.py", "resilience/checkpoint.py",
-    "resilience/__init__.py", "lasana.py"])
+    "resilience/__init__.py", "lasana.py",
+    # the LM serve slice
+    "configs/__init__.py", "configs/base.py", "configs/shapes.py",
+    "configs/starcoder2_3b.py", "models/params.py", "models/layers.py",
+    "models/attention.py", "models/transformer.py", "models/model.py",
+    "data/lm_data.py", "launch/serve.py", "kernels/flash_attn.py",
+    "kernels/ops.py", "convert.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
-    """The modules of the streaming slice, one by one: no ``jax`` and no
-    ``repro`` import, not even a lazy one inside a function (the reference
-    imports ``repro.serve.buckets`` for the checkpoint's spec hash; the
-    port keeps its own copy)."""
+    """The modules of the streaming and LM serve slices, one by one: no
+    ``jax`` and no ``repro`` import, not even a lazy one inside a function
+    (the reference imports ``repro.serve.buckets`` for the checkpoint's
+    spec hash; the port keeps its own copy)."""
     mods = set(_imported_modules(PORT / module))
     assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
                                                        "repro")}
@@ -85,6 +91,13 @@ def test_port_runs_with_jax_and_reference_unimportable():
                             device="cpu")
         assert np.array_equal(res.energy, full.energy)
         assert np.array_equal(full.outputs, run.outputs)
+        import contextlib, io
+        from repro_torch.launch import serve
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = serve.serve(serve.parser().parse_args(
+                ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "8", "--gen", "3"]))
+        assert res["generated"].shape == (2, 3) and res["logits_finite"]
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
