@@ -12,11 +12,17 @@ Phases, one output line each (JSON where it helps):
    main path's shapes and at a ragged N, and time both on the device
    (CUDA events, median of 25 calls after warm-up); the time-looped
    kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
-   launches of their one-tick kernels, bit for bit; ``flash_attention`` at
-   the serve path's shape (bf16, G = 12; within 3e-2), the reference
-   test's fp32 shapes (2e-5), G = 12 equal to G = 1 on repeated K/V, a
-   ragged S = 500 and causality, timed beside one library call
-   (``scaled_dot_product_attention``, never called by the port);
+   launches of their one-tick kernels, bit for bit; ``network_tick``'s
+   outputs digested (SHA-256) case by case and held to the committed
+   digests (``TICK_DIGESTS``), also at the widest heads it takes;
+   ``flash_attention``'s tensor-core route at q 96 x 512 x 128 and the
+   serve run's q 192 x 512 x 128 (bf16, G = 12), S = 4,096 on its first
+   KV group and a ragged S = 500, each within 3e-2, within about one bf16
+   ulp and with few outputs off the plain version's; G = 12 equal to G =
+   1 on repeated K/V and causality; each timed shape beside one library
+   call (``scaled_dot_product_attention``, never called by the port); and
+   its fp32-core route on the reference test's fp32 shapes (2e-5) and at
+   D = 8, counted apart;
 4. drive the main paths through ``repro_torch.lasana.simulate``, each run
    with the kernel launch counters reset before it and read after it, a
    second (steady) run enqueued with host synchronisation forbidden, and
@@ -89,6 +95,7 @@ N_RAGGED = 12837        # not a multiple of any block size
 N_XBAR = 312000         # crossbar MNIST layer-1 rows (200 x 120 x 13)
 N_XBAR_RAGGED = 312037
 N_MIXED_XBAR = 7680     # mixed-net crossbar rows per tick (64 x 24 x 5)
+N_WIDE = 4099           # rows of the widest-heads network_tick cases
 XBAR_IMAGES = 200
 MIXED_IMAGES = 64
 MIXED_TICKS = 30
@@ -115,7 +122,77 @@ LM_DECODE_VS_FORWARD = 0.05
 SERVE_ARGS = ("--arch", LM_ARCH, "--batch", "8", "--prompt-len", "512",
               "--gen", "64")
 FLASH_BH, FLASH_G, FLASH_S, FLASH_D = 96, 12, 512, 128   # 4 x 24 heads
+FLASH_SERVE_BH = 192             # the serve run's prefill: 8 x 24 heads
+FLASH_LONG_S = 4096              # StarCoder2's sliding window
 FLASH_TOL = {"bf16": 3e-2, "fp32": 2e-5}   # tests/test_kernels.py:199
+# the tensor-core route against bf16 resolution: |got - want| <= 2^-7
+# |want| + 2^-9 (one output ulp, an absolute floor near zero), and at most
+# FLASH_OFF_ULP of the outputs differ from the plain version's at all.
+# With P split into bf16 hi + lo the kernel's fp32 result sits ~1e-6 from
+# the plain version's, so only the outputs whose value lies that close to
+# a rounding boundary round apart. tests/test_torch_flash_attn.py emulates
+# the route on the CPU at S = 256 / 512: 0.23-0.24% of outputs apart; one
+# bf16 P leaves 41% apart, and a lost K/V tile exceeds the ulp limit 60-
+# 226 times over
+FLASH_ULP = (2.0 ** -7, 2.0 ** -9)
+FLASH_OFF_ULP = 0.05
+# network_tick's five outputs per case (check_network_tick), SHA-256: the
+# first design's kernel (one thread a row) printed these for the same
+# seeded inputs, and every later design must reproduce them bit for bit
+TICK_DIGESTS = {
+    "network_tick lif packable n=12800 annotate=False":
+        "9bb11632be456885ed28fc0e056c268016e4fad7b52899e2fc141e823bcf8478",
+    "network_tick lif packable n=12837 annotate=False":
+        "0b66dc0e9e3b3dbdeaba6d63e2c128abc210da4ff7f56ae9d6bc419ce2295ab4",
+    "network_tick lif packable n=12800 annotate=True":
+        "ffc4afc067eee790d8d962ebf15c1bf7e858b912f96975b6e8253ba8881695cf",
+    "network_tick lif packable n=12837 annotate=True":
+        "410607bd302e189b19b0bbffa27fd70945d5d2773bc0cbb2eb1393113a9c37e3",
+    "network_tick lif mean_linear n=12800 annotate=False":
+        "4ff7cd8a10cc0962d3c7cf97752fd367dc9b4f8a6c07ae82969401a60cab8316",
+    "network_tick lif mean_linear n=12837 annotate=False":
+        "c2dd11268811460bd521c67c44c0e6f43d5213fe191ab4892f508f104b6dd07f",
+    "network_tick lif mean_linear n=12800 annotate=True":
+        "3e86c0bf4feea306daf6caa198e738bd474f3d10592f4481a02d80fece1e86a8",
+    "network_tick lif mean_linear n=12837 annotate=True":
+        "047af8e5ea1d73a076b74fd5a905cedc11d9f257f1118312f908abb658200488",
+    "network_tick crossbar packable n=312000 annotate=False":
+        "3f3ba7cffc3c7a42f90737d3001fd8894df0240eb9b7bb7e583607a003130f01",
+    "network_tick crossbar packable n=312037 annotate=False":
+        "56e6fbd3b991984ff3d04ee7139826d29b29b0a6c4b9f3b266fc89cff84092b7",
+    "network_tick crossbar packable n=312000 annotate=True":
+        "cb68ce15cf5c234b59a4ff116def68fcf4fcb075301b5f7ad60801039181f683",
+    "network_tick crossbar packable n=312037 annotate=True":
+        "c9bf97a35068b47bc2e2ae99d614c2d6b6fff6ad7c12d30981c96d83a4c88e29",
+    "network_tick lif in {crossbar, lif} n=12800 annotate=False":
+        "9bb11632be456885ed28fc0e056c268016e4fad7b52899e2fc141e823bcf8478",
+    "network_tick lif in {crossbar, lif} n=12837 annotate=False":
+        "0b66dc0e9e3b3dbdeaba6d63e2c128abc210da4ff7f56ae9d6bc419ce2295ab4",
+    "network_tick lif in {crossbar, lif} n=12800 annotate=True":
+        "ffc4afc067eee790d8d962ebf15c1bf7e858b912f96975b6e8253ba8881695cf",
+    "network_tick lif in {crossbar, lif} n=12837 annotate=True":
+        "410607bd302e189b19b0bbffa27fd70945d5d2773bc0cbb2eb1393113a9c37e3",
+    "network_tick crossbar in {crossbar, lif} n=7680 annotate=False":
+        "a1bde6989beea48d5a4474de89c7cc64a5fa175bc1c8a1aeeabec641ed14135c",
+    "network_tick crossbar in {crossbar, lif} n=7699 annotate=False":
+        "aa341e0b268ea6223d2383f23fa72ae27a05c8a17f2172b8f67c25c248417cfb",
+    "network_tick crossbar in {crossbar, lif} n=7680 annotate=True":
+        "e7b806bb4500f9833bb373cc9dee4f9eb0da2f2abaaed72c9c9e65c3d8ee485c",
+    "network_tick crossbar in {crossbar, lif} n=7699 annotate=True":
+        "91072b7e345764f4b57b9d2a217bbf388890a18323893be0f9c458fadcb5277b",
+    "network_tick lif MLP(128, 128) n=4099 annotate=False":
+        "9abdd27d95dd75da5d711aeb36acc5b03b60364b6d7aa2fc1e16a802ad180409",
+    "network_tick lif MLP(128, 128) n=4099 annotate=True":
+        "551e20c212c975ef7067e9115e72e0cea3a9fd3a1bd7366af6d3e53101d2abac",
+    "network_tick crossbar MLP(128, 50) n=4099 annotate=False":
+        "2f54bafb2b77b7e7881f8134f45a7d06e15b8c61f1108a5989559aed41a9ac56",
+    "network_tick crossbar MLP(128, 50) n=4099 annotate=True":
+        "7027a90fd0d2fd9e4baa4e0c982fb3629f30ea548c2ec344d9cf88e18b039cf7",
+    "network_tick crossbar MLP(100, 64) n=4099 annotate=False":
+        "fa44165e8c898edcb36624eeb42a541339d577e28a19dd1d4a414312a1ea299b",
+    "network_tick crossbar MLP(100, 64) n=4099 annotate=True":
+        "404d5c19771235be66dc7a34752b6d531cd2a54a6b62160798e671f0947ebeb3",
+}
 # ULPs of 0.5 * vdd within which a spike may flip: M_O's kernel and plain
 # outputs differ by up to ~1e-6 (~17 ULPs at 0.75 V), summed in two orders
 HALF_VDD_BAND = 64
@@ -457,13 +534,73 @@ def tick_case(torch, np, dev, circuit, n, seed):
     return ins, torch.full((), t_now, device=dev), clock, kw
 
 
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order, as the card left them."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in tensors:
+        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def wide_pack(torch, np, dev, pk, h1, h2, seed):
+    """``pk``'s standardizers and scales with random MLP(h1, h2) heads from
+    a seed: widths near the most that network_tick takes, where its row
+    tiles are fewest."""
+    from repro_torch.kernels.tick_megakernel import PackLayout
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    out = {}
+    for name, st in pk.items():
+        p, f, _ = st["w0"].shape
+        new = {k: st[k] for k in ("x_mu", "x_sd", "y_mu", "y_sd", "scale")}
+        for k, shape, fan in (("w0", (p, f, h1), f), ("w1", (p, h1, h2), h1),
+                              ("w2", (p, h2, 1), h2)):
+            new[k] = f32(rng.normal(0.0, fan ** -0.5, shape))
+        for k, shape in (("b0", (p, h1)), ("b1", (p, h2)), ("b2", (p, 1))):
+            new[k] = f32(rng.normal(0.0, 0.1, shape))
+        out[name] = new
+    return out, PackLayout(("mlp",) * 3, ("mlp",) * 2)
+
+
+def tick_cases(torch, np, dev, surs):
+    """check_network_tick's cases: the trained packable artifacts, a
+    mean/linear pack, both kinds of a {crossbar, lif} pack, and random
+    heads at the widths that leave the kernel least shared memory."""
+    from repro_torch.core.surrogate import SurrogateLibrary
+    from repro_torch.kernels import tick_megakernel as mk
+    lib_pack, lib_layouts = mk.pack_library(SurrogateLibrary(
+        {"crossbar": surs["crossbar"], "lif": surs["lif"]}))
+    lif, xbar = mk.pack_heads(surs["lif"]), mk.pack_heads(surs["crossbar"])
+    return [
+        ("lif packable", "lif", *lif, (N_MAIN, N_RAGGED), "lif"),
+        ("lif mean_linear", "lif",
+         *mk.pack_heads(mean_linear_surrogate(np, dev)),
+         (N_MAIN, N_RAGGED), None),
+        ("crossbar packable", "crossbar", *xbar, (N_XBAR, N_XBAR_RAGGED),
+         "crossbar"),
+        ("lif in {crossbar, lif}", "lif", lib_pack, lib_layouts["lif"],
+         (N_MAIN, N_RAGGED), None),
+        ("crossbar in {crossbar, lif}", "crossbar", lib_pack,
+         lib_layouts["crossbar"], (N_MIXED_XBAR, N_MIXED_XBAR + 19),
+         "crossbar_in_unified_pack"),
+    ] + [(f"{circuit} MLP({h1}, {h2})", circuit,
+          *wide_pack(torch, np, dev, pk[0], h1, h2, h1 + h2), (N_WIDE,), None)
+         for circuit, pk, h1, h2 in (("lif", lif, 128, 128),
+                                     ("crossbar", xbar, 128, 50),
+                                     ("crossbar", xbar, 100, 64))]
+
+
 def check_network_tick(torch, np, dev, cases):
     """Standalone and annotation ticks for each ``(label, circuit, pack,
     layout, sizes, timed_as)`` case: the trained packable artifacts
     (timed at the first size), a mean/linear pack, and both kinds of a
-    unified {crossbar, lif} pack, whose lif heads sit at nonzero offsets."""
+    unified {crossbar, lif} pack, whose lif heads sit at nonzero offsets.
+    Each case's five outputs are digested and held to TICK_DIGESTS: the
+    inputs are seeded, so a kernel that agrees with the first design bit
+    for bit prints the same digests."""
     from repro_torch.kernels import tick_megakernel as mk
-    out = {"max_abs_err": 0.0, "threshold_rows": 0}
+    out = {"max_abs_err": 0.0, "threshold_rows": 0, "digests": {}}
     ulp = float(np.spacing(np.float32(0.75)))
     for label, circuit, pk, ly, sizes, timed_as in cases:
         p_a, f_a, h1 = pk["a"]["w0"].shape
@@ -479,6 +616,10 @@ def check_network_tick(torch, np, dev, cases):
                 args = (pk, v, o, t_last, params, ch, x, t, known)
                 tag = f"network_tick {label} n={n} annotate={annotate}"
                 got = mk.network_tick(*args, **kw)
+                out["digests"][tag] = digest(got)
+                if out["digests"][tag] != TICK_DIGESTS.get(tag):
+                    fail(f"{tag}: outputs differ from the committed digest "
+                         f"{TICK_DIGESTS.get(tag)}")
                 *want, o_hat = mk._tick_arrays(
                     pk["a"], pk["t"], v, o, t_last, params, ch, x, t,
                     known_out=known if annotate else None, **kw)
@@ -774,31 +915,70 @@ def flash_inputs(torch, dev, bh, g, s, d, dtype, seed):
             for n in (bh, bh // g, bh // g)]
 
 
-def flash_err(got, want, tol, name):
+def flash_err(got, want, tol, name, res=None):
     """assert_allclose(rtol=tol, atol=tol), as the reference's test;
-    returns the largest absolute difference."""
+    returns the largest absolute difference. With ``res`` (a dict) the
+    bf16 output is also held to FLASH_ULP element by element and to
+    FLASH_OFF_ULP's share of outputs that differ at all; ``res`` gets the
+    largest |err| / ulp limit and that share."""
     g, w = got.double(), want.double()
     err = (g - w).abs()
     if bool((err > tol + tol * w.abs()).any()) or not bool(
             got.isfinite().all()):
         fail(f"flash_attention {name}: max abs err {float(err.max()):.3e} "
              f"beyond {tol}")
+    if res is not None:
+        ulp = float((err / (FLASH_ULP[0] * w.abs() + FLASH_ULP[1])).max())
+        off = float((got != want).double().mean())
+        if ulp > 1.0 or off > FLASH_OFF_ULP:
+            fail(f"flash_attention {name}: {ulp:.3f} of the bf16 ulp limit "
+                 f"{FLASH_ULP}, {off:.4f} of outputs off the plain "
+                 f"version's (at most {FLASH_OFF_ULP})")
+        res[name] = {"of_ulp_limit": ulp, "share_off": off}
     return float(err.max())
 
 
+def flash_timing(torch, flash_attn, q, k, v, g):
+    """Kernel, plain and SDPA times and the bound of one bf16 shape; K/V
+    repeated to the query heads for SDPA beforehand (yardstick only: the
+    port never calls it)."""
+    bh, s, d = q.shape
+    out = {"shape": f"q ({bh}, {s}, {d}), k/v ({bh // g}, {s}, {d}), bf16, "
+                    f"G = {g}"}
+    out["ms"] = time_ms(lambda: flash_attn.flash_attention(q, k, v,
+                                                           groups=g), torch)
+    if s <= FLASH_S:
+        out["plain_ms"] = time_ms(
+            lambda: flash_attn.attention_plain(q, k, v, g), torch)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_rep, v_rep = (t.repeat_interleave(g, dim=0) for t in (k, v))
+    q4, k4, v4 = (t.view(bh // 24, 24, s, d) for t in (q, k_rep, v_rep))
+    out["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
+                                torch)
+    flops = 2 * d * s * (s + 1) * bh
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops,
+                                                PEAK_BF16_FLOPS)
+    return out
+
+
 def check_flash_attention(torch, np, dev):
-    """The serve path's shape (q 96 x 512 x 128, k/v 8 x 512 x 128, bf16,
-    G = 12; timed), the reference test's fp32 shapes, G = 12 against G = 1
-    on repeated K/V, a ragged S = 500 and causality."""
-    from repro_torch.kernels import flash_attn
+    """The tensor-core route (bf16, D = 128, G = 12) at the check shape
+    (q 96 x 512 x 128; timed), the serve run's prefill shape (q 192 x 512
+    x 128; timed), S = 4,096 (timed; held against the plain version on its
+    first KV group, 12 query rows), a ragged S = 500, G = 12 against G = 1
+    on repeated K/V and causality; the fp32 / D = 8 route on the reference
+    test's fp32 shapes and at D = 8, counted apart."""
+    from repro_torch.kernels import flash_attn, ops
     bh, g, s, d = FLASH_BH, FLASH_G, FLASH_S, FLASH_D
+    before = dict(ops.LAUNCHES)
     q, k, v = flash_inputs(torch, dev, bh, g, s, d, torch.bfloat16, 1)
     got = flash_attn.flash_attention(q, k, v, groups=g)
     want = flash_attn.attention_plain(q, k, v, g)
     torch.cuda.synchronize()
-    out = {"shape": f"q ({bh}, {s}, {d}), k/v ({bh // g}, {s}, {d}), bf16, "
-                    f"G = {g}",
-           "max_abs_err": flash_err(got, want, FLASH_TOL["bf16"], "bf16")}
+    res = {}                # the tensor-core route against bf16 resolution
+    out = {"max_abs_err": flash_err(got, want, FLASH_TOL["bf16"], "bf16",
+                                    res)}
     k_rep, v_rep = (t.repeat_interleave(g, dim=0) for t in (k, v))
     if not torch.equal(got, flash_attn.flash_attention(q, k_rep, v_rep)):
         fail("flash_attention: G = 12 differs from G = 1 on repeated K/V")
@@ -809,35 +989,60 @@ def check_flash_attention(torch, np, dev):
     if not torch.equal(got[:, :401], got2[:, :401]) or torch.equal(got,
                                                                    got2):
         fail("flash_attention: K/V past position 400 moved earlier outputs")
+    rq, rk, rv = flash_inputs(torch, dev, bh, g, 500, d, torch.bfloat16, 2)
+    ragged = flash_err(flash_attn.flash_attention(rq, rk, rv, groups=g),
+                       flash_attn.attention_plain(rq, rk, rv, g),
+                       FLASH_TOL["bf16"], "bf16 ragged S=500", res)
+    sq, sk, sv = flash_inputs(torch, dev, FLASH_SERVE_BH, g, s, d,
+                              torch.bfloat16, 3)
+    serve = flash_err(flash_attn.flash_attention(sq, sk, sv, groups=g),
+                      flash_attn.attention_plain(sq, sk, sv, g),
+                      FLASH_TOL["bf16"], "bf16 serve shape", res)
+    lq, lk, lv = flash_inputs(torch, dev, bh, g, FLASH_LONG_S, d,
+                              torch.bfloat16, 4)
+    long_got = flash_attn.flash_attention(lq, lk, lv, groups=g)
+    long_err = flash_err(long_got[:g], flash_attn.attention_plain(
+        lq[:g], lk[:1], lv[:1], g), FLASH_TOL["bf16"], "bf16 S=4096", res)
+    if not bool(long_got.isfinite().all()):
+        fail("flash_attention: non-finite output at S=4096")
+    tc_launches = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+    # the fp32 / D = 8 route
+    simt_before = ops.LAUNCHES["flash_attention_simt"]
     fp32 = 0.0
     for ss, dd in ((256, 64), (512, 64), (256, 128), (512, 128), (500, 64)):
         args = flash_inputs(torch, dev, 2, 1, ss, dd, torch.float32, ss + dd)
         fp32 = max(fp32, flash_err(flash_attn.flash_attention(*args),
                                    flash_attn.attention_plain(*args),
                                    FLASH_TOL["fp32"], f"fp32 S={ss} D={dd}"))
-    rq, rk, rv = flash_inputs(torch, dev, bh, g, 500, d, torch.bfloat16, 2)
-    ragged = flash_err(flash_attn.flash_attention(rq, rk, rv, groups=g),
-                       flash_attn.attention_plain(rq, rk, rv, g),
-                       FLASH_TOL["bf16"], "bf16 ragged S=500")
-    out.update({"max_abs_err_fp32": fp32, "max_abs_err_ragged_500": ragged,
+    d8 = 0.0
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        args = flash_inputs(torch, dev, 24, 12, 500, 8, dtype, 5)
+        d8 = max(d8, flash_err(flash_attn.flash_attention(*args, groups=12),
+                               flash_attn.attention_plain(*args, 12),
+                               FLASH_TOL[name], f"{name} D=8"))
+    simt = ops.LAUNCHES["flash_attention_simt"] - simt_before
+    if simt != 7 or ops.LAUNCHES["flash_attention"] != before[
+            "flash_attention"] + tc_launches:
+        fail(f"flash_attention: the fp32 / D = 8 checks made {simt} "
+             "launches of the fp32-core route, expected 7, and none of the "
+             "tensor-core route")
+    out.update({"route": "tensor cores (wgmma, TMA) for bf16 with D in "
+                         f"{flash_attn.TC_HEAD_DIMS}; fp32 cores otherwise",
+                "max_abs_err_ragged_500": ragged,
+                "max_abs_err_serve_shape": serve,
+                "max_abs_err_s4096_first_kv_group": long_err,
+                "bf16_resolution": res,
                 "g12_equals_repeated_kv": True, "causal_past_400": True,
-                "tolerance": FLASH_TOL})
-    out["ms"] = time_ms(lambda: flash_attn.flash_attention(q, k, v,
-                                                           groups=g), torch)
-    out["plain_ms"] = time_ms(lambda: flash_attn.attention_plain(q, k, v, g),
-                              torch)
-    # yardstick only: one library call on the same inputs (the port never
-    # calls it); K/V repeated to the query heads beforehand
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4, k4, v4 = (t.view(bh // 24, 24, s, d) for t in (q, k_rep, v_rep))
-    out["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
-                                torch)
+                "simt_route": {"max_abs_err_fp32": fp32,
+                               "max_abs_err_d8": d8,
+                               "launches_in_check": simt},
+                "tolerance": FLASH_TOL, "ulp_limit": FLASH_ULP,
+                "share_off_limit": FLASH_OFF_ULP})
+    out.update(flash_timing(torch, flash_attn, q, k, v, g))
     out["library"] = "scaled_dot_product_attention(is_causal=True), K/V " \
                      "repeated to 24 heads"
-    flops = 2 * d * s * (s + 1) * bh
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops,
-                                                PEAK_BF16_FLOPS)
+    out["serve_shape"] = flash_timing(torch, flash_attn, sq, sk, sv, g)
+    out["s4096"] = flash_timing(torch, flash_attn, lq, lk, lv, g)
     return out
 
 
@@ -1319,7 +1524,8 @@ def lm_runs(torch, np, dev, surs, profile):
     logits, cache = cut.prefill(cut_params, {"tokens": tokens},
                                 max_seq=max_seq)
     counts = dict(ops.LAUNCHES)
-    check_launches("lm record prefill", counts, {"flash_attention": n_rec})
+    check_launches("lm record prefill", counts, {"flash_attention": n_rec,
+                                                  "flash_attention_simt": 0})
     add_counts(total, "lm/record_prefill", counts)
     rel, argmax_ok, decided = row_errors(np, logits[:, 0].cpu(),
                                          rec["prefill_logits"])
@@ -1349,7 +1555,8 @@ def lm_runs(torch, np, dev, surs, profile):
     logits, cache = model.prefill(params, {"tokens": tokens},
                                   max_seq=s + 4)
     counts = dict(ops.LAUNCHES)
-    check_launches("lm prefill", counts, {"flash_attention": cfg.n_layers})
+    check_launches("lm prefill", counts, {"flash_attention": cfg.n_layers,
+                                          "flash_attention_simt": 0})
     add_counts(total, "lm/prefill", counts)
     finite = bool(logits.isfinite().all())
     for i in range(2):
@@ -1359,7 +1566,8 @@ def lm_runs(torch, np, dev, surs, profile):
     h, _ = model.forward(params, {"tokens": torch.cat([tokens, fed[:, :2]],
                                                       1)})
     counts = dict(ops.LAUNCHES)
-    check_launches("lm forward", counts, {"flash_attention": cfg.n_layers})
+    check_launches("lm forward", counts, {"flash_attention": cfg.n_layers,
+                                          "flash_attention_simt": 0})
     add_counts(total, "lm/forward", counts)
     want = unembed(params["embed"], h[:, -1:], cfg)
     dec_fwd = float((logits - want).abs().max() / want.abs().max())
@@ -1380,7 +1588,9 @@ def lm_runs(torch, np, dev, surs, profile):
     res = serve.serve(args)
     counts = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check_launches("serve", counts, {"flash_attention": cfg.n_layers})
+    # every prefill launch on the tensor-core route
+    check_launches("serve", counts, {"flash_attention": cfg.n_layers,
+                                     "flash_attention_simt": 0})
     add_counts(total, "lm/serve", counts)
     out = {"phase": "lm_serve", "args": " ".join(SERVE_ARGS),
            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
@@ -1435,7 +1645,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.core.surrogate import SurrogateLibrary
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import tick_megakernel as mk
     from repro_torch.lasana import load
@@ -1457,22 +1666,7 @@ def main() -> int:
         ("lif", "lif_packable"), ("lif_unpackable", "lif_unpackable"),
         ("crossbar", "crossbar_packable"),
         ("crossbar_unpackable", "crossbar_unpackable"))}
-    lib_pack, lib_layouts = mk.pack_library(SurrogateLibrary(
-        {"crossbar": surs["crossbar"], "lif": surs["lif"]}))
-    tick_cases = [
-        ("lif packable", "lif", *mk.pack_heads(surs["lif"]),
-         (N_MAIN, N_RAGGED), "lif"),
-        ("lif mean_linear", "lif",
-         *mk.pack_heads(mean_linear_surrogate(np, dev)),
-         (N_MAIN, N_RAGGED), None),
-        ("crossbar packable", "crossbar", *mk.pack_heads(surs["crossbar"]),
-         (N_XBAR, N_XBAR_RAGGED), "crossbar"),
-        ("lif in {crossbar, lif}", "lif", lib_pack, lib_layouts["lif"],
-         (N_MAIN, N_RAGGED), None),
-        ("crossbar in {crossbar, lif}", "crossbar", lib_pack,
-         lib_layouts["crossbar"], (N_MIXED_XBAR, N_MIXED_XBAR + 19),
-         "crossbar_in_unified_pack"),
-    ]
+    cases = tick_cases(torch, np, dev, surs)
     checks = {
         "crossbar_target": check_crossbar(torch, np, dev),
         "lif_step": check_lif(torch, np, dev),
@@ -1480,7 +1674,7 @@ def main() -> int:
             "lif": (surs["lif_unpackable"], (N_MAIN, N_RAGGED)),
             "crossbar": (surs["crossbar_unpackable"],
                          (N_XBAR, N_XBAR_RAGGED))}),
-        "network_tick": check_network_tick(torch, np, dev, tick_cases),
+        "network_tick": check_network_tick(torch, np, dev, cases),
         "network_tick_chunk": check_network_tick_chunk(torch, np, dev, [
             ("lif packable", *mk.pack_heads(surs["lif"]), True),
             ("lif mean_linear",
@@ -1527,7 +1721,7 @@ def main() -> int:
             fail(f"{name}: no main-path run launched it")
         extra = {k: v for k, v in c.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}
+                              "bound_by", "library_ms", "digests")}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),

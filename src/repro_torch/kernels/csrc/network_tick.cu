@@ -16,28 +16,47 @@
 // of crossbar inputs and weights; idle rows cost nothing but their
 // copy-through.
 //
-// Design: one thread carries one row through the tick, evaluating each
-// head at its own family's cost (a mean head is a constant, a linear head
-// one dot, an MLP head three layers). The circuit kind is a template
-// parameter (LIF: 3 inputs, 4 parameters, drive = x0 x1 x2 / 5; crossbar:
-// 32 inputs, 33 weights, i_sig = w . x + bias * v_bias), so the feature
-// row's layout is known at compile time; a LIF row's features stay in
-// registers, a crossbar row's spill to local memory. Only the launching
-// kind's own heads are staged, at its own width (a cross-kind pack pads
-// every head to the widest kind; those columns are zero weights and are
-// skipped). When both stacks fit in a block's shared memory (LIF: 75 KB
-// + 51 KB) they are staged together up front; when they do not (crossbar
-// MLP heads: 146 KB + 99 KB) they go through ONE buffer in two phases:
-// the A stack (M_ES, M_V, M_O) for the idle and active stages, then,
-// after a block-wide barrier, the T stack (M_ED, M_L) for the transition
-// stage. The reference's
-// lax.cond(any(...)) skips become control flow on the device, never a
-// host sync: a block with no changed row copies its rows through before
-// staging anything, a two-phase block in which no row's output changed
-// never stages the T stack, and a row runs the idle heads only when stale and the
-// transition heads only when its output changed — the rows the record
-// tail (_finish_tick) reads them for. Built with --fmad=false: everything
-// outside the dot products rounds in the reference's order.
+// Design of the one-tick kernel (network_tick_tiled): a persistent grid,
+// as many blocks of 512 threads as fit on the card's SMs (one per SM with
+// MLP stacks), each walking row tiles of as many rows as the shared memory
+// beside the stacks holds (at most 128: 128 LIF rows or 80 crossbar rows
+// at MLP(100, 50), down to 4 for the widest heads), fewer, down to 32,
+// where that lets one wave of blocks cover N. A
+// block stages the launching kind's heads once, with 4-byte cp.async into
+// a padded layout (rows of w0 / w1 on 16-byte boundaries), at the kind's
+// own width (a cross-kind pack pads every head to the widest kind; those
+// columns are zero weights and are skipped). Per tile it compacts, by
+// block-wide ballots, the rows that need each head set — stale rows for
+// the idle heads, changed rows for the active heads, rows whose output
+// changed for the transition heads — builds their feature rows once per
+// set in shared memory, and evaluates each head on them at its family's
+// cost: a mean head is a constant, a linear head one index-order dot per
+// row, an MLP head three products over (rows x units) — two register-
+// tiled from shared memory, 2 or 4 rows x 4 units a thread, and the
+// output layer one thread per row. Every sum keeps heads.cuh:mlp3's order
+// (index-order __fmaf_rn from 0, then + bias, relu), and the feature row,
+// standardizer, destandardizer and record tail keep theirs, so the
+// outputs equal the thread-per-row stage functions' bit for bit: the
+// work is spread over threads, the arithmetic is unchanged (tensor cores
+// would need TF32). When both stacks fit in shared memory beside the
+// tile's work area (LIF: 77 + 53 KB) they are staged together; when they
+// do not (crossbar MLP heads: 148 + 100 KB) the block runs two phases:
+// the A stack (M_ES, M_V, M_O) over all its tiles, parking the rows whose
+// output changed in a device scratch, then, only if there are such rows,
+// the T stack (M_ED, M_L) in A's place for their transition heads and
+// record tails. The reference's lax.cond(any(...)) skips become control
+// flow on the device, never a host sync: a tile with no changed row is
+// copied through, a block with no changed row stages nothing, and a
+// two-phase block in which no row's output changed never stages the T
+// stack. Built with --fmad=false: everything outside the dot products
+// rounds in the reference's order.
+//
+// The chunk kernel (network_tick_chunk_kernel) keeps the first design:
+// one thread carries one row through every tick, evaluating each head
+// with heads.cuh's device functions; a LIF row's features stay in
+// registers.
+
+#include <stdint.h>
 
 #include "heads.cuh"
 
@@ -90,7 +109,8 @@ constexpr int kTHeads = 2;  // M_ED, M_L
 
 // Feature rows (x[0..kIn), v, tau, p[0..kP)[, o_prev, o_new], derived): the
 // reference's _features, the transition splice, then
-// circuits.augment_features' derived column, computed from x and p.
+// circuits.augment_features' derived column, computed from x and p. kF:
+// the register row of the thread-per-row stage functions (LIF only).
 struct LifRow {
   static constexpr int kCode = 0, kIn = 3, kP = 4, kF = repro::kNarrowF;
   static constexpr int kFa = kIn + 2 + kP + 1;  // idle/active width
@@ -100,7 +120,7 @@ struct LifRow {
 };
 
 struct XbarRow {
-  static constexpr int kCode = 1, kIn = 32, kP = 33, kF = repro::kWideF;
+  static constexpr int kCode = 1, kIn = 32, kP = 33;
   static constexpr int kFa = kIn + 2 + kP + 1;
   // w . x + bias * v_bias, summed in index order (no g_unit)
   __device__ static float derived(const float* x, const float* p,
@@ -243,58 +263,410 @@ __device__ __forceinline__ void record_tail(const TickScalars& sc,
   t_last = t;
 }
 
-template <class Row>
-__global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
-                                    TickIO io, TickScalars sc, int t_base) {
-  extern __shared__ float smem[];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = r < sc.n;
-  const bool changed = valid && io.changed[r];
-  if (!__syncthreads_or(changed)) {        // no event in this block
-    if (valid) {
-      io.v_out[r] = io.v[r];
-      io.o_out[r] = io.o[r];
-      io.tl_out[r] = io.t_last[r];
-      io.e_out[r] = 0.0f;
-      io.l_out[r] = 0.0f;
+// --- the one-tick kernel: a persistent grid of row-tiled blocks -------------
+//
+// See the design note at the top of the file.
+
+constexpr int kTickThreads = 512;
+constexpr int kMinRows = 32;       // rows per tile a small N still gets
+constexpr int kMaxRows = 128;      // rows per tile at the most
+
+// Rows per tile are set at launch and are the work area's stride: as many
+// as the shared memory beside the stacks holds, at most kMaxRows (the LIF
+// MLP(100, 50) stacks leave room for 128, the crossbar's A stack for 80;
+// wider heads leave fewer, down to 4), fewer where one wave of blocks
+// covers N with fewer.
+
+__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
+
+// A stack's heads staged for the row-tiled products: head j at j * per
+// floats, every part on a 16-byte boundary, w0 and w1 rows padded to h1p
+// and h2p columns (the padding is never read into a stored output).
+struct Pad {
+  int fs, h1, h2, h1p, h2p;
+  int x_sd, w0, b0, w1, b1, w2, tail, per;   // offsets in floats; x_mu at 0
+};
+
+__host__ __device__ inline Pad make_pad(int fs, int h1, int h2) {
+  Pad p;
+  p.fs = fs;
+  p.h1 = h1;
+  p.h2 = h2;
+  p.h1p = up4(h1);
+  p.h2p = up4(h2);
+  p.x_sd = up4(fs);
+  p.w0 = p.x_sd + up4(fs);
+  p.b0 = p.w0 + fs * p.h1p;
+  p.w1 = p.b0 + p.h1p;
+  p.b1 = p.w1 + h1 * p.h2p;
+  p.w2 = p.b1 + p.h2p;
+  p.tail = p.w2 + p.h2p;
+  p.per = p.tail + 4;
+  return p;
+}
+
+// Shared memory of a block, in floats: the stage (A and T stacks, or
+// either in turn), then the tile's work area.
+struct TickSmem {
+  int t_base;      // T stack's offset; 0 when T replaces A (two phases)
+  int work;        // work area's offset
+  int total;       // floats in all, for `cap` rows a tile
+  int cap;         // rows per tile the work area holds (a multiple of 4),
+                   // and its stride
+  int rows;        // rows per tile of this launch (<= cap), set at launch
+};
+
+// floats of the work area at `rows` rows per tile (see carve)
+__host__ inline int work_floats(int rows, int f_t, int h1, int h2) {
+  return rows * ((f_t > h2 ? f_t : h2) + h1 + 12) + f_t * (rows + 1) + rows
+         + 8;
+}
+
+// The stacks together when they fit beside kMinRows rows, else in two
+// phases; then the most rows (a multiple of 4, at most kMaxRows) whose
+// work area fits beside the stage. cap == 0: not even 4 rows fit.
+__host__ inline TickSmem tick_smem(const Pad& pa, const Pad& pt, int f_t,
+                                   int h1, int h2) {
+  const int a = 3 * pa.per, t = 2 * pt.per;
+  const int room = repro::kMaxSmem / 4;
+  const bool together = a + t + work_floats(kMinRows, f_t, h1, h2) <= room;
+  TickSmem s;
+  s.t_base = together ? a : 0;
+  s.work = together ? a + t : (a > t ? a : t);
+  s.cap = kMaxRows;
+  while (s.cap > 0 && s.work + work_floats(s.cap, f_t, h1, h2) > room)
+    s.cap -= 4;
+  s.total = s.work + work_floats(s.cap > 0 ? s.cap : 4, f_t, h1, h2);
+  s.rows = s.cap;
+  return s;
+}
+
+// The work area at stride ld (the rows per tile it holds, a multiple of
+// 4): standardized features (then the second hidden layer) and the first
+// hidden layer as [unit][ld], the listed rows' feature rows as [column][ld
+// + 1] (padded: written along a row, read along a column, both without
+// bank conflicts), the tile's per-row values that other threads read, and
+// the compacted row list.
+struct Work {
+  int ld;
+  float *xs, *hid, *feat;
+  float *v, *t_last, *v_cur, *o, *o_res;                    // inputs
+  float *e_idle, *v_hat, *e_s, *v_new, *o_hat, *e_d, *lat;  // head outputs
+  int *list, *ballot;
+};
+
+__device__ inline Work carve(float* w, int ld, int f_t, int h1, int h2) {
+  Work k;
+  k.ld = ld;
+  k.xs = w;
+  w += ld * (f_t > h2 ? f_t : h2);
+  k.hid = w;
+  w += ld * h1;
+  k.v = w;
+  k.t_last = w + ld;
+  k.v_cur = w + 2 * ld;
+  k.o = w + 3 * ld;
+  k.o_res = w + 4 * ld;
+  k.e_idle = w + 5 * ld;
+  k.v_hat = w + 6 * ld;
+  k.e_s = w + 7 * ld;
+  k.v_new = w + 8 * ld;
+  k.o_hat = w + 9 * ld;
+  k.e_d = w + 10 * ld;
+  k.lat = w + 11 * ld;
+  k.feat = w + 12 * ld;
+  k.list = reinterpret_cast<int*>(k.feat + f_t * (ld + 1));
+  k.ballot = k.list + ld;
+  return k;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// W floats (4 W bytes, both addresses aligned to that) into shared memory
+template <int W = 1>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "n"(4 * W) : "memory");
+}
+
+// copy `count` floats into `dst`, or fill with `value` where src is null
+__device__ inline void stage_part(float* dst, const float* src, int count,
+                                  float value) {
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    if (src) cp_async(dst + i, src + i);
+    else dst[i] = value;
+  }
+}
+
+// an (rows, cols) row-major block into rows padded to `ld` columns, a
+// warp per row, W floats a copy
+template <int W>
+__device__ inline void stage_rows_w(float* dst, const float* src, int rows,
+                                    int cols, int ld) {
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += warps)
+    for (int c = W * lane; c < cols; c += 32 * W)
+      cp_async<W>(dst + r * ld + c, src + r * cols + c);
+}
+
+// stage_rows_w with the widest copy (16, 8 or 4 bytes) that the source's
+// alignment and both row strides allow (dst is 16-byte aligned)
+__device__ inline void stage_rows(float* dst, const float* src, int rows,
+                                  int cols, int ld) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if (a % 16 == 0 && cols % 4 == 0 && ld % 4 == 0)
+    stage_rows_w<4>(dst, src, rows, cols, ld);
+  else if (a % 8 == 0 && cols % 2 == 0 && ld % 2 == 0)
+    stage_rows_w<2>(dst, src, rows, cols, ld);
+  else
+    stage_rows_w<1>(dst, src, rows, cols, ld);
+}
+
+// Heads h0 .. h0+count-1 of s at width pd.fs into smem (Pad layout);
+// the whole block calls it, then waits with stage_wait().
+__device__ inline void stage_padded(const repro::Stack& s, int h0, int count,
+                                    const Pad& pd, float* smem) {
+  for (int j = 0; j < count; ++j) {
+    const int h = h0 + j;
+    float* d = smem + j * pd.per;
+    stage_part(d, s.x_mu ? s.x_mu + h * s.f : nullptr, pd.fs, 0.0f);
+    stage_part(d + pd.x_sd, s.x_sd ? s.x_sd + h * s.f : nullptr, pd.fs, 1.0f);
+    stage_rows(d + pd.w0, s.w0 + h * s.f * s.h1, pd.fs, s.h1, pd.h1p);
+    stage_part(d + pd.b0, s.b0 + h * s.h1, s.h1, 0.0f);
+    stage_rows(d + pd.w1, s.w1 + h * s.h1 * s.h2, s.h1, s.h2, pd.h2p);
+    stage_part(d + pd.b1, s.b1 + h * s.h2, s.h2, 0.0f);
+    stage_part(d + pd.w2, s.w2 + h * s.h2, s.h2, 0.0f);
+    if (threadIdx.x == 0) {
+      d[pd.tail] = s.y_mu ? s.y_mu[h] : 0.0f;
+      d[pd.tail + 1] = s.y_sd ? s.y_sd[h] : 1.0f;
+      d[pd.tail + 2] = s.b2[h];
+      d[pd.tail + 3] = s.scale ? s.scale[h] : 1.0f;
     }
+  }
+}
+
+__device__ inline void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// wk.list <- the tile rows (0..wk.ld-1) where `pred` holds, in row order;
+// returns their count. The whole block calls it; threads >= wk.ld pass
+// false.
+template <int LDC>
+__device__ inline int compact(bool pred, const Work& wk) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = ((LDC ? LDC : wk.ld) + 31) >> 5;
+  const unsigned b = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0 && warp < warps) wk.ballot[warp] = static_cast<int>(b);
+  __syncthreads();
+  int n = 0, off = 0;
+  for (int i = 0; i < warps; ++i) {
+    const int c = __popc(static_cast<unsigned>(wk.ballot[i]));
+    n += c;
+    if (i < warp) off += c;
+  }
+  if (pred) wk.list[off + __popc(b & ((1u << lane) - 1u))] = tid;
+  __syncthreads();
+  return n;
+}
+
+enum FeatureKind { kIdle = 0, kActive = 1, kTransition = 2 };
+
+// Feature k < f - 1 of tile row `row` (global row r) in features<Row>'s
+// layout; the last column, the derived one, comes from the others
+template <class Row>
+__device__ __forceinline__ float feature_at(int kind, int k, int row, int r,
+                                            const Work& wk,
+                                            const TickIO& io, float t,
+                                            const TickScalars& sc) {
+  constexpr int base = Row::kIn + 2 + Row::kP;
+  if (k < Row::kIn)
+    return kind == kIdle ? 0.0f : io.x[static_cast<size_t>(r) * Row::kIn + k];
+  if (k == Row::kIn) return kind == kIdle ? wk.v[row] : wk.v_cur[row];
+  if (k == Row::kIn + 1)
+    return kind == kIdle ? fmaxf(t - wk.t_last[row] - sc.clock, 0.0f)
+                         : sc.clock;
+  if (k < base)
+    return io.params[static_cast<size_t>(r) * Row::kP + k - Row::kIn - 2];
+  return k == base ? wk.o[row] : wk.o_res[row];      // transition only
+}
+
+// wk.feat <- the `kind` feature rows of the n listed rows: a warp takes
+// four rows at a time, its lanes the columns (a row's x and params are
+// read coalesced, all of a warp's loads issued before its stores); then
+// each row's derived column from its own x and params, as Row::derived.
+template <class Row, int LDC>
+__device__ void tile_features(int kind, int n, const Work& wk,
+                              const TickIO& io, int r0, float t,
+                              const TickScalars& sc) {
+  constexpr int NC = (Row::kFa + 1 + 31) / 32, NR = 4;
+  const int LD = (LDC ? LDC : wk.ld) + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warps = blockDim.x >> 5;
+  const int f = kind == kTransition ? Row::kFa + 2 : Row::kFa;
+  for (int s0 = (tid >> 5) * NR; s0 < n; s0 += warps * NR) {
+    float val[NR][NC];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int slot = s0 + j, k = lane + 32 * c;
+        val[j][c] = slot < n && k < f - 1
+                        ? feature_at<Row>(kind, k, wk.list[slot],
+                                          r0 + wk.list[slot], wk, io, t, sc)
+                        : 0.0f;
+      }
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int slot = s0 + j, k = lane + 32 * c;
+        if (slot < n && k < f - 1) wk.feat[k * LD + slot] = val[j][c];
+      }
+  }
+  __syncthreads();
+  if (tid < n) {
+    float x[Row::kIn], p[Row::kP];
+#pragma unroll
+    for (int k = 0; k < Row::kIn; ++k) x[k] = wk.feat[k * LD + tid];
+#pragma unroll
+    for (int k = 0; k < Row::kP; ++k)
+      p[k] = wk.feat[(Row::kIn + 2 + k) * LD + tid];
+    wk.feat[(f - 1) * LD + tid] = Row::derived(x, p, sc.v_bias);
+  }
+  __syncthreads();
+}
+
+// out[u][r] = relu(sum_k a[k][r] w[k][u] + b[u]) for r < n_rows, u < n_u:
+// each sum in index order from 0 by __fmaf_rn, as mlp3's layers. A thread
+// holds an RM x 4 block of outputs (rows x units); a is [k][stride], w is
+// [k][ld], out is [u][stride].
+template <int LDC, int RM>
+__device__ inline void dense_relu_rm(const float* a, const float* w,
+                                     const float* b, int n_k, int n_u, int ld,
+                                     int stride, int n_rows, float* out) {
+  if (LDC) stride = LDC;
+  const int nrg = (n_rows + RM - 1) / RM, nug = (n_u + 3) >> 2;
+  for (int m = threadIdx.x; m < nrg * nug; m += blockDim.x) {
+    const int rg = m % nrg, ug = m / nrg;
+    const float* ap = a + RM * rg;
+    const float* wp = w + 4 * ug;
+    float acc[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < n_k; ++k) {
+      float ar[RM];
+      if constexpr (RM == 4) {
+        const float4 av = *reinterpret_cast<const float4*>(ap + k * stride);
+        ar[0] = av.x;
+        ar[1] = av.y;
+        ar[2] = av.z;
+        ar[3] = av.w;
+      } else {
+        const float2 av = *reinterpret_cast<const float2*>(ap + k * stride);
+        ar[0] = av.x;
+        ar[1] = av.y;
+      }
+      const float4 wv = *reinterpret_cast<const float4*>(wp + k * ld);
+      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = __fmaf_rn(ar[i], wr[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int u = 4 * ug + j;
+      if (u >= n_u) break;
+      const float bu = b[u];
+      float* dst = out + u * stride + RM * rg;
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        if (RM * rg + i < n_rows) dst[i] = fmaxf(acc[i][j] + bu, 0.0f);
+    }
+  }
+}
+
+// dense_relu_rm with 2 rows a thread where that keeps all the blocks of
+// outputs in one pass of the block's threads, else 4
+template <int LDC>
+__device__ inline void dense_relu(const float* a, const float* w,
+                                  const float* b, int n_k, int n_u, int ld,
+                                  int stride, int n_rows, float* out) {
+  const int nug = (n_u + 3) >> 2;
+  if (((n_rows + 1) >> 1) * nug <= static_cast<int>(blockDim.x))
+    dense_relu_rm<LDC, 2>(a, w, b, n_k, n_u, ld, stride, n_rows, out);
+  else
+    dense_relu_rm<LDC, 4>(a, w, b, n_k, n_u, ld, stride, n_rows, out);
+}
+
+// One staged head (at hb) on the n listed rows' feature rows in wk.feat,
+// f columns: dest[row] = (y * y_sd + y_mu) / scale, y at the head's family
+// cost, as eval_head. The whole block calls it; it ends with a barrier.
+template <int LDC>
+__device__ void tile_head(const float* hb, const Pad& pd, int fam, int f,
+                          int n, const Work& wk, float* dest) {
+  const int tid = threadIdx.x, ld = LDC ? LDC : wk.ld;
+  const float y_mu = hb[pd.tail], y_sd = hb[pd.tail + 1];
+  const float b2 = hb[pd.tail + 2], scale = hb[pd.tail + 3];
+  if (fam == repro::kMean) {
+    if (tid < n) dest[wk.list[tid]] = (b2 * y_sd + y_mu) / scale;
+    __syncthreads();
     return;
   }
-  // t_base > 0: the T stack sits after the A stack, staged now
-  repro::stage(sa, sc.a_off, kAHeads, smem);
-  if (t_base > 0) repro::stage(st, sc.t_off, kTHeads, smem + t_base);
+  // standardize, a warp per column
+  for (int k = tid >> 5; k < f; k += blockDim.x >> 5) {
+    const float mu = hb[k], sd = hb[pd.x_sd + k];
+    for (int slot = tid & 31; slot < n; slot += 32)
+      wk.xs[k * ld + slot] = (wk.feat[k * (ld + 1) + slot] - mu) / sd;
+  }
   __syncthreads();
-
-  float v = 0.0f, o = 0.0f, t_last = 0.0f, t = 0.0f;
-  const float* x = io.x + static_cast<size_t>(r) * Row::kIn;
-  const float* p = io.params + static_cast<size_t>(r) * Row::kP;
-  if (valid) {
-    v = io.v[r];
-    o = io.o[r];
-    t_last = io.t_last[r];
-  }
-  RowTick rt{};
-  if (changed) {
-    t = *io.t;
-    rt = active_stage<Row>(smem, sa, sc, x, p, v, o, t_last, t,
-                           sc.annotate ? io.known[r] : 0.0f);
-  }
-
-  // transition stage (lines 23-29), only where its heads are read; in
-  // two phases the barrier also ends every read of the A stack before T
-  // overwrites it (t_base is the same for the whole block)
-  float e_d = 0.0f, lat = 0.0f;
-  if (t_base > 0 || __syncthreads_or(rt.out_changed)) {
-    if (t_base == 0) {
-      repro::stage(st, sc.t_off, kTHeads, smem);
-      __syncthreads();
+  float y = 0.0f;
+  if (fam == repro::kLinear) {
+    if (tid < n) {
+#pragma unroll 8
+      for (int k = 0; k < f; ++k)
+        y = __fmaf_rn(wk.xs[k * ld + tid], hb[pd.w0 + k * pd.h1p], y);
     }
-    if (rt.out_changed)
-      transition_stage<Row>(smem + t_base, st, sc, x, p, o, rt, e_d, lat);
+  } else {
+    dense_relu<LDC>(wk.xs, hb + pd.w0, hb + pd.b0, f, pd.h1, pd.h1p, ld,
+                    n, wk.hid);
+    __syncthreads();
+    // the second hidden layer overwrites the standardized features
+    dense_relu<LDC>(wk.hid, hb + pd.w1, hb + pd.b1, pd.h1, pd.h2, pd.h2p,
+                    ld, n, wk.xs);
+    __syncthreads();
+    if (tid < n) {
+      const float* w2 = hb + pd.w2;
+#pragma unroll 8
+      for (int u = 0; u < pd.h2; ++u)
+        y = __fmaf_rn(wk.xs[u * ld + tid], w2[u], y);
+    }
   }
-  if (!valid) return;
-  float e = 0.0f, l = 0.0f;
-  if (changed) record_tail(sc, rt, e_d, lat, t, v, o, t_last, e, l);
+  if (tid < n) {
+    y = y + b2;
+    dest[wk.list[tid]] = (y * y_sd + y_mu) / scale;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void copy_through(const TickIO& io, int r) {
+  io.v_out[r] = io.v[r];
+  io.o_out[r] = io.o[r];
+  io.tl_out[r] = io.t_last[r];
+  io.e_out[r] = 0.0f;
+  io.l_out[r] = 0.0f;
+}
+
+__device__ __forceinline__ void write_row(const TickIO& io, int r, float v,
+                                          float o, float t_last, float e,
+                                          float l) {
   io.v_out[r] = v;
   io.o_out[r] = o;
   io.tl_out[r] = t_last;
@@ -302,15 +674,290 @@ __global__ void network_tick_kernel(repro::Stack sa, repro::Stack st,
   io.l_out[r] = l;
 }
 
-// T ticks of network_tick_kernel in one launch (replaces
-// tick_megakernel.py:network_tick_chunk), LIF rows, standalone mode. Both
-// stacks are staged once, up front; v, o and t_last stay in registers
-// across the chunk, and each tick runs the same stage functions as
-// network_tick_kernel, so the chunk equals T network_tick launches bit for
-// bit. With both stacks staged before the tick loop, no barrier sits
-// inside it: a row with no event this tick writes the copy-through that
-// network_tick writes for it (o, e = 0, l = 0), and padding rows past N
-// only helped stage.
+// the transition heads on the listed rows (n of them): e_d, latency
+template <class Row, int LDC>
+__device__ inline void tile_transition(const float* t_stage, const Pad& pt,
+                                       int n, const Work& wk,
+                                       const TickIO& io, int r0, float t,
+                                       const TickScalars& sc) {
+  constexpr int FT = Row::kFa + 2;
+  tile_features<Row, LDC>(kTransition, n, wk, io, r0, t, sc);
+  tile_head<LDC>(t_stage, pt, sc.t_fam[0], FT, n, wk, wk.e_d);
+  tile_head<LDC>(t_stage + pt.per, pt, sc.t_fam[1], FT, n, wk, wk.lat);
+}
+
+// Algorithm 1 on a persistent grid. `t_base` > 0: both stacks staged
+// together, T at t_base, and each tile runs to its record tail. t_base ==
+// 0 (the crossbar's MLP stacks, which do not fit together): phase A runs
+// every tile of the block to its output resolution and writes the record
+// of each changed row whose output did not change; it parks each changed
+// row in `park` (8 floats a row: v_cur, v_new, o_hat, o_res, then
+// e_s_idle, e_s, stale, out_changed; the first four only where the output
+// changed). Then, only if some row's output changed, the T stack replaces
+// A and phase T finishes those rows.
+template <class Row, int LDC>
+__global__ void __launch_bounds__(kTickThreads, 1)
+    network_tick_tiled(repro::Stack sa, repro::Stack st, TickIO io,
+                       TickScalars sc, Pad pa, Pad pt, TickSmem layout,
+                       float4* __restrict__ park) {
+  constexpr int FA = Row::kFa;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const bool together = layout.t_base > 0;
+  float* a_stage = smem;
+  float* t_stage = smem + layout.t_base;
+  const Work wk = carve(smem + layout.work, LDC ? LDC : layout.cap, FA + 2,
+                        sc.h1, sc.h2);
+  const int tid = threadIdx.x;
+  const int rows = layout.rows;
+  const int tiles = (sc.n + rows - 1) / rows;
+  const float t = *io.t;
+  bool staged = false, any_out = false;   // uniform across the block
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * rows, r = r0 + tid;
+    const bool valid = tid < rows && r < sc.n;
+    const bool changed = valid && io.changed[r];
+    if (!__syncthreads_or(changed)) {        // no event in this tile
+      if (valid) copy_through(io, r);
+      continue;
+    }
+    if (!staged) {
+      stage_padded(sa, sc.a_off, kAHeads, pa, a_stage);
+      if (together) stage_padded(st, sc.t_off, kTHeads, pt, t_stage);
+      stage_wait();
+      staged = true;
+    }
+    // the tile's rows: thread tid owns row tid
+    float v = 0.0f, o = 0.0f, t_last = 0.0f, known = 0.0f;
+    RowTick rt{};
+    if (changed) {
+      v = io.v[r];
+      o = io.o[r];
+      t_last = io.t_last[r];
+      if (sc.annotate) known = io.known[r];
+      rt.stale = t_last < t - sc.clock;
+      wk.v[tid] = v;
+      wk.t_last[tid] = t_last;
+      wk.o[tid] = o;
+    }
+    // idle stage (Algorithm 1 lines 3-9) on the stale rows
+    const int n_idle = compact<LDC>(rt.stale, wk);
+    if (n_idle) {
+      tile_features<Row, LDC>(kIdle, n_idle, wk, io, r0, t, sc);
+      tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_idle, wk, wk.e_idle);
+      if (!sc.annotate)
+        tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_idle, wk,
+                        wk.v_hat);
+    }
+    if (changed) {
+      rt.e_s_idle = rt.stale ? wk.e_idle[tid] : 0.0f;
+      rt.v_cur = (!sc.annotate && rt.stale) ? wk.v_hat[tid] : v;
+      wk.v_cur[tid] = rt.v_cur;
+    }
+    // active stage (lines 10-22) on the changed rows
+    const int n_act = compact<LDC>(changed, wk);
+    tile_features<Row, LDC>(kActive, n_act, wk, io, r0, t, sc);
+    tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_act, wk, wk.e_s);
+    if (!sc.annotate) {
+      tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_act, wk,
+                      wk.v_new);
+      tile_head<LDC>(a_stage + 2 * pa.per, pa, sc.a_fam[2], FA, n_act, wk,
+                      wk.o_hat);
+    }
+    if (changed) {
+      rt.e_s = wk.e_s[tid];
+      rt.v_new = sc.annotate ? rt.v_cur : wk.v_new[tid];
+      rt.o_hat = sc.annotate ? known : wk.o_hat[tid];
+      // output resolution (lines 23-25)
+      if (sc.spiking) {
+        rt.out_changed = rt.o_hat > sc.half_vdd;
+        rt.o_res = rt.out_changed ? sc.vdd : 0.0f;
+      } else {
+        rt.out_changed = fabsf(rt.o_hat - o) > sc.out_eps;
+        rt.o_res = rt.o_hat;
+      }
+      wk.o_res[tid] = rt.o_res;
+    }
+    const int n_tr = compact<LDC>(rt.out_changed, wk);
+    if (together) {
+      // transition stage (lines 23-29) and record tail
+      if (n_tr)
+        tile_transition<Row, LDC>(t_stage, pt, n_tr, wk, io, r0, t, sc);
+      if (valid) {
+        float e = 0.0f, l = 0.0f;
+        if (changed) {
+          record_tail(sc, rt, rt.out_changed ? wk.e_d[tid] : 0.0f,
+                      rt.out_changed ? wk.lat[tid] : 0.0f, t, v, o, t_last,
+                      e, l);
+          write_row(io, r, v, o, t_last, e, l);
+        } else {
+          copy_through(io, r);
+        }
+      }
+    } else {
+      any_out = any_out || n_tr > 0;
+      if (changed) {
+        park[2 * r + 1] = make_float4(rt.e_s_idle, rt.e_s,
+                                      rt.stale ? 1.0f : 0.0f,
+                                      rt.out_changed ? 1.0f : 0.0f);
+      }
+      if (rt.out_changed) {
+        park[2 * r] = make_float4(rt.v_cur, rt.v_new, rt.o_hat, rt.o_res);
+      } else if (changed) {
+        float e = 0.0f, l = 0.0f;
+        record_tail(sc, rt, 0.0f, 0.0f, t, v, o, t_last, e, l);
+        write_row(io, r, v, o, t_last, e, l);
+      } else if (valid) {
+        copy_through(io, r);
+      }
+    }
+  }
+  if (together || !any_out) return;
+
+  // phase T: every read of the A stack is done (tile_head ends with a
+  // barrier); the T stack replaces it, and the parked rows finish
+  __syncthreads();
+  stage_padded(st, sc.t_off, kTHeads, pt, t_stage);
+  stage_wait();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * rows, r = r0 + tid;
+    const bool valid = tid < rows && r < sc.n;
+    RowTick rt{};
+    if (valid && io.changed[r]) {
+      const float4 b = park[2 * r + 1];
+      rt.out_changed = b.w != 0.0f;
+      if (rt.out_changed) {
+        const float4 a = park[2 * r];
+        rt.v_cur = a.x;
+        rt.v_new = a.y;
+        rt.o_hat = a.z;
+        rt.o_res = a.w;
+        rt.e_s_idle = b.x;
+        rt.e_s = b.y;
+        rt.stale = b.z != 0.0f;
+        wk.v_cur[tid] = rt.v_cur;
+        wk.o[tid] = io.o[r];
+        wk.o_res[tid] = rt.o_res;
+      }
+    }
+    const int n_tr = compact<LDC>(rt.out_changed, wk);
+    if (!n_tr) continue;
+    tile_transition<Row, LDC>(t_stage, pt, n_tr, wk, io, r0, t, sc);
+    if (rt.out_changed) {
+      float v = 0.0f, o = 0.0f, t_last = 0.0f, e = 0.0f, l = 0.0f;
+      record_tail(sc, rt, wk.e_d[tid], wk.lat[tid], t, v, o, t_last, e, l);
+      write_row(io, r, v, o, t_last, e, l);
+    }
+  }
+}
+
+template <class Row>
+bool tick_widths_ok(const TickScalars& sc) {
+  return sc.n_in == Row::kIn && sc.n_p == Row::kP && sc.f_a >= Row::kFa &&
+         sc.f_t >= Row::kFa + 2 && sc.h1 <= repro::kMaxH1 &&
+         sc.a_off + kAHeads <= sc.a_heads && sc.t_off + kTHeads <= sc.t_heads;
+}
+
+template <class Row>
+TickSmem tick_layout(const TickScalars& sc, Pad* pa, Pad* pt) {
+  *pa = make_pad(Row::kFa, sc.h1, sc.h2);
+  *pt = make_pad(Row::kFa + 2, sc.h1, sc.h2);
+  return tick_smem(*pa, *pt, Row::kFa + 2, sc.h1, sc.h2);
+}
+
+// floats of `park` a row needs: 8 when the stacks go in two phases, else
+// 0; -1 when not even 4 rows fit beside the stacks (launch refuses them)
+template <class Row>
+int park_floats(int h1, int h2) {
+  TickScalars sc{};
+  sc.h1 = h1;
+  sc.h2 = h2;
+  Pad pa, pt;
+  const TickSmem layout = tick_layout<Row>(sc, &pa, &pt);
+  if (layout.cap == 0) return -1;
+  return layout.t_base == 0 ? 8 : 0;
+}
+
+// network_tick_tiled<Row, LDC> on one wave of blocks. The shared-memory
+// limit and the grid's size (resident blocks per SM times SMs) are
+// queried when the bytes or the device change: the host enqueues this
+// kernel every tick, and the occupancy query is slow.
+template <class Row, int LDC>
+cudaError_t launch_tiled(const repro::Stack& a, const repro::Stack& t,
+                         const TickIO& io, const TickScalars& sc,
+                         const Pad& pa, const Pad& pt, TickSmem layout,
+                         float4* park, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * layout.total;
+  static size_t set_bytes = 0;
+  static int set_device = -1, blocks = 0;
+  if (bytes != set_bytes || sc.device != set_device) {
+    cudaError_t err = cudaFuncSetAttribute(
+        network_tick_tiled<Row, LDC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, network_tick_tiled<Row, LDC>, kTickThreads, bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 sc.device);
+    if (err != cudaSuccess) return err;
+    blocks = (per_sm > 1 ? per_sm : 1) * sms;
+    set_bytes = bytes;
+    set_device = sc.device;
+  }
+  // rows per tile: the fewest (a multiple of 4, at most layout.cap) that
+  // let one wave of blocks cover all rows, but at least kMinRows where the
+  // cap allows, so that a small N does not make every SM stage the stacks
+  // for a few rows
+  const int per_block = up4((sc.n + blocks - 1) / blocks);
+  const int rows = per_block < kMinRows ? kMinRows : per_block;
+  layout.rows = rows < layout.cap ? rows : layout.cap;
+  const int tiles = (sc.n + layout.rows - 1) / layout.rows;
+  network_tick_tiled<Row, LDC><<<tiles < blocks ? tiles : blocks,
+                                 kTickThreads, bytes, stream>>>(
+      a, t, io, sc, pa, pt, layout, park);
+  return cudaGetLastError();
+}
+
+// The work area's stride compiled in for the kind's MLP(100, 50) heads
+// (the products' addresses then fold into immediates, and the crossbar
+// kernel keeps its registers without spilling); other widths take the
+// stride at run time.
+template <class Row> struct CommonStride;
+template <> struct CommonStride<LifRow> { static constexpr int kLd = 128; };
+template <> struct CommonStride<XbarRow> { static constexpr int kLd = 80; };
+
+template <class Row>
+cudaError_t launch(const repro::Stack& sa, const repro::Stack& st,
+                   const TickIO& io, const TickScalars& sc, float4* park,
+                   cudaStream_t stream) {
+  if (!tick_widths_ok<Row>(sc)) return cudaErrorInvalidValue;
+  repro::Stack a = sa, t = st;
+  a.fs = Row::kFa;
+  t.fs = Row::kFa + 2;
+  Pad pa, pt;
+  const TickSmem layout = tick_layout<Row>(sc, &pa, &pt);
+  if (layout.cap == 0 || (layout.t_base == 0 && park == nullptr))
+    return cudaErrorInvalidValue;
+  constexpr int kLd = CommonStride<Row>::kLd;
+  if (layout.cap == kLd)
+    return launch_tiled<Row, kLd>(a, t, io, sc, pa, pt, layout, park, stream);
+  return launch_tiled<Row, 0>(a, t, io, sc, pa, pt, layout, park, stream);
+}
+
+// --- the chunk kernel: T ticks in one launch, one thread per row ----------
+//
+// Replaces tick_megakernel.py:network_tick_chunk; LIF rows, standalone
+// mode. Both stacks are staged once, up front; v, o and t_last stay in
+// registers across the chunk, and each tick runs the thread-per-row stage
+// functions above (active_stage, transition_stage, record_tail), whose
+// outputs equal network_tick_tiled's bit for bit, so the chunk equals T
+// network_tick launches bit for bit. With both stacks staged before the
+// tick loop, no barrier sits inside it: a row with no event this tick
+// writes the copy-through that network_tick writes for it (o, e = 0, l =
+// 0), and padding rows past N only helped stage.
 template <class Row>
 __global__ void network_tick_chunk_kernel(repro::Stack sa, repro::Stack st,
                                           ChunkIO io, TickScalars sc,
@@ -357,35 +1004,6 @@ __global__ void network_tick_chunk_kernel(repro::Stack sa, repro::Stack st,
     io.o_out[r] = o;
     io.tl_out[r] = t_last;
   }
-}
-
-template <class Row>
-cudaError_t launch(const repro::Stack& sa, const repro::Stack& st,
-                   const TickIO& io, const TickScalars& sc,
-                   cudaStream_t stream) {
-  constexpr int FA = Row::kFa;
-  if (sc.n_in != Row::kIn || sc.n_p != Row::kP || sc.f_a < FA ||
-      sc.f_t < FA + 2 || sc.h1 > repro::kMaxH1 ||
-      sc.a_off + kAHeads > sc.a_heads || sc.t_off + kTHeads > sc.t_heads)
-    return cudaErrorInvalidValue;
-  repro::Stack a = sa, t = st;
-  a.fs = FA;
-  t.fs = FA + 2;
-  const size_t per_a = kAHeads * repro::head_floats(a.fs, sc.h1, sc.h2);
-  const size_t per_t = kTHeads * repro::head_floats(t.fs, sc.h1, sc.h2);
-  const bool together = sizeof(float) * (per_a + per_t) <= repro::kMaxSmem;
-  const size_t bytes = sizeof(float) * (together ? per_a + per_t
-                                        : (per_a > per_t ? per_a : per_t));
-  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
-  const int t_base = together ? static_cast<int>(per_a) : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      network_tick_kernel<Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const int blocks = (sc.n + kThreads - 1) / kThreads;
-  network_tick_kernel<Row><<<blocks, kThreads, bytes, stream>>>(a, t, io, sc,
-                                                                 t_base);
-  return cudaGetLastError();
 }
 
 template <class Row>
@@ -453,10 +1071,21 @@ extern "C" int network_tick_chunk_launch(const float* const* a_stack,
                               static_cast<cudaStream_t>(stream));
 }
 
+// floats of park a row of `circuit` needs at hidden widths h1, h2 (0:
+// none), or -1 for an unknown circuit or widths network_tick refuses
+extern "C" int network_tick_park_floats(int circuit, int h1, int h2) {
+  if (circuit == LifRow::kCode) return park_floats<LifRow>(h1, h2);
+  if (circuit == XbarRow::kCode) return park_floats<XbarRow>(h1, h2);
+  return -1;
+}
+
+// park: (n, network_tick_park_floats) float32, 16-byte aligned, or null
+// when that is 0
 extern "C" int network_tick_launch(const float* const* a_stack,
                                    const float* const* t_stack,
                                    const void* const* io_ptrs,
-                                   const TickScalars* sc, void* stream) {
+                                   const TickScalars* sc, void* park,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(sc->device);
   if (err != cudaSuccess) return err;
   const repro::Stack sa = make_stack(a_stack, sc->a_heads, sc->f_a, sc->h1,
@@ -478,7 +1107,10 @@ extern "C" int network_tick_launch(const float* const* a_stack,
   io.e_out = static_cast<float*>(const_cast<void*>(io_ptrs[11]));
   io.l_out = static_cast<float*>(const_cast<void*>(io_ptrs[12]));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sc->circuit == LifRow::kCode) return launch<LifRow>(sa, st, io, *sc, s);
-  if (sc->circuit == XbarRow::kCode) return launch<XbarRow>(sa, st, io, *sc, s);
+  float4* pk = static_cast<float4*>(park);
+  if (sc->circuit == LifRow::kCode)
+    return launch<LifRow>(sa, st, io, *sc, pk, s);
+  if (sc->circuit == XbarRow::kCode)
+    return launch<XbarRow>(sa, st, io, *sc, pk, s);
   return cudaErrorInvalidValue;
 }

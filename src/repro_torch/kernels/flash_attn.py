@@ -4,11 +4,18 @@
 (BH / G, S, D): query row ``bh`` attends to KV row ``bh // G`` (G = 1 is
 the reference's signature; G > 1 is grouped-query attention without
 repeating K/V). On CPU tensors it runs :func:`attention_plain`, a
-non-blocked version in the kernel's operation order (q in fp32 scaled by
-1/sqrt(D), fp32 logits, the causal mask at -1e30, softmax, fp32 ``@ v``,
-cast to q's dtype); on CUDA tensors it launches ``csrc/flash_attn.cu``
-(the port of ``src/repro/kernels/flash_attn.py:flash_attention``) or
-raises. The same argument checks hold on both devices.
+non-blocked version in the TPU kernel's operation order (q in fp32 scaled
+by 1/sqrt(D), fp32 logits, the causal mask at -1e30, softmax, fp32
+``@ v``, cast to q's dtype); on CUDA tensors it launches
+``csrc/flash_attn.cu`` (the port of
+``src/repro/kernels/flash_attn.py:flash_attention``) or raises. The same
+argument checks hold on both devices.
+
+The kernel has two routes, picked by :func:`route` from (dtype, D) alone
+and counted apart in ``ops.LAUNCHES``: bf16 with D in ``TC_HEAD_DIMS``
+runs on the tensor cores (``wgmma``: fp32 logits of exact bf16 products,
+scaled after the product, P split into bf16 hi + lo for ``@ v``), every
+other case (fp32, D = 8) on the fp32 cores.
 """
 
 from __future__ import annotations
@@ -22,7 +29,17 @@ from repro_torch.kernels import _build, ops
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+def route(dtype, d: int) -> str:
+    """The kernel route (and launch counter) for inputs of ``dtype`` and
+    head dim ``d``: ``"flash_attention"`` (tensor cores) for bf16 with D
+    in ``TC_HEAD_DIMS``, else ``"flash_attention_simt"`` (fp32 cores)."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "flash_attention"
+    return "flash_attention_simt"
 
 
 def _check(q, k, v, groups: int):
@@ -58,11 +75,12 @@ def attention_plain(q, k, v, groups: int = 1):
 
 
 @functools.cache
-def _kernel():
+def _kernel(name: str):
     lib = _build.library("flash_attn")
-    fn = lib.flash_attention_launch
+    fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    ints = 4 if name == "flash_attention_tc" else 5    # + is_bf16 (simt)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return lib, fn
 
@@ -75,15 +93,26 @@ def _launch(q, k, v, groups: int):
     bh, s, d = q.shape
     if -(-s // 64) * bh >= 2 ** 31:
         raise ValueError(f"flash_attention: grid of {bh} x {s} too large")
+    counter = route(q.dtype, d)
+    tensor_cores = counter == "flash_attention"
+    if tensor_cores and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core route's TMA "
+                         "loads need 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     if bh and s:
-        lib, fn = _kernel()
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  bh, s, d, groups, int(q.dtype == torch.bfloat16),
-                  1.0 / (d ** 0.5), dev.index or 0,
-                  torch.cuda.current_stream(dev).cuda_stream)
-        _build.raise_on_error(lib, code, "flash_attention")
-        ops.count_launch("flash_attention")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if tensor_cores:
+            lib, fn = _kernel("flash_attention_tc")
+            code = fn(*ptrs, bh, s, d, groups, 1.0 / (d ** 0.5),
+                      dev.index or 0, stream)
+        else:
+            lib, fn = _kernel("flash_attention_simt")
+            code = fn(*ptrs, bh, s, d, groups,
+                      int(q.dtype == torch.bfloat16), 1.0 / (d ** 0.5),
+                      dev.index or 0, stream)
+        _build.raise_on_error(lib, code, counter)
+        ops.count_launch(counter)
     return out
 
 

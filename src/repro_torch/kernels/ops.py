@@ -8,9 +8,10 @@ CUDA tensor it launches the hand-written Hopper kernel, built from
 ``csrc/`` at first use, or raises. There is no fallback from one to the
 other.
 
-``LAUNCHES`` counts kernel launches, one per wrapper, and nothing else:
-a caller resets it (:func:`reset_launches`), drives a path, and reads it
-to show that the path went through the kernels.
+``LAUNCHES`` counts kernel launches, one counter per kernel (the two
+routes of ``flash_attention`` apart), and nothing else: a caller resets
+it (:func:`reset_launches`), drives a path, and reads it to show that the
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import os
 
 import torch
 
-LAUNCHES = {"crossbar_target": 0, "flash_attention": 0, "lif_chunk": 0,
-            "lif_step": 0, "mlp_surrogate": 0, "mlp_surrogate_heads": 0,
+LAUNCHES = {"crossbar_target": 0, "flash_attention": 0,
+            "flash_attention_simt": 0, "lif_chunk": 0, "lif_step": 0,
+            "mlp_surrogate": 0, "mlp_surrogate_heads": 0,
             "network_tick": 0, "network_tick_chunk": 0}
 
 

@@ -12,12 +12,14 @@ one broadcast, a linear head one dot).
 reference's body with ``skip=False``, which its docstring states is
 exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors.
 :func:`network_tick_chunk` runs T ticks in one launch (LIF rows, v / o /
-t_last resident); its plain version is a loop of the plain tick, and its
-kernel runs the same per-row device code as ``network_tick``. The
-kernel takes the stacks as they are; nothing is padded to lane widths.
-It derives the feature row of a LIF neuron or a crossbar row itself, and
-stages only the launching kind's heads of a cross-kind
-:func:`pack_library` pack.
+t_last resident); its plain version is a loop of the plain tick. The
+one-tick kernel spreads each head's products over a block's threads (a
+persistent grid of row tiles), the chunk kernel keeps one thread per row;
+both sum in the same order, so a chunk equals T one-tick launches bit for
+bit. The kernels take the stacks as they are (the one-tick kernel pads
+rows only in shared memory); they derive the feature row of a LIF neuron
+or a crossbar row themselves, and stage only the launching kind's heads of
+a cross-kind :func:`pack_library` pack.
 """
 
 from __future__ import annotations
@@ -349,9 +351,43 @@ def _kernel(name: str = "network_tick"):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.POINTER(_TickScalars)]
-                   + ([ctypes.c_int] if name == "network_tick_chunk" else [])
+                   + ([ctypes.c_int] if name == "network_tick_chunk"
+                      else [ctypes.c_void_p])       # park
                    + [ctypes.c_void_p])
     return lib, fn
+
+
+@functools.cache
+def _park_floats(circuit: str, h1: int, h2: int) -> int:
+    """Floats a row of ``network_tick``'s scratch takes for ``circuit``
+    rows and hidden widths (h1, h2), as the kernel's own layout rule gives
+    them: 8 where the two stacks do not fit in shared memory together (the
+    kernel then parks the rows whose output changed between its A and T
+    phases), else 0. Raises where the widths leave no room for the
+    kernel's smallest row tile beside a stack (ROADMAP lists that band)."""
+    lib = _build.library("network_tick")
+    fn = lib.network_tick_park_floats
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    per_row = fn(_CIRCUIT_CODE[circuit], h1, h2)
+    if per_row < 0:
+        raise ValueError(f"network_tick kernel: {circuit} stacks of "
+                         f"MLP({h1}, {h2}) heads leave no shared memory for "
+                         "a row tile beside them")
+    return per_row
+
+
+# one park scratch per (device, stream), grown to the largest N seen:
+# launches on one stream run in order, so no tick reads another's rows
+_PARK: dict = {}
+
+
+def _park(dev, stream: int, floats: int):
+    buf = _PARK.get((dev.index, stream))
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty((floats,), dtype=torch.float32, device=dev)
+        _PARK[(dev.index, stream)] = buf
+    return buf
 
 
 def _check_pack(kernel, pack, circuit, layout):
@@ -441,8 +477,10 @@ def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
         sc = _scalars(n, widths, circuit, layout, clock_ns=clock_ns,
                       out_eps=out_eps, spiking=spiking, vdd=vdd,
                       annotate=annotate, dev=dev)
-        code = fn(*_stack_ptrs(pack), io, ctypes.byref(sc),
-                  torch.cuda.current_stream(dev).cuda_stream)
+        per_row = _park_floats(circuit, *widths[4:])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        park = _park(dev, stream, n * per_row).data_ptr() if per_row else None
+        code = fn(*_stack_ptrs(pack), io, ctypes.byref(sc), park, stream)
         _build.raise_on_error(lib, code, "network_tick")
         ops.count_launch("network_tick")
     return tuple(outs)

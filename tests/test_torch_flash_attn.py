@@ -140,3 +140,95 @@ def test_cpu_call_counts_no_launch():
     q = torch.zeros(2, 8, 16)
     flash_attn.flash_attention(q, q, q)
     assert ops.LAUNCHES["flash_attention"] == before
+
+
+def _tensor_core_rounding(q, k, v, *, split_p=True, drop_tile=None):
+    """The tensor-core route's arithmetic on bf16 q, k, v (BH, S, D), in
+    fp32 before the output cast: products of bf16 values (exact in fp32)
+    summed in fp32, the 1/sqrt(D) scale applied after the product, the
+    causal mask and softmax in fp32, then P split into bf16 hi + lo (or
+    rounded once to bf16, as SDPA's P is) and ``@ v`` in fp32. With
+    ``drop_tile`` = j, keys 64 j .. 64 j + 63 are left out (key 0 stays),
+    as a kernel that lost one K/V tile would."""
+    s, d = q.shape[1], q.shape[2]
+    logits = (q.float() @ k.float().transpose(1, 2)) * (1.0 / d ** 0.5)
+    causal = torch.ones((s, s), dtype=torch.bool).tril()
+    if drop_tile is not None:
+        causal[:, max(64 * drop_tile, 1):64 * drop_tile + 64] = False
+    p = torch.softmax(torch.where(causal, logits, flash_attn.NEG_INF), -1)
+    hi = p.bfloat16().float()
+    if not split_p:
+        return hi @ v.float()
+    lo = (p - hi).bfloat16().float()
+    return hi @ v.float() + lo @ v.float()
+
+
+@pytest.mark.parametrize("s", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_rounding_keeps_the_plain_function(s, d):
+    """Scale after the product and a bf16 hi + lo split of P stay within
+    1e-5 of max |out| of ``attention_plain`` in fp32 (measured ~3e-6 on
+    the CPU); one bf16 P lands two orders of magnitude further away
+    (measured ~1.2e-3 to 2.2e-3), which is why the kernel splits P."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = flash_attn.attention_plain(q.float(), k.float(), v.float())
+    scale = float(want.abs().max())
+    split = float((_tensor_core_rounding(q, k, v) - want).abs().max())
+    single = float((_tensor_core_rounding(q, k, v, split_p=False)
+                    - want).abs().max())
+    assert split <= 1e-5 * scale
+    assert single >= 100 * split
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "flash_attention"),
+    (torch.bfloat16, 64, "flash_attention"),
+    (torch.bfloat16, 32, "flash_attention"),
+    (torch.bfloat16, 16, "flash_attention"),
+    (torch.bfloat16, 8, "flash_attention_simt"),
+    (torch.float32, 128, "flash_attention_simt"),
+    (torch.float32, 8, "flash_attention_simt")])
+def test_route_is_fixed_by_dtype_and_head_dim(dtype, d, want):
+    """bf16 with D in TC_HEAD_DIMS takes the tensor cores, fp32 and D = 8
+    the fp32 cores; each route has its own launch counter."""
+    assert flash_attn.route(dtype, d) == want
+    assert want in ops.LAUNCHES
+
+
+# chip_smoke.py's limits on the tensor-core route's bf16 output:
+# FLASH_ULP (|got - want| <= 2^-7 |want| + 2^-9) and FLASH_OFF_ULP (the
+# share of outputs that differ from the plain version's at all)
+_ULP, _OFF = (2.0 ** -7, 2.0 ** -9), 0.05
+
+
+def _against_limits(got, want):
+    err = (got.double() - want.double()).abs()
+    ulp = float((err / (_ULP[0] * want.double().abs() + _ULP[1])).max())
+    return ulp, float((got != want).double().mean())
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_bf16_resolution_limits_separate_the_route_from_its_faults(s):
+    """The route's rounding, cast to bf16, lies within the ulp limit of
+    the plain version's bf16 output and differs from it in well under
+    FLASH_OFF_ULP of the outputs (measured ~0.2-0.3%). One bf16 P differs
+    in ~40% of them, and a lost K/V tile exceeds the ulp limit many times
+    over; the reference's 3e-2 alone would pass both."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, 128))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = flash_attn.attention_plain(q, k, v)
+    ulp, off = _against_limits(_tensor_core_rounding(q, k, v).bfloat16(),
+                               want)
+    assert ulp <= 1.0 and off <= _OFF / 5
+    _, off_single = _against_limits(
+        _tensor_core_rounding(q, k, v, split_p=False).bfloat16(), want)
+    assert off_single >= 4 * _OFF
+    for tile in (1, s // 64 - 1):
+        ulp_drop, _ = _against_limits(
+            _tensor_core_rounding(q, k, v, drop_tile=tile).bfloat16(), want)
+        assert ulp_drop > 4.0
