@@ -12,9 +12,15 @@ Phases, one output line each (JSON where it helps):
    main path's shapes and at a ragged N, and time both on the device
    (CUDA events, median of 25 calls after warm-up); the time-looped
    kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
-   launches of their one-tick kernels, bit for bit; ``network_tick``'s
-   outputs digested (SHA-256) case by case and held to the committed
-   digests (``TICK_DIGESTS``), also at the widest heads it takes;
+   launches of their one-tick kernels, bit for bit; ``network_tick``'s and
+   the head kernels' outputs digested (SHA-256) case by case and held to
+   the committed digests of their first designs (``TICK_DIGESTS``,
+   ``HEADS_DIGESTS``), ``network_tick`` also at the widest heads it takes;
+   ``mlp_surrogate_heads`` / ``mlp_surrogate`` also at widths the first
+   design refused (F = 100 with MLP(200, 50), and F = 80 with MLP(512,
+   256) heads larger than shared memory, staged in slices); the Python
+   copies of ``network_tick``'s routing rules (``kernel_takes``,
+   ``chunk_takes``) against the compiled rules over a sweep of widths;
    ``flash_attention``'s tensor-core route at q 96 x 512 x 128 and the
    serve run's q 192 x 512 x 128 (bf16, G = 12), S = 4,096 on its first
    KV group and a ragged S = 500, each within 3e-2, within about one bf16
@@ -30,7 +36,9 @@ Phases, one output line each (JSON where it helps):
    the artifacts:
    - the 784-128-10 spiking-MNIST SNN on 100 synthetic digits for 100
      ticks: golden, lasana with a packable and with an unpackable
-     surrogate;
+     surrogate; and on the first 20 digits lasana with a surrogate whose
+     five heads are all MLP(200, 50), wider than ``network_tick`` takes
+     (the stacked-dispatch tick, through ``mlp_surrogate_heads``);
    - the ternary 400-120-84-10 crossbar MNIST net on 200 digits as one
      combinational wave (385,200 crossbar rows): golden, lasana packable,
      lasana unpackable;
@@ -66,6 +74,11 @@ Phases, one output line each (JSON where it helps):
 one more steady run under ``torch.profiler`` (for the stream phase: one
 more steady stream of the SNN and of its hidden layer; for the LM phase:
 one more prefill and decode loop of the serve run).
+
+``--digests`` only prints the digests of the head and tick kernels' outputs
+on the check cases; with ``--src DIR`` they come from the ``repro_torch``
+under DIR (another commit's kernels on the same inputs), which is how the
+committed digests were taken.
 
 Any failed phase raises, and the script exits non-zero. It needs CUDA and
 the repository's ``src/``; without either it fails before printing a
@@ -193,6 +206,50 @@ TICK_DIGESTS = {
     "network_tick crossbar MLP(100, 64) n=4099 annotate=True":
         "404d5c19771235be66dc7a34752b6d531cd2a54a6b62160798e671f0947ebeb3",
 }
+# the head kernels' outputs per case (heads_cases), SHA-256: the first
+# design's kernel (one thread a row) printed these for the same seeded
+# inputs (``chip_smoke.py --digests --src <its src>``), and every later
+# design must reproduce them bit for bit
+HEADS_DIGESTS = {
+    "mlp_surrogate_heads lif ('M_O', 'M_V') n=12800":
+        "74f3b94441ae6edaf8f4b7cb56318f8ff8c9dc8a36e41f664061ea187fe14000",
+    "mlp_surrogate_heads lif ('M_O', 'M_V') n=12837":
+        "20c415bbb49f70193ead2f4793e2a7e2d63504fe4d90134b59cdebb62536c1ca",
+    "mlp_surrogate_heads lif ('M_ED', 'M_L') n=12800":
+        "0b9d99659024c14ff1c1b0c45cd1ee575127e05b7a89f6d8209221d09c63ed77",
+    "mlp_surrogate_heads lif ('M_ED', 'M_L') n=12837":
+        "782e1d13880082a565277607418398ec60b70e2a817f50d4fb7e9e6056bd20e9",
+    "mlp_surrogate_heads crossbar ('M_O', 'M_V') n=312000":
+        "c16e9a3b8f2ee25e3cd804160828c5e001a3025b076723a595ca0026857eeb6c",
+    "mlp_surrogate_heads crossbar ('M_O', 'M_V') n=312037":
+        "15fb766eaf8637bc8a44cba3a6ecd87fac958f92a24c64ea9cbb93a894a4ccc9",
+    "mlp_surrogate_heads crossbar ('M_ED', 'M_L') n=312000":
+        "f9a0b2a946fe0025e8946fcfefa5d3f94ae8958c63e50bc30930e9797a9449d7",
+    "mlp_surrogate_heads crossbar ('M_ED', 'M_L') n=312037":
+        "b91e373c18176fbbfcc05a0903272655566f17ac32ec6972bae849d8c624a075",
+    "mlp_surrogate F=41 n=12800 torch.float32":
+        "79490bd9ea7b3e169305ddc5bd6978be6804d6e95124a1998c27eeac46c36fcb",
+    "mlp_surrogate F=41 n=12800 torch.bfloat16":
+        "8a0ecaa9b9b85ecbd1ce68a716dd8aafafbc6ad66dbcfa33b43a5838e7637275",
+    "mlp_surrogate F=41 n=12837 torch.float32":
+        "4d58a23c6ba1a099e078d6b33731ae5c391bd56cc3f6bda746cf860ada62a6e9",
+    "mlp_surrogate F=41 n=12837 torch.bfloat16":
+        "734dffa23752dbeac4f337c80f3e414ad38b27bd70cdaf544195fb6d312b26d3",
+    "mlp_surrogate F=67 n=12800 torch.float32":
+        "a92cbc6d39b41b451f6ae0bf09cc5b694e4bfecc65c8a2866cd60111d75f9e81",
+    "mlp_surrogate F=67 n=12800 torch.bfloat16":
+        "8988604b6e515fdcd0d01fd82c71cc6e0911560f1be726c9f505d2731d82b342",
+    "mlp_surrogate F=67 n=12837 torch.float32":
+        "e184fb4013c9e39cfd0c218259b4d4d5e4c5e1674607e259fb2e6250d8195564",
+    "mlp_surrogate F=67 n=12837 torch.bfloat16":
+        "6a61911ba696f7c9409c4554644da116a7a02d62d329a32337b1ecd9e3060a56",
+}
+# (h1, h2) of the routing-rule sweep, for both row kinds: across the band
+# network_tick refuses (crossbar H1 >= 94 with H2 near 128), its H1 limit
+# and the widths where the chunk kernel's two stacks stop fitting together
+ROUTE_H1 = (1, 8, 50, 64, 90, 94, 100, 110, 120, 124, 127, 128, 129, 200, 512)
+ROUTE_H2 = (1, 16, 50, 64, 100, 120, 125, 128, 200, 256)
+WIDE_IMAGES = 20        # digits of the wide-surrogate run (its JAX record)
 # ULPs of 0.5 * vdd within which a spike may flip: M_O's kernel and plain
 # outputs differ by up to ~1e-6 (~17 ULPs at 0.75 V), summed in two orders
 HALF_VDD_BAND = 64
@@ -421,50 +478,176 @@ def check_crossbar(torch, np, dev):
     return out
 
 
-def check_mlp_heads(torch, np, dev, unpackables):
-    """The stacked groups the unpackable artifacts launch on the main
-    paths: (M_O, M_V) at the active width and (M_ED, M_L) at the
-    transition width, for LIF rows (F = 10/12, N = 12,800: the timed
-    entry) and crossbar rows (F = 68/70, N = 312,000: ``crossbar``)."""
+def heads_cases(torch, np, dev, surs):
+    """The head kernels' cases at the widths the first design took, each
+    ``(tag, kind, fn, args, timed)``: the stacked groups the unpackable
+    artifacts launch on the main paths, (M_O, M_V) at the active width and
+    (M_ED, M_L) at the transition width, for LIF rows (F = 10/12, N =
+    12,800 timed, 12,837) and crossbar rows (F = 68/70, N = 312,000 timed,
+    312,037); then ``mlp_surrogate`` at (F, H1, H2) = (41, 100, 50) and
+    (67, 100, 50), N = 12,800 and 12,837, fp32 and bf16 inputs. The inputs
+    are seeded, so a kernel that agrees with the first design bit for bit
+    prints the same digests (HEADS_DIGESTS)."""
     from repro_torch.kernels import mlp_surrogate
     keys = ("x_mu", "x_sd", "y_mu", "y_sd", "w0", "b0", "w1", "b1", "w2",
             "b2")
-    res = {}
-    for kind, (sur, sizes) in unpackables.items():
-        out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-        flops = n_bytes = 0.0
-        shapes = []
+    cases = []
+    for kind, sizes in (("lif", (N_MAIN, N_RAGGED)),
+                        ("crossbar", (N_XBAR, N_XBAR_RAGGED))):
+        sur = surs[f"{kind}_unpackable"]
         for pnames in (("M_O", "M_V"), ("M_ED", "M_L")):
             s = sur._stacked(pnames)
             stacks = [s[k] for k in keys]
-            p, f, h1 = s["w0"].shape
-            h2 = s["w1"].shape[2]
+            f = s["w0"].shape[1]
             for n in sizes:
                 x = torch.as_tensor(np.random.default_rng(n + f).normal(
                     0, 1, (n, f)), dtype=torch.float32, device=dev)
-                got = mlp_surrogate.mlp_surrogate_heads(x, *stacks)
-                want = mlp_surrogate.mlp_heads_plain(x, *stacks)
-                torch.cuda.synchronize()
-                out["max_abs_err"] = max(out["max_abs_err"], compare(
-                    got, want, f"mlp_surrogate_heads {kind} {pnames} n={n}"))
-                if n != sizes[0]:
-                    continue
-                shapes.append(f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}")
-                out["ms"] += time_ms(
-                    lambda: mlp_surrogate.mlp_surrogate_heads(x, *stacks),
-                    torch)
-                out["plain_ms"] += time_ms(
-                    lambda: mlp_surrogate.mlp_heads_plain(x, *stacks), torch)
-                flops += n * p * mlp_head_flops(f, h1, h2)
-                n_bytes += (n * f + sum(a.numel() for a in stacks)
-                            + p * n) * 4
-        out["shape"] = "; ".join(shapes) + " (one launch each, times summed)"
-        out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
-        res[kind] = out
-    lif = res.pop("lif")
+                cases.append((f"mlp_surrogate_heads {kind} {pnames} n={n}",
+                              kind, mlp_surrogate.mlp_surrogate_heads,
+                              (x, *stacks), n == sizes[0]))
+    for f in (41, 67):
+        rng = np.random.default_rng(f)
+        w = single_head(torch, np, dev, rng, f, 100, 50)
+        for n in (N_MAIN, N_RAGGED):
+            x = torch.as_tensor(rng.normal(0, 1, (n, f)), dtype=torch.float32,
+                                device=dev)
+            for xx in (x, x.bfloat16()):
+                cases.append((f"mlp_surrogate F={f} n={n} {xx.dtype}",
+                              "single", mlp_surrogate.mlp_surrogate,
+                              (xx, *w), n == N_MAIN and xx is x))
+    return cases
+
+
+def single_head(torch, np, dev, rng, f, h1, h2, scale=0.1):
+    """One unstandardized head's (w1, b1, w2, b2, w3, b3), N(0, scale)."""
+    return [torch.as_tensor((rng.normal(0, 1, s) * scale).astype(np.float32),
+                            device=dev)
+            for s in ((f, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,))]
+
+
+def wide_heads(torch, np, dev, p, f, h1, h2, seed):
+    """P standardized MLP(h1, h2) heads at F columns from a seed, as
+    ``mlp_surrogate_heads`` takes them, and x (N_MAIN, F)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    stacks = [f32(rng.normal(0, 0.5, (p, f))),
+              f32(rng.uniform(0.5, 2, (p, f))),
+              f32(rng.normal(0, 1, (p, 1))), f32(rng.uniform(0.5, 2, (p, 1)))]
+    for shape, fan in (((p, f, h1), f), ((p, h1), None), ((p, h1, h2), h1),
+                       ((p, h2), None), ((p, h2, 1), h2), ((p, 1), None)):
+        stacks.append(f32(rng.normal(0, fan ** -0.5 if fan else 0.1, shape)))
+    x = f32(rng.normal(0, 1, (N_MAIN, f)))
+    return x, stacks
+
+
+# widths the first design refused: (P, F, H1, H2); the last has heads
+# larger than shared memory (w1 alone 512 KB), so its w0 / w1 go in slices
+WIDE_HEADS = ((2, 100, 200, 50), (3, 12, 200, 50), (2, 80, 512, 256))
+
+
+def check_mlp_heads(torch, np, dev, surs):
+    """``mlp_surrogate_heads`` and ``mlp_surrogate``: every case of
+    :func:`heads_cases` digested and held to HEADS_DIGESTS and to the
+    plain version; the main path's groups timed (LIF: the line's entry;
+    crossbar rows: ``crossbar``); then the widths of WIDE_HEADS, and
+    ``mlp_surrogate`` at F = 100 with MLP(200, 50), against the plain
+    version at N = 12,800, each with the kernel's launch plan. Returns
+    (the heads' entry, the single head's entry)."""
+    from repro_torch.kernels import mlp_surrogate, ops
+    heads = {"lif": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0},
+             "crossbar": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    single = {"max_abs_err": 0.0,
+              "main_path": "none: no entry point of the JAX package or of "
+                           "the port calls it (only tests/test_kernels.py); "
+                           "its launches are the kernel check's"}
+    digests = {}
+    plain = {mlp_surrogate.mlp_surrogate_heads: mlp_surrogate.mlp_heads_plain,
+             mlp_surrogate.mlp_surrogate: mlp_surrogate.mlp_plain}
+    work = {"lif": [0.0, 0.0, []], "crossbar": [0.0, 0.0, []]}
+    before = ops.LAUNCHES["mlp_surrogate"]
+    for tag, kind, fn, args, timed in heads_cases(torch, np, dev, surs):
+        got = fn(*args)
+        want = plain[fn](*args)
+        torch.cuda.synchronize()
+        digests[tag] = digest([got])
+        if digests[tag] != HEADS_DIGESTS.get(tag):
+            fail(f"{tag}: outputs differ from the committed digest "
+                 f"{HEADS_DIGESTS.get(tag)}")
+        out = single if kind == "single" else heads[kind]
+        out["max_abs_err"] = max(out["max_abs_err"], compare(got, want, tag))
+        if not timed:
+            continue
+        x = args[0]
+        n, f = x.shape
+        if kind == "single":
+            key = "" if f == 41 else "_f67"
+            w = args[1:]
+            h1, h2 = w[0].shape[1], w[2].shape[1]
+            single[f"ms{key}"] = time_ms(lambda: fn(*args), torch)
+            single[f"plain_ms{key}"] = time_ms(lambda: plain[fn](*args),
+                                               torch)
+            flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
+            n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
+            single[f"bound_ms{key}"], single["bound_by"] = bound_ms(
+                n_bytes, flops)
+            if not key:
+                single["shape"] = f"x ({n}, {f}), H1={h1}, H2={h2}"
+            continue
+        p, _, h1 = args[5].shape
+        h2 = args[7].shape[2]
+        out["ms"] += time_ms(lambda: fn(*args), torch)
+        out["plain_ms"] += time_ms(lambda: plain[fn](*args), torch)
+        work[kind][0] += n * p * mlp_head_flops(f, h1, h2)
+        work[kind][1] += (n * f + sum(a.numel() for a in args[1:])
+                          + p * n) * 4
+        work[kind][2].append(f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}")
+    for kind, (flops, n_bytes, shapes) in work.items():
+        heads[kind]["shape"] = "; ".join(shapes) + \
+            " (one launch each, times summed)"
+        heads[kind]["bound_ms"], heads[kind]["bound_by"] = bound_ms(
+            n_bytes, flops)
+    heads["lif"]["digests"] = {k: v[:12] for k, v in digests.items()}
+    wide = {}
+    for p, f, h1, h2 in WIDE_HEADS:
+        x, stacks = wide_heads(torch, np, dev, p, f, h1, h2, p + f + h1 + h2)
+        tag = f"P={p} F={f} MLP({h1}, {h2})"
+        got = mlp_surrogate.mlp_surrogate_heads(x, *stacks)
+        want = mlp_surrogate.mlp_heads_plain(x, *stacks)
+        torch.cuda.synchronize()
+        res = {"plan": mlp_surrogate.plan(p, f, h1, h2),
+               "max_abs_err": compare(got, want, f"mlp_surrogate_heads {tag}"),
+               "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate_heads(
+                   x, *stacks), torch),
+               "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
+                   x, *stacks), torch)}
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            (x.numel() + sum(a.numel() for a in stacks) + p * N_MAIN) * 4,
+            N_MAIN * p * mlp_head_flops(f, h1, h2))
+        heads["lif"]["max_abs_err"] = max(heads["lif"]["max_abs_err"],
+                                          res["max_abs_err"])
+        wide[tag] = res
+    if wide["P=2 F=80 MLP(512, 256)"]["plan"]["group"] != 0:
+        fail("mlp_surrogate_heads: the F=80 MLP(512, 256) heads were not "
+             "staged in slices")
+    rng = np.random.default_rng(100)
+    w = single_head(torch, np, dev, rng, 100, 200, 50)
+    x = torch.as_tensor(rng.normal(0, 1, (N_MAIN, 100)), dtype=torch.float32,
+                        device=dev)
+    got = mlp_surrogate.mlp_surrogate(x, *w)
+    want = mlp_surrogate.mlp_plain(x, *w)
+    torch.cuda.synchronize()
+    single["max_abs_err"] = max(single["max_abs_err"], compare(
+        got, want, "mlp_surrogate F=100 MLP(200, 50)"))
+    single["wide"] = {"F=100 MLP(200, 50)": {
+        "plan": mlp_surrogate.plan(1, 100, 200, 50),
+        "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate(x, *w), torch),
+        "plain_ms": time_ms(lambda: mlp_surrogate.mlp_plain(x, *w), torch)}}
+    single["kernel_check_launches"] = ops.LAUNCHES["mlp_surrogate"] - before
+    lif = heads.pop("lif")
     lif["max_abs_err"] = max(lif["max_abs_err"],
-                             res["crossbar"].pop("max_abs_err"))
-    return {**lif, **res}
+                             heads["crossbar"].pop("max_abs_err"))
+    lif["wide"] = wide
+    return {**lif, **heads}, single
 
 
 def mean_linear_surrogate(np, dev):
@@ -866,47 +1049,55 @@ def seq_launch(mk, pk, v, o, t_last, params, ch, x, ts, kw):
                              **kw)[:3]
 
 
-def check_mlp_surrogate(torch, np, dev):
-    """One unstandardized MLP head at (F, H1, H2) = (41, 100, 50) (timed)
-    and (67, 100, 50), N = 12,800 and 12,837, fp32 and bf16 inputs."""
-    from repro_torch.kernels import mlp_surrogate
-    from repro_torch.kernels import ops
-    out = {"max_abs_err": 0.0,
-           "main_path": "none: no entry point of the JAX package or of the "
-                        "port calls it (only tests/test_kernels.py); its "
-                        "launches are the kernel check's"}
-    before = ops.LAUNCHES["mlp_surrogate"]
-    for f in (41, 67):
-        h1, h2 = 100, 50
-        rng = np.random.default_rng(f)
-        w = [torch.as_tensor((rng.normal(0, 1, s) * 0.1).astype(np.float32),
-                             device=dev)
-             for s in ((f, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,))]
-        for n in (N_MAIN, N_RAGGED):
-            x = torch.as_tensor(rng.normal(0, 1, (n, f)), dtype=torch.float32,
-                                device=dev)
-            for xx in (x, x.bfloat16()):
-                got = mlp_surrogate.mlp_surrogate(xx, *w)
-                want = mlp_surrogate.mlp_plain(xx, *w)
-                torch.cuda.synchronize()
-                out["max_abs_err"] = max(out["max_abs_err"], compare(
-                    got, want, f"mlp_surrogate F={f} n={n} {xx.dtype}"))
-            if n != N_MAIN:
-                continue
-            key = "" if f == 41 else "_f67"
-            out[f"ms{key}"] = time_ms(
-                lambda: mlp_surrogate.mlp_surrogate(x, *w), torch)
-            out[f"plain_ms{key}"] = time_ms(
-                lambda: mlp_surrogate.mlp_plain(x, *w), torch)
-            flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
-            n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
-            b, by = bound_ms(n_bytes, flops)
-            out[f"bound_ms{key}"] = b
-            out["bound_by"] = by
-            if not key:
-                out["shape"] = f"x ({n}, {f}), H1={h1}, H2={h2}"
-    out["kernel_check_launches"] = ops.LAUNCHES["mlp_surrogate"] - before
+def check_routing_rule():
+    """``tick_megakernel.kernel_takes`` / ``chunk_takes``, the Python
+    copies of network_tick's layout rule that route every pack, against
+    the compiled rule (``network_tick_park_floats`` >= 0,
+    ``network_tick_chunk_takes``) on (circuit, h1, h2) over ROUTE_H1 x
+    ROUTE_H2 for both row kinds."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tick_megakernel as mk
+    fn = _build.library("network_tick").network_tick_chunk_takes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    out = {"cases": 0, "kernel_takes": 0, "chunk_takes": 0}
+    for circuit, code in mk._CIRCUIT_CODE.items():
+        fa = mk._row_width(circuit)
+        for h1 in ROUTE_H1:
+            for h2 in ROUTE_H2:
+                py = (mk.kernel_takes(circuit, fa, fa + 2, h1, h2),
+                      mk.chunk_takes(circuit, fa, fa + 2, h1, h2))
+                cu = (mk._park_floats(circuit, h1, h2) >= 0,
+                      bool(fn(code, h1, h2)))
+                if py != cu:
+                    fail(f"routing rule {circuit} MLP({h1}, {h2}): "
+                         f"(kernel_takes, chunk_takes) {py}, compiled {cu}")
+                out["cases"] += 1
+                out["kernel_takes"] += py[0]
+                out["chunk_takes"] += py[1]
     return out
+
+
+def print_digests(torch, np, dev, surs):
+    """The digests of every heads_cases and tick_cases output, from the
+    kernels of whichever ``repro_torch`` is imported (``--src``)."""
+    from repro_torch.kernels import tick_megakernel as mk
+    out = {}
+    for tag, _, fn, args, _ in heads_cases(torch, np, dev, surs):
+        out[tag] = digest([fn(*args)])
+    for label, circuit, pk, ly, sizes, _ in tick_cases(torch, np, dev, surs):
+        for annotate in (False, True):
+            for n in sizes:
+                ins, t, clock, ckw = tick_case(torch, np, dev, circuit, n,
+                                               n + annotate)
+                v, o, t_last, params, ch, x, known = ins
+                out[f"network_tick {label} n={n} annotate={annotate}"] = \
+                    digest(mk.network_tick(
+                        pk, v, o, t_last, params, ch, x, t, known,
+                        circuit=circuit, clock_ns=clock, layout=ly,
+                        out_eps=0.02, annotate=annotate, **ckw))
+    line({"phase": "digests", "src": str(sys.path[0]), "digests": out})
 
 
 def flash_inputs(torch, dev, bh, g, s, d, dtype, seed):
@@ -1126,17 +1317,23 @@ def check_launches(name, counts, want):
             fail(f"{name}: {kernel} launched {got} times, expected {n}")
 
 
-def snn_runs(torch, np, dev, surs, profile):
-    """The 784-128-10 SNN, 100 digits x 100 ticks (slice 1's main path)."""
+def snn_workload(torch, np, dev):
+    """The 784-128-10 SNN's spec, its 100 digits x 100 ticks of V_dd
+    spikes (T, B, 784) on the card, and their labels."""
     from repro_torch.convert import spec_from_numpy
     from repro_torch.data.mnist import make_digits, poisson_encode
     with np.load(ART / "snn_784_128_10.npz") as z:
         ws = [z["w0"], z["w1"]]
     knobs = [np.array(LIF_KNOBS, np.float32)] * 2
-    spec = spec_from_numpy(ws, knobs)
     imgs, labels = make_digits(N_IMAGES, size=28, seed=777)
     x = torch.as_tensor(poisson_encode(imgs, T_STEPS, seed=5) * 1.5,
                         dtype=torch.float32, device=dev)
+    return spec_from_numpy(ws, knobs), x, labels
+
+
+def snn_runs(torch, np, dev, surs, profile):
+    """The 784-128-10 SNN, 100 digits x 100 ticks (slice 1's main path)."""
+    spec, x, labels = snn_workload(torch, np, dev)
     rec = dict(np.load(ART / "snn_ref_record.npz"))
     total = {}
     runs = (("golden", dict(backend="golden"), {"lif_step": 2 * T_STEPS}),
@@ -1164,6 +1361,39 @@ def snn_runs(torch, np, dev, surs, profile):
                  f"energy difference {e_diff:.4%} (> 1%) against the "
                  "reference")
         add_counts(total, f"snn/{name}", counts)
+    return total
+
+
+def wide_runs(torch, np, dev, surs, profile):
+    """The 784-128-10 SNN with a surrogate whose five LIF heads are all
+    MLP(200, 50), wider than network_tick takes, on the first 20 digits x
+    100 ticks: the engine takes the stacked-dispatch tick, whose MLP
+    groups launch ``mlp_surrogate_heads``; held to its JAX record."""
+    spec, x, labels = snn_workload(torch, np, dev)
+    x = x[:, :WIDE_IMAGES].contiguous()
+    rec = dict(np.load(ART / "snn_wide_ref_record.npz"))
+    run, counts, res = drive(torch, spec, x,
+                             dict(surrogates=surs["lif_wide"]), profile)
+    check_launches("snn wide", counts, {
+        "mlp_surrogate_heads": (">=", T_STEPS), "network_tick": 0})
+    spikes = (run.out_spikes > 0.75).astype(np.uint8)
+    agree = float(np.mean(spikes == rec["lasana_wide/out_spikes"]))
+    e_port, e_diff = energy_diff(np, run, rec, "lasana_wide")
+    if not np.isfinite(run.energy).all() or run.outputs.shape != (
+            WIDE_IMAGES, 10):
+        fail(f"snn wide: non-finite energy or outputs of shape "
+             f"{run.outputs.shape}")
+    line({**res, "workload": "snn_784_128_10", "run": "lasana_wide",
+          "surrogate": "lif_wide_200_50: every head MLP(200, 50)",
+          "accuracy": float(np.mean(np.argmax(run.outputs, -1)
+                                    == labels[:WIDE_IMAGES])),
+          "spike_agreement_vs_ref": agree, "energy_j": e_port,
+          "energy_rel_diff_vs_ref": e_diff})
+    if agree < 0.99 or e_diff > 0.01:
+        fail(f"snn wide: spike agreement {agree:.4f} (< 0.99) or energy "
+             f"difference {e_diff:.4%} (> 1%) against the reference")
+    total = {}
+    add_counts(total, "snn/lasana_wide", counts)
     return total
 
 
@@ -1638,7 +1868,15 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one steady run of each main-path "
                          "simulation and print device time by kernel")
+    ap.add_argument("--digests", action="store_true",
+                    help="only print the digests of the head and tick "
+                         "kernels' outputs on the check cases")
+    ap.add_argument("--src", help="with --digests: import repro_torch from "
+                                  "this src directory (another commit's "
+                                  "kernels on the same inputs)")
     args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -1665,29 +1903,33 @@ def main() -> int:
     surs = {name: load(str(ART / f"{file}.npz")) for name, file in (
         ("lif", "lif_packable"), ("lif_unpackable", "lif_unpackable"),
         ("crossbar", "crossbar_packable"),
-        ("crossbar_unpackable", "crossbar_unpackable"))}
+        ("crossbar_unpackable", "crossbar_unpackable"),
+        ("lif_wide", "lif_wide_200_50"))}
+    if args.digests:
+        print_digests(torch, np, dev, surs)
+        return 0
+    line({"phase": "routing_rule", **check_routing_rule()})
     cases = tick_cases(torch, np, dev, surs)
+    heads, single = check_mlp_heads(torch, np, dev, surs)
     checks = {
         "crossbar_target": check_crossbar(torch, np, dev),
         "lif_step": check_lif(torch, np, dev),
-        "mlp_surrogate_heads": check_mlp_heads(torch, np, dev, {
-            "lif": (surs["lif_unpackable"], (N_MAIN, N_RAGGED)),
-            "crossbar": (surs["crossbar_unpackable"],
-                         (N_XBAR, N_XBAR_RAGGED))}),
+        "mlp_surrogate_heads": heads,
         "network_tick": check_network_tick(torch, np, dev, cases),
         "network_tick_chunk": check_network_tick_chunk(torch, np, dev, [
             ("lif packable", *mk.pack_heads(surs["lif"]), True),
             ("lif mean_linear",
              *mk.pack_heads(mean_linear_surrogate(np, dev)), False)]),
         "lif_chunk": check_lif_chunk(torch, np, dev),
-        "mlp_surrogate": check_mlp_surrogate(torch, np, dev),
+        "mlp_surrogate": single,
         "flash_attention": check_flash_attention(torch, np, dev),
     }
     for name, c in checks.items():
         line({"phase": "kernel_check", "kernel": name, **c})
 
     launches = {}
-    for runs in (snn_runs, xbar_runs, mixed_runs, stream_runs, lm_runs):
+    for runs in (snn_runs, wide_runs, xbar_runs, mixed_runs, stream_runs,
+                 lm_runs):
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)

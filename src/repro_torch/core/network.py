@@ -1236,15 +1236,22 @@ class NetworkEngine:
                 packs[kind] = (p, lo)
         return packs
 
-    def _chunk_eligible(self) -> bool:
+    def _chunk_eligible(self, pack_layout=None) -> bool:
         """Whether :meth:`_chunk_fast_path` can replace the per-tick loop:
         a single-LIF-layer standalone lasana graph with no delayed edges
         (the only tick-to-tick dataflow is then the LIF carry, which the
-        time-looped kernel owns)."""
+        time-looped kernel owns). Given the layer's ``(pack, layout)``,
+        also whether the chunk kernel takes that pack: where it does not,
+        the per-tick loop launches ``network_tick`` once a tick, which a
+        chunk equals bit for bit."""
         spec = self.spec
-        return (self.backend == "lasana" and self.mode == "standalone"
-                and self.fused and spec.n_layers == 1
-                and spec.circuits == ("lif",) and not spec.edges)
+        graph = (self.backend == "lasana" and self.mode == "standalone"
+                 and self.fused and spec.n_layers == 1
+                 and spec.circuits == ("lif",) and not spec.edges)
+        if pack_layout is None or not graph:
+            return graph
+        from repro_torch.kernels import tick_megakernel as mk
+        return mk.pack_chunk_takes("lif", pack_layout[0])
 
     def _golden_chunk_eligible(self) -> bool:
         """Whether :meth:`_golden_chunk` can replace the per-tick loop: a
@@ -1324,7 +1331,7 @@ class NetworkEngine:
         per block; eligible one-LIF-layer graphs take a time-looped
         kernel instead of the per-tick loop."""
         packs = self._mk_pack(banks)
-        if "lif" in packs and self._chunk_eligible():
+        if "lif" in packs and self._chunk_eligible(packs["lif"]):
             return self._chunk_fast_path(packs["lif"], carries, x, ks)
         if self._golden_chunk_eligible():
             return self._golden_chunk(carries, x)

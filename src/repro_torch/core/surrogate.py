@@ -146,8 +146,9 @@ def _predict_table_stacked(s, x):
 def _predict_mlp_stacked(s, x, fused_kernel=None):
     n_layers = sum(1 for k in s if k.startswith("w"))
     if n_layers == 3 and ops.fused_kernel_enabled(fused_kernel):
-        # production MLP(100, 50): all P heads in one mlp_surrogate_heads
-        # launch on the card (its plain version on the CPU)
+        # 3-layer heads of any widths: all P heads in one
+        # mlp_surrogate_heads launch on the card (its plain version on
+        # the CPU)
         return ops.mlp_surrogate_heads(
             x, s["x_mu"], s["x_sd"], s["y_mu"], s["y_sd"],
             s["w0"], s["b0"], s["w1"], s["b1"], s["w2"], s["b2"])

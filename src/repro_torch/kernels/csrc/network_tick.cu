@@ -33,30 +33,35 @@
 // cost: a mean head is a constant, a linear head one index-order dot per
 // row, an MLP head three products over (rows x units) — two register-
 // tiled from shared memory, 2 or 4 rows x 4 units a thread, and the
-// output layer one thread per row. Every sum keeps heads.cuh:mlp3's order
-// (index-order __fmaf_rn from 0, then + bias, relu), and the feature row,
-// standardizer, destandardizer and record tail keep theirs, so the
-// outputs equal the thread-per-row stage functions' bit for bit: the
-// work is spread over threads, the arithmetic is unchanged (tensor cores
-// would need TF32). When both stacks fit in shared memory beside the
-// tile's work area (LIF: 77 + 53 KB) they are staged together; when they
-// do not (crossbar MLP heads: 148 + 100 KB) the block runs two phases:
-// the A stack (M_ES, M_V, M_O) over all its tiles, parking the rows whose
-// output changed in a device scratch, then, only if there are such rows,
-// the T stack (M_ED, M_L) in A's place for their transition heads and
-// record tails. The reference's lax.cond(any(...)) skips become control
-// flow on the device, never a host sync: a tile with no changed row is
-// copied through, a block with no changed row stages nothing, and a
-// two-phase block in which no row's output changed never stages the T
-// stack. Built with --fmad=false: everything outside the dot products
-// rounds in the reference's order.
+// output layer one thread per row (heads.cuh:tile_head). Every sum is an
+// index-order __fmaf_rn chain from 0, then + bias, relu, and the feature
+// row, standardizer, destandardizer and record tail round in the
+// reference's order, so the outputs equal the first design's (one thread
+// per row) bit for bit: the work is spread over threads, the arithmetic
+// is unchanged (tensor cores would need TF32). When both stacks fit in
+// shared memory beside the tile's work area (LIF: 77 + 53 KB) they are
+// staged together; when they do not (crossbar MLP heads: 148 + 100 KB)
+// the block runs two phases: the A stack (M_ES, M_V, M_O) over all its
+// tiles, parking the rows whose output changed in a device scratch, then,
+// only if there are such rows, the T stack (M_ED, M_L) in A's place for
+// their transition heads and record tails. The reference's
+// lax.cond(any(...)) skips become control flow on the device, never a
+// host sync: a tile with no changed row is copied through, a block with
+// no changed row stages nothing, and a two-phase block in which no row's
+// output changed never stages the T stack. Built with --fmad=false:
+// everything outside the dot products rounds in the reference's order.
 //
-// The chunk kernel (network_tick_chunk_kernel) keeps the first design:
-// one thread carries one row through every tick, evaluating each head
-// with heads.cuh's device functions; a LIF row's features stay in
-// registers.
-
-#include <stdint.h>
+// The chunk kernel (network_tick_chunk_tiled) is the same persistent
+// grid with the time loop inside the row tile: a block stages both LIF
+// stacks once per launch, and each thread keeps its row's v, o and t_last
+// in registers across the T ticks; every tick runs the one-tick kernel's
+// tile functions (compaction, feature rows, heads, record tail) on the
+// tile and writes the tile's o / e / l rows of the sequences. A
+// standalone single-LIF-layer row depends only on its own history, so no
+// barrier spans the grid, and a chunk equals T one-tick launches bit for
+// bit. It takes the packs whose two stacks fit together beside kMinRows
+// rows (LIF MLP(100, 50): 77 + 53 KB); tick_megakernel.chunk_takes
+// routes the others to one-tick launches.
 
 #include "heads.cuh"
 
@@ -103,16 +108,21 @@ struct TickScalars {
 
 namespace {
 
-constexpr int kThreads = 128;
+using repro::Pad;
+using repro::make_pad;
+using repro::stage_padded;
+using repro::stage_wait;
+using repro::tile_head;
+using repro::up4;
+
 constexpr int kAHeads = 3;  // M_ES, M_V, M_O
 constexpr int kTHeads = 2;  // M_ED, M_L
 
 // Feature rows (x[0..kIn), v, tau, p[0..kP)[, o_prev, o_new], derived): the
 // reference's _features, the transition splice, then
-// circuits.augment_features' derived column, computed from x and p. kF:
-// the register row of the thread-per-row stage functions (LIF only).
+// circuits.augment_features' derived column, computed from x and p.
 struct LifRow {
-  static constexpr int kCode = 0, kIn = 3, kP = 4, kF = repro::kNarrowF;
+  static constexpr int kCode = 0, kIn = 3, kP = 4;
   static constexpr int kFa = kIn + 2 + kP + 1;  // idle/active width
   __device__ static float derived(const float* x, const float* p, float) {
     return x[0] * x[1] * x[2] / 5.0f;
@@ -132,122 +142,12 @@ struct XbarRow {
   }
 };
 
-template <class Row>
-__device__ __forceinline__ void features(float (&feat)[Row::kF],
-                                         const float* x, const float* p,
-                                         float v, float tau, bool transition,
-                                         float o_prev, float o_new,
-                                         float v_bias) {
-  constexpr int base = Row::kIn + 2 + Row::kP;
-#pragma unroll
-  for (int k = 0; k < Row::kF; ++k) feat[k] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < Row::kIn; ++k) feat[k] = x[k];
-  feat[Row::kIn] = v;
-  feat[Row::kIn + 1] = tau;
-#pragma unroll
-  for (int k = 0; k < Row::kP; ++k) feat[Row::kIn + 2 + k] = p[k];
-  const float d = Row::derived(x, p, v_bias);
-  if (transition) {
-    feat[base] = o_prev;
-    feat[base + 1] = o_new;
-    feat[base + 2] = d;
-  } else {
-    feat[base] = d;
-  }
-}
-
-template <int KF>
-__device__ __forceinline__ float eval_head(const float* smem,
-                                           const repro::Stack& s, int j,
-                                           int fam, int f,
-                                           const float (&feat)[KF]) {
-  const repro::Head hd = repro::head_at(smem, s, j);
-  float y;
-  if (fam == repro::kMean) {
-    y = hd.b2;
-  } else {
-    float xs[KF];
-    repro::standardize(hd, feat, f, xs);
-    y = fam == repro::kLinear ? repro::linear(hd, xs, f, s.h1)
-                              : repro::mlp3(hd, xs, f, s.h1, s.h2);
-  }
-  return (y * hd.y_sd + hd.y_mu) / hd.scale;
-}
-
 // What the idle, active and output-resolution stages leave for the
 // transition stage and the record tail, for one changed row.
 struct RowTick {
   float v_cur, v_new, o_hat, o_res, e_s_idle, e_s;
   bool stale, out_changed;
 };
-
-// Algorithm 1 lines 3-25 for one changed row: the idle catch-up (merged
-// E2 event), the active heads on the caught-up state and the output
-// resolution. The A stack's heads are staged at smem.
-template <class Row>
-__device__ __forceinline__ RowTick active_stage(const float* smem,
-                                                const repro::Stack& sa,
-                                                const TickScalars& sc,
-                                                const float* x, const float* p,
-                                                float v, float o, float t_last,
-                                                float t, float known) {
-  constexpr int FA = Row::kFa;
-  float feat[Row::kF];
-  RowTick rt;
-  rt.e_s_idle = 0.0f;
-  // idle stage (Algorithm 1 lines 3-9): one merged catch-up event
-  rt.stale = t_last < t - sc.clock;
-  float v_hat = 0.0f;
-  if (rt.stale) {
-    const float zero_x[Row::kIn] = {};
-    const float tau_idle = fmaxf(t - t_last - sc.clock, 0.0f);
-    features<Row>(feat, zero_x, p, v, tau_idle, false, 0.0f, 0.0f,
-                  sc.v_bias);
-    rt.e_s_idle = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
-    if (!sc.annotate) v_hat = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
-  }
-
-  // active stage (lines 10-22) on the caught-up state
-  rt.v_cur = (!sc.annotate && rt.stale) ? v_hat : v;
-  features<Row>(feat, x, p, rt.v_cur, sc.clock, false, 0.0f, 0.0f,
-                sc.v_bias);
-  rt.e_s = eval_head(smem, sa, 0, sc.a_fam[0], FA, feat);
-  if (sc.annotate) {
-    rt.v_new = rt.v_cur;
-    rt.o_hat = known;
-  } else {
-    rt.v_new = eval_head(smem, sa, 1, sc.a_fam[1], FA, feat);
-    rt.o_hat = eval_head(smem, sa, 2, sc.a_fam[2], FA, feat);
-  }
-
-  // output resolution (lines 23-25)
-  if (sc.spiking) {
-    rt.out_changed = rt.o_hat > sc.half_vdd;
-    rt.o_res = rt.out_changed ? sc.vdd : 0.0f;
-  } else {
-    rt.out_changed = fabsf(rt.o_hat - o) > sc.out_eps;
-    rt.o_res = rt.o_hat;
-  }
-  return rt;
-}
-
-// Transition heads (lines 23-29) of a row whose output changed; the T
-// stack's heads are staged at smem_t. Returns (e_d, latency).
-template <class Row>
-__device__ __forceinline__ void transition_stage(const float* smem_t,
-                                                 const repro::Stack& st,
-                                                 const TickScalars& sc,
-                                                 const float* x, const float* p,
-                                                 float o, const RowTick& rt,
-                                                 float& e_d, float& lat) {
-  constexpr int FT = Row::kFa + 2;
-  float feat[Row::kF];
-  features<Row>(feat, x, p, rt.v_cur, sc.clock, true, o, rt.o_res,
-                sc.v_bias);
-  e_d = eval_head(smem_t, st, 0, sc.t_fam[0], FT, feat);
-  lat = eval_head(smem_t, st, 1, sc.t_fam[1], FT, feat);
-}
 
 // Record tail (wrapper._finish_tick) of a changed row: its new v, o,
 // t_last and this tick's energy and latency.
@@ -270,40 +170,13 @@ __device__ __forceinline__ void record_tail(const TickScalars& sc,
 constexpr int kTickThreads = 512;
 constexpr int kMinRows = 32;       // rows per tile a small N still gets
 constexpr int kMaxRows = 128;      // rows per tile at the most
+constexpr int kMaxH1 = 128;        // the widest first hidden layer it takes
 
 // Rows per tile are set at launch and are the work area's stride: as many
 // as the shared memory beside the stacks holds, at most kMaxRows (the LIF
 // MLP(100, 50) stacks leave room for 128, the crossbar's A stack for 80;
 // wider heads leave fewer, down to 4), fewer where one wave of blocks
 // covers N with fewer.
-
-__host__ __device__ inline int up4(int x) { return (x + 3) & ~3; }
-
-// A stack's heads staged for the row-tiled products: head j at j * per
-// floats, every part on a 16-byte boundary, w0 and w1 rows padded to h1p
-// and h2p columns (the padding is never read into a stored output).
-struct Pad {
-  int fs, h1, h2, h1p, h2p;
-  int x_sd, w0, b0, w1, b1, w2, tail, per;   // offsets in floats; x_mu at 0
-};
-
-__host__ __device__ inline Pad make_pad(int fs, int h1, int h2) {
-  Pad p;
-  p.fs = fs;
-  p.h1 = h1;
-  p.h2 = h2;
-  p.h1p = up4(h1);
-  p.h2p = up4(h2);
-  p.x_sd = up4(fs);
-  p.w0 = p.x_sd + up4(fs);
-  p.b0 = p.w0 + fs * p.h1p;
-  p.w1 = p.b0 + p.h1p;
-  p.b1 = p.w1 + h1 * p.h2p;
-  p.w2 = p.b1 + p.h2p;
-  p.tail = p.w2 + p.h2p;
-  p.per = p.tail + 4;
-  return p;
-}
 
 // Shared memory of a block, in floats: the stage (A and T stacks, or
 // either in turn), then the tile's work area.
@@ -378,78 +251,6 @@ __device__ inline Work carve(float* w, int ld, int f_t, int h1, int h2) {
   k.list = reinterpret_cast<int*>(k.feat + f_t * (ld + 1));
   k.ballot = k.list + ld;
   return k;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// W floats (4 W bytes, both addresses aligned to that) into shared memory
-template <int W = 1>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "n"(4 * W) : "memory");
-}
-
-// copy `count` floats into `dst`, or fill with `value` where src is null
-__device__ inline void stage_part(float* dst, const float* src, int count,
-                                  float value) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    if (src) cp_async(dst + i, src + i);
-    else dst[i] = value;
-  }
-}
-
-// an (rows, cols) row-major block into rows padded to `ld` columns, a
-// warp per row, W floats a copy
-template <int W>
-__device__ inline void stage_rows_w(float* dst, const float* src, int rows,
-                                    int cols, int ld) {
-  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += warps)
-    for (int c = W * lane; c < cols; c += 32 * W)
-      cp_async<W>(dst + r * ld + c, src + r * cols + c);
-}
-
-// stage_rows_w with the widest copy (16, 8 or 4 bytes) that the source's
-// alignment and both row strides allow (dst is 16-byte aligned)
-__device__ inline void stage_rows(float* dst, const float* src, int rows,
-                                  int cols, int ld) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  if (a % 16 == 0 && cols % 4 == 0 && ld % 4 == 0)
-    stage_rows_w<4>(dst, src, rows, cols, ld);
-  else if (a % 8 == 0 && cols % 2 == 0 && ld % 2 == 0)
-    stage_rows_w<2>(dst, src, rows, cols, ld);
-  else
-    stage_rows_w<1>(dst, src, rows, cols, ld);
-}
-
-// Heads h0 .. h0+count-1 of s at width pd.fs into smem (Pad layout);
-// the whole block calls it, then waits with stage_wait().
-__device__ inline void stage_padded(const repro::Stack& s, int h0, int count,
-                                    const Pad& pd, float* smem) {
-  for (int j = 0; j < count; ++j) {
-    const int h = h0 + j;
-    float* d = smem + j * pd.per;
-    stage_part(d, s.x_mu ? s.x_mu + h * s.f : nullptr, pd.fs, 0.0f);
-    stage_part(d + pd.x_sd, s.x_sd ? s.x_sd + h * s.f : nullptr, pd.fs, 1.0f);
-    stage_rows(d + pd.w0, s.w0 + h * s.f * s.h1, pd.fs, s.h1, pd.h1p);
-    stage_part(d + pd.b0, s.b0 + h * s.h1, s.h1, 0.0f);
-    stage_rows(d + pd.w1, s.w1 + h * s.h1 * s.h2, s.h1, s.h2, pd.h2p);
-    stage_part(d + pd.b1, s.b1 + h * s.h2, s.h2, 0.0f);
-    stage_part(d + pd.w2, s.w2 + h * s.h2, s.h2, 0.0f);
-    if (threadIdx.x == 0) {
-      d[pd.tail] = s.y_mu ? s.y_mu[h] : 0.0f;
-      d[pd.tail + 1] = s.y_sd ? s.y_sd[h] : 1.0f;
-      d[pd.tail + 2] = s.b2[h];
-      d[pd.tail + 3] = s.scale ? s.scale[h] : 1.0f;
-    }
-  }
-}
-
-__device__ inline void stage_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
 }
 
 // wk.list <- the tile rows (0..wk.ld-1) where `pred` holds, in row order;
@@ -539,123 +340,6 @@ __device__ void tile_features(int kind, int n, const Work& wk,
   __syncthreads();
 }
 
-// out[u][r] = relu(sum_k a[k][r] w[k][u] + b[u]) for r < n_rows, u < n_u:
-// each sum in index order from 0 by __fmaf_rn, as mlp3's layers. A thread
-// holds an RM x 4 block of outputs (rows x units); a is [k][stride], w is
-// [k][ld], out is [u][stride].
-template <int LDC, int RM>
-__device__ inline void dense_relu_rm(const float* a, const float* w,
-                                     const float* b, int n_k, int n_u, int ld,
-                                     int stride, int n_rows, float* out) {
-  if (LDC) stride = LDC;
-  const int nrg = (n_rows + RM - 1) / RM, nug = (n_u + 3) >> 2;
-  for (int m = threadIdx.x; m < nrg * nug; m += blockDim.x) {
-    const int rg = m % nrg, ug = m / nrg;
-    const float* ap = a + RM * rg;
-    const float* wp = w + 4 * ug;
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < n_k; ++k) {
-      float ar[RM];
-      if constexpr (RM == 4) {
-        const float4 av = *reinterpret_cast<const float4*>(ap + k * stride);
-        ar[0] = av.x;
-        ar[1] = av.y;
-        ar[2] = av.z;
-        ar[3] = av.w;
-      } else {
-        const float2 av = *reinterpret_cast<const float2*>(ap + k * stride);
-        ar[0] = av.x;
-        ar[1] = av.y;
-      }
-      const float4 wv = *reinterpret_cast<const float4*>(wp + k * ld);
-      const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fmaf_rn(ar[i], wr[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int u = 4 * ug + j;
-      if (u >= n_u) break;
-      const float bu = b[u];
-      float* dst = out + u * stride + RM * rg;
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        if (RM * rg + i < n_rows) dst[i] = fmaxf(acc[i][j] + bu, 0.0f);
-    }
-  }
-}
-
-// dense_relu_rm with 2 rows a thread where that keeps all the blocks of
-// outputs in one pass of the block's threads, else 4
-template <int LDC>
-__device__ inline void dense_relu(const float* a, const float* w,
-                                  const float* b, int n_k, int n_u, int ld,
-                                  int stride, int n_rows, float* out) {
-  const int nug = (n_u + 3) >> 2;
-  if (((n_rows + 1) >> 1) * nug <= static_cast<int>(blockDim.x))
-    dense_relu_rm<LDC, 2>(a, w, b, n_k, n_u, ld, stride, n_rows, out);
-  else
-    dense_relu_rm<LDC, 4>(a, w, b, n_k, n_u, ld, stride, n_rows, out);
-}
-
-// One staged head (at hb) on the n listed rows' feature rows in wk.feat,
-// f columns: dest[row] = (y * y_sd + y_mu) / scale, y at the head's family
-// cost, as eval_head. The whole block calls it; it ends with a barrier.
-template <int LDC>
-__device__ void tile_head(const float* hb, const Pad& pd, int fam, int f,
-                          int n, const Work& wk, float* dest) {
-  const int tid = threadIdx.x, ld = LDC ? LDC : wk.ld;
-  const float y_mu = hb[pd.tail], y_sd = hb[pd.tail + 1];
-  const float b2 = hb[pd.tail + 2], scale = hb[pd.tail + 3];
-  if (fam == repro::kMean) {
-    if (tid < n) dest[wk.list[tid]] = (b2 * y_sd + y_mu) / scale;
-    __syncthreads();
-    return;
-  }
-  // standardize, a warp per column
-  for (int k = tid >> 5; k < f; k += blockDim.x >> 5) {
-    const float mu = hb[k], sd = hb[pd.x_sd + k];
-    for (int slot = tid & 31; slot < n; slot += 32)
-      wk.xs[k * ld + slot] = (wk.feat[k * (ld + 1) + slot] - mu) / sd;
-  }
-  __syncthreads();
-  float y = 0.0f;
-  if (fam == repro::kLinear) {
-    if (tid < n) {
-#pragma unroll 8
-      for (int k = 0; k < f; ++k)
-        y = __fmaf_rn(wk.xs[k * ld + tid], hb[pd.w0 + k * pd.h1p], y);
-    }
-  } else {
-    dense_relu<LDC>(wk.xs, hb + pd.w0, hb + pd.b0, f, pd.h1, pd.h1p, ld,
-                    n, wk.hid);
-    __syncthreads();
-    // the second hidden layer overwrites the standardized features
-    dense_relu<LDC>(wk.hid, hb + pd.w1, hb + pd.b1, pd.h1, pd.h2, pd.h2p,
-                    ld, n, wk.xs);
-    __syncthreads();
-    if (tid < n) {
-      const float* w2 = hb + pd.w2;
-#pragma unroll 8
-      for (int u = 0; u < pd.h2; ++u)
-        y = __fmaf_rn(wk.xs[u * ld + tid], w2[u], y);
-    }
-  }
-  if (tid < n) {
-    y = y + b2;
-    dest[wk.list[tid]] = (y * y_sd + y_mu) / scale;
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ void copy_through(const TickIO& io, int r) {
   io.v_out[r] = io.v[r];
   io.o_out[r] = io.o[r];
@@ -684,6 +368,71 @@ __device__ inline void tile_transition(const float* t_stage, const Pad& pt,
   tile_features<Row, LDC>(kTransition, n, wk, io, r0, t, sc);
   tile_head<LDC>(t_stage, pt, sc.t_fam[0], FT, n, wk, wk.e_d);
   tile_head<LDC>(t_stage + pt.per, pt, sc.t_fam[1], FT, n, wk, wk.lat);
+}
+
+// Algorithm 1 lines 3-25 on one tile: the idle catch-up of the stale rows
+// (one merged E2 event), the active heads of the changed rows on their
+// caught-up state, and the output resolution. Thread tid owns tile row
+// tid and passes in its state (v, o, t_last, and the behavioral output in
+// annotation mode) where the row changed; the A stack's heads are staged
+// at a_stage. The whole block calls it.
+template <class Row, int LDC>
+__device__ __forceinline__ RowTick tile_active(const float* a_stage,
+                                               const Pad& pa,
+                                               const TickScalars& sc,
+                                               const Work& wk,
+                                               const TickIO& io, int r0,
+                                               float t, bool changed, float v,
+                                               float o, float t_last,
+                                               float known) {
+  constexpr int FA = Row::kFa;
+  const int tid = threadIdx.x;
+  RowTick rt{};
+  if (changed) {
+    rt.stale = t_last < t - sc.clock;
+    wk.v[tid] = v;
+    wk.t_last[tid] = t_last;
+    wk.o[tid] = o;
+  }
+  // idle stage (Algorithm 1 lines 3-9) on the stale rows
+  const int n_idle = compact<LDC>(rt.stale, wk);
+  if (n_idle) {
+    tile_features<Row, LDC>(kIdle, n_idle, wk, io, r0, t, sc);
+    tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_idle, wk, wk.e_idle);
+    if (!sc.annotate)
+      tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_idle, wk,
+                     wk.v_hat);
+  }
+  if (changed) {
+    rt.e_s_idle = rt.stale ? wk.e_idle[tid] : 0.0f;
+    rt.v_cur = (!sc.annotate && rt.stale) ? wk.v_hat[tid] : v;
+    wk.v_cur[tid] = rt.v_cur;
+  }
+  // active stage (lines 10-22) on the changed rows
+  const int n_act = compact<LDC>(changed, wk);
+  tile_features<Row, LDC>(kActive, n_act, wk, io, r0, t, sc);
+  tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_act, wk, wk.e_s);
+  if (!sc.annotate) {
+    tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_act, wk,
+                   wk.v_new);
+    tile_head<LDC>(a_stage + 2 * pa.per, pa, sc.a_fam[2], FA, n_act, wk,
+                   wk.o_hat);
+  }
+  if (changed) {
+    rt.e_s = wk.e_s[tid];
+    rt.v_new = sc.annotate ? rt.v_cur : wk.v_new[tid];
+    rt.o_hat = sc.annotate ? known : wk.o_hat[tid];
+    // output resolution (lines 23-25)
+    if (sc.spiking) {
+      rt.out_changed = rt.o_hat > sc.half_vdd;
+      rt.o_res = rt.out_changed ? sc.vdd : 0.0f;
+    } else {
+      rt.out_changed = fabsf(rt.o_hat - o) > sc.out_eps;
+      rt.o_res = rt.o_hat;
+    }
+    wk.o_res[tid] = rt.o_res;
+  }
+  return rt;
 }
 
 // Algorithm 1 on a persistent grid. `t_base` > 0: both stacks staged
@@ -730,55 +479,14 @@ __global__ void __launch_bounds__(kTickThreads, 1)
     }
     // the tile's rows: thread tid owns row tid
     float v = 0.0f, o = 0.0f, t_last = 0.0f, known = 0.0f;
-    RowTick rt{};
     if (changed) {
       v = io.v[r];
       o = io.o[r];
       t_last = io.t_last[r];
       if (sc.annotate) known = io.known[r];
-      rt.stale = t_last < t - sc.clock;
-      wk.v[tid] = v;
-      wk.t_last[tid] = t_last;
-      wk.o[tid] = o;
     }
-    // idle stage (Algorithm 1 lines 3-9) on the stale rows
-    const int n_idle = compact<LDC>(rt.stale, wk);
-    if (n_idle) {
-      tile_features<Row, LDC>(kIdle, n_idle, wk, io, r0, t, sc);
-      tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_idle, wk, wk.e_idle);
-      if (!sc.annotate)
-        tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_idle, wk,
-                        wk.v_hat);
-    }
-    if (changed) {
-      rt.e_s_idle = rt.stale ? wk.e_idle[tid] : 0.0f;
-      rt.v_cur = (!sc.annotate && rt.stale) ? wk.v_hat[tid] : v;
-      wk.v_cur[tid] = rt.v_cur;
-    }
-    // active stage (lines 10-22) on the changed rows
-    const int n_act = compact<LDC>(changed, wk);
-    tile_features<Row, LDC>(kActive, n_act, wk, io, r0, t, sc);
-    tile_head<LDC>(a_stage, pa, sc.a_fam[0], FA, n_act, wk, wk.e_s);
-    if (!sc.annotate) {
-      tile_head<LDC>(a_stage + pa.per, pa, sc.a_fam[1], FA, n_act, wk,
-                      wk.v_new);
-      tile_head<LDC>(a_stage + 2 * pa.per, pa, sc.a_fam[2], FA, n_act, wk,
-                      wk.o_hat);
-    }
-    if (changed) {
-      rt.e_s = wk.e_s[tid];
-      rt.v_new = sc.annotate ? rt.v_cur : wk.v_new[tid];
-      rt.o_hat = sc.annotate ? known : wk.o_hat[tid];
-      // output resolution (lines 23-25)
-      if (sc.spiking) {
-        rt.out_changed = rt.o_hat > sc.half_vdd;
-        rt.o_res = rt.out_changed ? sc.vdd : 0.0f;
-      } else {
-        rt.out_changed = fabsf(rt.o_hat - o) > sc.out_eps;
-        rt.o_res = rt.o_hat;
-      }
-      wk.o_res[tid] = rt.o_res;
-    }
+    const RowTick rt = tile_active<Row, LDC>(a_stage, pa, sc, wk, io, r0, t,
+                                             changed, v, o, t_last, known);
     const int n_tr = compact<LDC>(rt.out_changed, wk);
     if (together) {
       // transition stage (lines 23-29) and record tail
@@ -852,10 +560,81 @@ __global__ void __launch_bounds__(kTickThreads, 1)
   }
 }
 
+// T standalone ticks of LIF rows on the persistent grid, the time loop
+// inside the row tile (see the design note at the top of the file). Both
+// stacks are staged together (t_base > 0), once, before the first tick
+// of the block that has an event. A tick with no event in the tile writes
+// the copy-through that network_tick writes (o, e = 0, l = 0).
+template <class Row, int LDC>
+__global__ void __launch_bounds__(kTickThreads, 1)
+    network_tick_chunk_tiled(repro::Stack sa, repro::Stack st, ChunkIO io,
+                             TickScalars sc, Pad pa, Pad pt, TickSmem layout,
+                             int t_steps) {
+  constexpr int FA = Row::kFa;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* a_stage = smem;
+  float* t_stage = smem + layout.t_base;
+  const Work wk = carve(smem + layout.work, LDC ? LDC : layout.cap, FA + 2,
+                        sc.h1, sc.h2);
+  const int tid = threadIdx.x;
+  const int rows = layout.rows;
+  const int tiles = (sc.n + rows - 1) / rows;
+  bool staged = false;                     // uniform across the block
+  TickIO tick{};                           // what the tile functions read
+  tick.params = io.params;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r0 = tile * rows, r = r0 + tid;
+    const bool valid = tid < rows && r < sc.n;
+    // the row's state, in registers across the chunk
+    float v = 0.0f, o = 0.0f, t_last = 0.0f;
+    if (valid) {
+      v = io.v[r];
+      o = io.o[r];
+      t_last = io.t_last[r];
+    }
+    for (int k = 0; k < t_steps; ++k) {
+      const size_t i = static_cast<size_t>(k) * sc.n + r;
+      const bool changed = valid && io.changed[i];
+      float e = 0.0f, l = 0.0f;
+      if (__syncthreads_or(changed)) {
+        if (!staged) {
+          stage_padded(sa, sc.a_off, kAHeads, pa, a_stage);
+          stage_padded(st, sc.t_off, kTHeads, pt, t_stage);
+          stage_wait();
+          staged = true;
+        }
+        const float t = io.t[k];
+        tick.x = io.x + static_cast<size_t>(k) * sc.n * Row::kIn;
+        const RowTick rt = tile_active<Row, LDC>(
+            a_stage, pa, sc, wk, tick, r0, t, changed, v, o, t_last, 0.0f);
+        const int n_tr = compact<LDC>(rt.out_changed, wk);
+        if (n_tr)
+          tile_transition<Row, LDC>(t_stage, pt, n_tr, wk, tick, r0, t, sc);
+        if (changed)
+          record_tail(sc, rt, rt.out_changed ? wk.e_d[tid] : 0.0f,
+                      rt.out_changed ? wk.lat[tid] : 0.0f, t, v, o, t_last,
+                      e, l);
+      }
+      if (valid) {
+        io.o_seq[i] = o;
+        io.e_seq[i] = e;
+        io.l_seq[i] = l;
+      }
+    }
+    if (valid) {
+      io.v_out[r] = v;
+      io.o_out[r] = o;
+      io.tl_out[r] = t_last;
+    }
+  }
+}
+
 template <class Row>
 bool tick_widths_ok(const TickScalars& sc) {
   return sc.n_in == Row::kIn && sc.n_p == Row::kP && sc.f_a >= Row::kFa &&
-         sc.f_t >= Row::kFa + 2 && sc.h1 <= repro::kMaxH1 &&
+         sc.f_t >= Row::kFa + 2 && sc.h1 <= kMaxH1 &&
          sc.a_off + kAHeads <= sc.a_heads && sc.t_off + kTHeads <= sc.t_heads;
 }
 
@@ -867,7 +646,8 @@ TickSmem tick_layout(const TickScalars& sc, Pad* pa, Pad* pt) {
 }
 
 // floats of `park` a row needs: 8 when the stacks go in two phases, else
-// 0; -1 when not even 4 rows fit beside the stacks (launch refuses them)
+// 0; -1 where the kernel refuses the widths (H1 above kMaxH1, or not even
+// 4 rows fit beside the stacks)
 template <class Row>
 int park_floats(int h1, int h2) {
   TickScalars sc{};
@@ -875,49 +655,53 @@ int park_floats(int h1, int h2) {
   sc.h2 = h2;
   Pad pa, pt;
   const TickSmem layout = tick_layout<Row>(sc, &pa, &pt);
-  if (layout.cap == 0) return -1;
+  if (h1 > kMaxH1 || layout.cap == 0) return -1;
   return layout.t_base == 0 ? 8 : 0;
 }
 
-// network_tick_tiled<Row, LDC> on one wave of blocks. The shared-memory
-// limit and the grid's size (resident blocks per SM times SMs) are
-// queried when the bytes or the device change: the host enqueues this
-// kernel every tick, and the occupancy query is slow.
+// Whether the chunk kernel takes stacks of MLP(h1, h2) heads: the widths
+// the one-tick kernel takes, with both stacks together in shared memory
+// beside kMinRows rows
+template <class Row>
+bool chunk_takes(int h1, int h2) {
+  return park_floats<Row>(h1, h2) == 0;
+}
+
+// network_tick_tiled<Row, LDC> on one wave of blocks
 template <class Row, int LDC>
 cudaError_t launch_tiled(const repro::Stack& a, const repro::Stack& t,
                          const TickIO& io, const TickScalars& sc,
                          const Pad& pa, const Pad& pt, TickSmem layout,
                          float4* park, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * layout.total;
-  static size_t set_bytes = 0;
-  static int set_device = -1, blocks = 0;
-  if (bytes != set_bytes || sc.device != set_device) {
-    cudaError_t err = cudaFuncSetAttribute(
-        network_tick_tiled<Row, LDC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, network_tick_tiled<Row, LDC>, kTickThreads, bytes);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 sc.device);
-    if (err != cudaSuccess) return err;
-    blocks = (per_sm > 1 ? per_sm : 1) * sms;
-    set_bytes = bytes;
-    set_device = sc.device;
-  }
-  // rows per tile: the fewest (a multiple of 4, at most layout.cap) that
-  // let one wave of blocks cover all rows, but at least kMinRows where the
-  // cap allows, so that a small N does not make every SM stage the stacks
-  // for a few rows
-  const int per_block = up4((sc.n + blocks - 1) / blocks);
-  const int rows = per_block < kMinRows ? kMinRows : per_block;
-  layout.rows = rows < layout.cap ? rows : layout.cap;
+  static repro::Wave w;
+  cudaError_t err = repro::wave(network_tick_tiled<Row, LDC>, kTickThreads,
+                                bytes, sc.device, w);
+  if (err != cudaSuccess) return err;
+  layout.rows = repro::tile_rows(sc.n, w.blocks, layout.cap, kMinRows);
   const int tiles = (sc.n + layout.rows - 1) / layout.rows;
-  network_tick_tiled<Row, LDC><<<tiles < blocks ? tiles : blocks,
+  network_tick_tiled<Row, LDC><<<tiles < w.blocks ? tiles : w.blocks,
                                  kTickThreads, bytes, stream>>>(
       a, t, io, sc, pa, pt, layout, park);
+  return cudaGetLastError();
+}
+
+// network_tick_chunk_tiled<Row, LDC> on one wave of blocks
+template <class Row, int LDC>
+cudaError_t launch_chunk_tiled(const repro::Stack& a, const repro::Stack& t,
+                               const ChunkIO& io, const TickScalars& sc,
+                               const Pad& pa, const Pad& pt, TickSmem layout,
+                               int t_steps, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * layout.total;
+  static repro::Wave w;
+  cudaError_t err = repro::wave(network_tick_chunk_tiled<Row, LDC>,
+                                kTickThreads, bytes, sc.device, w);
+  if (err != cudaSuccess) return err;
+  layout.rows = repro::tile_rows(sc.n, w.blocks, layout.cap, kMinRows);
+  const int tiles = (sc.n + layout.rows - 1) / layout.rows;
+  network_tick_chunk_tiled<Row, LDC><<<tiles < w.blocks ? tiles : w.blocks,
+                                       kTickThreads, bytes, stream>>>(
+      a, t, io, sc, pa, pt, layout, t_steps);
   return cudaGetLastError();
 }
 
@@ -947,89 +731,25 @@ cudaError_t launch(const repro::Stack& sa, const repro::Stack& st,
   return launch_tiled<Row, 0>(a, t, io, sc, pa, pt, layout, park, stream);
 }
 
-// --- the chunk kernel: T ticks in one launch, one thread per row ----------
-//
-// Replaces tick_megakernel.py:network_tick_chunk; LIF rows, standalone
-// mode. Both stacks are staged once, up front; v, o and t_last stay in
-// registers across the chunk, and each tick runs the thread-per-row stage
-// functions above (active_stage, transition_stage, record_tail), whose
-// outputs equal network_tick_tiled's bit for bit, so the chunk equals T
-// network_tick launches bit for bit. With both stacks staged before the
-// tick loop, no barrier sits inside it: a row with no event this tick
-// writes the copy-through that network_tick writes for it (o, e = 0, l =
-// 0), and padding rows past N only helped stage.
-template <class Row>
-__global__ void network_tick_chunk_kernel(repro::Stack sa, repro::Stack st,
-                                          ChunkIO io, TickScalars sc,
-                                          int t_base, int t_steps) {
-  extern __shared__ float smem[];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = r < sc.n;
-  repro::stage(sa, sc.a_off, kAHeads, smem);
-  repro::stage(st, sc.t_off, kTHeads, smem + t_base);
-  __syncthreads();
-
-  float v = 0.0f, o = 0.0f, t_last = 0.0f;
-  float p[Row::kP];
-#pragma unroll
-  for (int k = 0; k < Row::kP; ++k)
-    p[k] = valid ? io.params[static_cast<size_t>(r) * Row::kP + k] : 0.0f;
-  if (valid) {
-    v = io.v[r];
-    o = io.o[r];
-    t_last = io.t_last[r];
-  }
-  for (int k = 0; k < t_steps; ++k) {
-    const size_t i = static_cast<size_t>(k) * sc.n + r;
-    const bool changed = valid && io.changed[i];
-    float e = 0.0f, l = 0.0f;
-    if (changed) {
-      const float t = io.t[k];
-      const float* x = io.x + i * Row::kIn;
-      const RowTick rt = active_stage<Row>(smem, sa, sc, x, p, v, o, t_last,
-                                           t, 0.0f);
-      float e_d = 0.0f, lat = 0.0f;
-      if (rt.out_changed)
-        transition_stage<Row>(smem + t_base, st, sc, x, p, o, rt, e_d, lat);
-      record_tail(sc, rt, e_d, lat, t, v, o, t_last, e, l);
-    }
-    if (valid) {
-      io.o_seq[i] = o;
-      io.e_seq[i] = e;
-      io.l_seq[i] = l;
-    }
-  }
-  if (valid) {
-    io.v_out[r] = v;
-    io.o_out[r] = o;
-    io.tl_out[r] = t_last;
-  }
-}
-
+// T standalone LIF ticks in one launch: the one-tick kernel's layout,
+// which must stage both stacks together
 template <class Row>
 cudaError_t launch_chunk(const repro::Stack& sa, const repro::Stack& st,
                          const ChunkIO& io, const TickScalars& sc,
                          int t_steps, cudaStream_t stream) {
-  constexpr int FA = Row::kFa;
-  if (sc.n_in != Row::kIn || sc.n_p != Row::kP || sc.f_a < FA ||
-      sc.f_t < FA + 2 || sc.h1 > repro::kMaxH1 || sc.annotate ||
-      sc.a_off + kAHeads > sc.a_heads || sc.t_off + kTHeads > sc.t_heads)
-    return cudaErrorInvalidValue;
+  if (!tick_widths_ok<Row>(sc) || sc.annotate) return cudaErrorInvalidValue;
   repro::Stack a = sa, t = st;
-  a.fs = FA;
-  t.fs = FA + 2;
-  const size_t per_a = kAHeads * repro::head_floats(a.fs, sc.h1, sc.h2);
-  const size_t per_t = kTHeads * repro::head_floats(t.fs, sc.h1, sc.h2);
-  const size_t bytes = sizeof(float) * (per_a + per_t);
-  if (bytes > repro::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      network_tick_chunk_kernel<Row>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const int blocks = (sc.n + kThreads - 1) / kThreads;
-  network_tick_chunk_kernel<Row><<<blocks, kThreads, bytes, stream>>>(
-      a, t, io, sc, static_cast<int>(per_a), t_steps);
-  return cudaGetLastError();
+  a.fs = Row::kFa;
+  t.fs = Row::kFa + 2;
+  Pad pa, pt;
+  const TickSmem layout = tick_layout<Row>(sc, &pa, &pt);
+  if (layout.cap == 0 || layout.t_base == 0) return cudaErrorInvalidValue;
+  constexpr int kLd = CommonStride<Row>::kLd;
+  if (layout.cap == kLd)
+    return launch_chunk_tiled<Row, kLd>(a, t, io, sc, pa, pt, layout,
+                                        t_steps, stream);
+  return launch_chunk_tiled<Row, 0>(a, t, io, sc, pa, pt, layout, t_steps,
+                                    stream);
 }
 
 repro::Stack make_stack(const float* const* arr, int p, int f, int h1,
@@ -1077,6 +797,12 @@ extern "C" int network_tick_park_floats(int circuit, int h1, int h2) {
   if (circuit == LifRow::kCode) return park_floats<LifRow>(h1, h2);
   if (circuit == XbarRow::kCode) return park_floats<XbarRow>(h1, h2);
   return -1;
+}
+
+// 1 where network_tick_chunk takes `circuit` rows with stacks of MLP(h1,
+// h2) heads, else 0 (LIF rows only)
+extern "C" int network_tick_chunk_takes(int circuit, int h1, int h2) {
+  return circuit == LifRow::kCode && chunk_takes<LifRow>(h1, h2) ? 1 : 0;
 }
 
 // park: (n, network_tick_park_floats) float32, 16-byte aligned, or null

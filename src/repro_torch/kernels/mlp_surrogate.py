@@ -1,16 +1,16 @@
 """Stacked 3-layer MLP surrogate heads (the fused inference hot spot).
 
-:func:`mlp_surrogate_heads` evaluates P predictor heads of the
-production MLP(100, 50) configuration over one ``(N, F)`` feature matrix.
-Its plain PyTorch version is the einsum path of the reference's
+:func:`mlp_surrogate_heads` evaluates P predictor heads of any widths
+(the production MLP(100, 50), or wider) over one ``(N, F)`` feature
+matrix. Its plain PyTorch version is the einsum path of the reference's
 ``surrogate._predict_mlp_stacked``; on CUDA tensors it launches
-``csrc/mlp_heads.cu``, which keeps every head's weights in shared memory
-and carries one row per thread through all heads, at the LIF widths
-(F = 10, 12) and the crossbar's (F = 68, 70).
+``csrc/mlp_heads.cu``: a persistent grid of row tiles, the heads staged
+in shared memory once per block (a group at a time, or a head's matrices
+slice by slice where they do not fit), each layer a register-tiled
+product from shared memory.
 
 :func:`mlp_surrogate` is the single unstandardized head, ``(N, F) ->
-(N,)``: the same kernel at P = 1 with the identity standardizer, any
-F <= 72.
+(N,)``: the same kernel at P = 1 with the identity standardizer.
 """
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ops
-
-MAX_F = 72          # csrc/heads.cuh kWideF: feature columns per row
-MAX_H1 = 128        # csrc/heads.cuh kMaxH1: first hidden layer width
 
 
 def mlp_heads_plain(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
@@ -54,15 +51,36 @@ def _kernel(name: str = "mlp_heads"):
     return lib, fn
 
 
+@functools.cache
+def plan(p: int, f: int, h1: int, h2: int) -> dict:
+    """The kernel's launch layout for P heads at (F, H1, H2), from its own
+    rule (``csrc/mlp_heads.cu:plan``): heads staged at once (0: one head,
+    its matrices in slices), rows per tile at the most, rows of w0 / w1 a
+    slice holds, shared-memory bytes of a block. Raises where a 4-row
+    tile of activations, the head's vectors and one row of each matrix do
+    not fit in shared memory (H1 above ~9,600 at H2 = 50, H1 = H2 above
+    ~4,800, F above ~5,200 at MLP(100, 50))."""
+    lib = _build.library("mlp_heads")
+    fn = lib.mlp_heads_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 5)()
+    fn(p, f, h1, h2, out)
+    res = dict(zip(("group", "rows", "w0_rows", "w1_rows", "smem_bytes"),
+                   out))
+    if res["rows"] == 0:
+        raise ValueError(f"mlp_surrogate_heads kernel: a 4-row tile of "
+                         f"F={f}, MLP({h1}, {h2}) heads does not fit in "
+                         "shared memory")
+    return res
+
+
 def _launch(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     arrays = (x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
     dev = ops.same_cuda_device(x, *arrays)
     n, f = x.shape
     p, _, h1 = w1.shape
     h2 = w2.shape[2]
-    if f > MAX_F or h1 > MAX_H1:
-        raise ValueError(f"mlp_surrogate_heads kernel takes F <= {MAX_F} and "
-                         f"H1 <= {MAX_H1}, got F={f}, H1={h1}")
     ops.check(x, "x", (n, f))
     for name, a, shape in (("x_mu", x_mu, (p, f)), ("x_sd", x_sd, (p, f)),
                            ("y_mu", y_mu, (p, 1)), ("y_sd", y_sd, (p, 1)),
@@ -72,6 +90,7 @@ def _launch(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
         ops.check(a, name, shape)
     out = torch.empty((p, n), dtype=torch.float32, device=dev)
     if n:
+        plan(p, f, h1, h2)
         lib, fn = _kernel()
         ptrs = (ctypes.c_void_p * 10)(*(a.data_ptr() for a in arrays))
         code = fn(x.data_ptr(), ptrs, out.data_ptr(), n, p, f, h1, h2,
@@ -99,9 +118,6 @@ def _launch_single(x, w1, b1, w2, b2, w3, b3):
     x = x.float()
     n, f = x.shape
     h1, h2 = w1.shape[1], w2.shape[1]
-    if f > MAX_F or h1 > MAX_H1:
-        raise ValueError(f"mlp_surrogate kernel takes F <= {MAX_F} and "
-                         f"H1 <= {MAX_H1}, got F={f}, H1={h1}")
     ops.check(x, "x", (n, f))
     for name, a, shape in (("w1", w1, (f, h1)), ("b1", b1, (h1,)),
                            ("w2", w2, (h1, h2)), ("b2", b2, (h2,)),
@@ -109,6 +125,7 @@ def _launch_single(x, w1, b1, w2, b2, w3, b3):
         ops.check(a, name, shape)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
+        plan(1, f, h1, h2)
         lib, fn = _kernel("mlp_surrogate")
         ptrs = (ctypes.c_void_p * 6)(*(a.data_ptr() for a in arrays))
         code = fn(x.data_ptr(), ptrs, out.data_ptr(), n, f, h1, h2,
@@ -121,7 +138,7 @@ def _launch_single(x, w1, b1, w2, b2, w3, b3):
 def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
     """One fused 3-layer ReLU MLP: x (N, F) fp32 or bf16 (cast to fp32),
     w1 (F, H1), b1 (H1,), w2 (H1, H2), b2 (H2,), w3 (H2, 1), b3 (1,) ->
-    (N,) fp32. The kernel takes F <= 72 and H1 <= 128."""
+    (N,) fp32."""
     args = (x, w1, b1, w2, b2, w3, b3)
     if all(a.device.type == "cpu" for a in args):
         return mlp_plain(*args)

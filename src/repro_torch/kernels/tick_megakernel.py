@@ -12,14 +12,22 @@ one broadcast, a linear head one dot).
 reference's body with ``skip=False``, which its docstring states is
 exact) on CPU tensors, ``csrc/network_tick.cu`` on CUDA tensors.
 :func:`network_tick_chunk` runs T ticks in one launch (LIF rows, v / o /
-t_last resident); its plain version is a loop of the plain tick. The
-one-tick kernel spreads each head's products over a block's threads (a
-persistent grid of row tiles), the chunk kernel keeps one thread per row;
-both sum in the same order, so a chunk equals T one-tick launches bit for
-bit. The kernels take the stacks as they are (the one-tick kernel pads
-rows only in shared memory); they derive the feature row of a LIF neuron
-or a crossbar row themselves, and stage only the launching kind's heads of
-a cross-kind :func:`pack_library` pack.
+t_last resident); its plain version is a loop of the plain tick. Both
+kernels are persistent grids of row tiles that spread each head's
+products over a block's threads (the chunk kernel loops over the ticks
+inside the tile), and both run the same device functions, so a chunk
+equals T one-tick launches bit for bit. The kernels take the stacks as
+they are (they pad rows only in shared memory); they derive the feature
+row of a LIF neuron or a crossbar row themselves, and stage only the
+launching kind's heads of a cross-kind :func:`pack_library` pack.
+
+Routes are decided from shapes alone, the same on every device:
+:func:`kernel_takes` is the one-tick kernel's own layout rule and
+:func:`chunk_takes` the chunk kernel's, transcribed from the CUDA source.
+:func:`pack_heads` and :func:`pack_library` build no pack the kernel
+refuses, so an engine given wider heads takes the stacked-dispatch tick
+(whose MLP groups launch ``mlp_surrogate_heads``), and a stream whose pack
+the chunk kernel refuses takes one ``network_tick`` launch per tick.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch.nn.functional as F
 from repro_torch.core.circuits import augment_features, get_circuit
 from repro_torch.core.wrapper import (LasanaState, _features, _finish_tick,
                                       _resolve_output, _splice_transition)
-from repro_torch.kernels import _build, mlp_surrogate, ops
+from repro_torch.kernels import _build, ops
 
 PACK_HEADS_A = ("M_ES", "M_V", "M_O")
 PACK_HEADS_T = ("M_ED", "M_L")
@@ -42,6 +50,92 @@ _PACKABLE = ("mean", "linear", "mlp")
 _FAMILY_CODE = {"mean": 0, "linear": 1, "mlp": 2}    # csrc/heads.cuh Family
 _STACK_KEYS = ("x_mu", "x_sd", "y_mu", "y_sd",
                "w0", "b0", "w1", "b1", "w2", "b2", "scale")
+# csrc/network_tick.cu row kinds: LifRow::kCode, XbarRow::kCode
+_CIRCUIT_CODE = {"lif": 0, "crossbar": 1}
+
+
+# --- the kernels' layout rule -------------------------------------------------
+#
+# csrc/network_tick.cu's tick_widths_ok, make_pad, work_floats and
+# tick_smem, transcribed, so that a route is decided from a pack's shapes
+# before any launch and on the CPU alike; chip_smoke.py holds this copy to
+# the compiled rule (network_tick_park_floats, network_tick_chunk_takes)
+# over a sweep of widths.
+
+_MAX_SMEM = 232448              # csrc/heads.cuh kMaxSmem, bytes
+_MIN_ROWS, _MAX_ROWS = 32, 128  # network_tick.cu kMinRows, kMaxRows
+MAX_H1 = 128                    # network_tick.cu kMaxH1
+
+
+def _up4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _pad_floats(fs: int, h1: int, h2: int) -> int:
+    """floats of one head in the kernels' padded layout (make_pad.per)"""
+    return 2 * _up4(fs) + fs * _up4(h1) + _up4(h1) + h1 * _up4(h2) \
+        + 2 * _up4(h2) + 4
+
+
+def _work_floats(rows: int, f_t: int, h1: int, h2: int) -> int:
+    return rows * (max(f_t, h2) + h1 + 12) + f_t * (rows + 1) + rows + 8
+
+
+@functools.cache
+def _row_width(circuit: str) -> int:
+    """The kernels' feature-row width of ``circuit`` (Row::kFa): inputs,
+    v, tau, params and the derived column."""
+    circ = get_circuit(circuit)
+    return circ.n_inputs + 2 + circ.n_params + 1
+
+
+@functools.cache
+def _tick_layout(circuit: str, h1: int, h2: int):
+    """``(together, rows)``: whether both stacks fit in shared memory
+    beside a tile of the kernel's fewest rows, and the most rows a tile
+    then holds (0: not even 4)."""
+    fa = _row_width(circuit)
+    a, t = 3 * _pad_floats(fa, h1, h2), 2 * _pad_floats(fa + 2, h1, h2)
+    room = _MAX_SMEM // 4
+    together = a + t + _work_floats(_MIN_ROWS, fa + 2, h1, h2) <= room
+    work = a + t if together else max(a, t)
+    cap = _MAX_ROWS
+    while cap > 0 and work + _work_floats(cap, fa + 2, h1, h2) > room:
+        cap -= 4
+    return together, cap
+
+
+def kernel_takes(circuit: str, f_a: int, f_t: int, h1: int, h2: int) -> bool:
+    """Whether ``network_tick`` takes ``circuit`` rows with A / T stacks
+    of feature widths ``f_a`` / ``f_t`` and hidden widths ``h1``, ``h2``:
+    a kind it has a feature row for, stacks at least the row's widths,
+    H1 <= :data:`MAX_H1`, and room in shared memory for a 4-row tile
+    beside the stacks (staged together or one after the other)."""
+    if circuit not in _CIRCUIT_CODE:
+        return False
+    fa = _row_width(circuit)
+    if f_a < fa or f_t < fa + 2 or h1 > MAX_H1:
+        return False
+    return _tick_layout(circuit, h1, h2)[1] > 0
+
+
+def chunk_takes(circuit: str, f_a: int, f_t: int, h1: int, h2: int) -> bool:
+    """Whether ``network_tick_chunk`` takes the same: LIF rows whose two
+    stacks ``network_tick`` takes and stages together (LIF MLP(100, 50):
+    yes; LIF MLP(128, 128), two phases: no)."""
+    return (circuit == "lif" and kernel_takes(circuit, f_a, f_t, h1, h2)
+            and _tick_layout(circuit, h1, h2)[0])
+
+
+def _widths(pack):
+    """``(f_a, f_t, h1, h2)`` of a pack's stacks."""
+    _, f_a, h1 = pack["a"]["w0"].shape
+    return f_a, pack["t"]["w0"].shape[1], h1, pack["a"]["w1"].shape[2]
+
+
+def pack_chunk_takes(circuit: str, pack) -> bool:
+    """:func:`chunk_takes` of a built pack."""
+    return chunk_takes(circuit, *_widths(pack))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +190,9 @@ def _mlp_layers(arrays) -> int:
 def pack_heads(surrogate):
     """Build ``(pack, PackLayout)`` for one surrogate, or ``(None, None)``
     when its heads do not pack: all five Algorithm-1 predictors present,
-    every family mean/linear/3-layer MLP, the circuit registered, and the
-    trained feature widths equal to the circuit's augmented widths."""
+    every family mean/linear/3-layer MLP, the circuit registered, the
+    trained feature widths equal to the circuit's augmented widths, and
+    the widths ones the kernel takes (:func:`kernel_takes`)."""
     man, params = surrogate.manifest, surrogate.params
     try:
         circ = get_circuit(man.circuit)
@@ -129,6 +224,8 @@ def pack_heads(surrogate):
               for p in names if fams[p] == "mlp"], default=1)
     h2 = max([int(params[p]["w1"].shape[1])
               for p in names if fams[p] == "mlp"], default=1)
+    if not kernel_takes(man.circuit, f_aug, f_tr, h1, h2):
+        return None, None
     device = surrogate.device
 
     def stack(pnames, f):
@@ -167,9 +264,10 @@ def _pad_stack(s, f, h1, h2):
 def pack_library(banks):
     """Cross-kind head stacking: one pack for a whole library,
     ``(pack, {kind: PackLayout})``, or ``(None, {})`` if any kind does not
-    pack. Every kind's A/T stacks pad to the library-wide widths and
-    concatenate along the head axis, kinds in sorted order; each kind
-    addresses its heads through ``a_off``/``t_off``."""
+    pack or the kernel refuses a kind at the library-wide widths. Every
+    kind's A/T stacks pad to those widths and concatenate along the head
+    axis, kinds in sorted order; each kind addresses its heads through
+    ``a_off``/``t_off``."""
     kinds = banks.kinds()
     packs, layouts = {}, {}
     for kind in kinds:
@@ -183,6 +281,8 @@ def pack_library(banks):
     f_t = max(p["t"]["w0"].shape[1] for p in packs.values())
     h1 = max(p["a"]["w0"].shape[2] for p in packs.values())
     h2 = max(p["a"]["w1"].shape[2] for p in packs.values())
+    if not all(kernel_takes(k, f_a, f_t, h1, h2) for k in kinds):
+        return None, {}
     parts = {s: [_pad_stack(packs[k][s], f, h1, h2) for k in kinds]
              for s, f in (("a", f_a), ("t", f_t))}
     pack = {s: {k: torch.cat([p[k] for p in ps]) for k in _STACK_KEYS}
@@ -340,10 +440,6 @@ class _TickScalars(ctypes.Structure):
                 ("half_vdd", ctypes.c_float), ("v_bias", ctypes.c_float)]
 
 
-# csrc/network_tick.cu row kinds: LifRow::kCode, XbarRow::kCode
-_CIRCUIT_CODE = {"lif": 0, "crossbar": 1}
-
-
 @functools.cache
 def _kernel(name: str = "network_tick"):
     lib = _build.library("network_tick")
@@ -363,18 +459,12 @@ def _park_floats(circuit: str, h1: int, h2: int) -> int:
     rows and hidden widths (h1, h2), as the kernel's own layout rule gives
     them: 8 where the two stacks do not fit in shared memory together (the
     kernel then parks the rows whose output changed between its A and T
-    phases), else 0. Raises where the widths leave no room for the
-    kernel's smallest row tile beside a stack (ROADMAP lists that band)."""
+    phases), else 0; -1 where it refuses the widths."""
     lib = _build.library("network_tick")
     fn = lib.network_tick_park_floats
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3
-    per_row = fn(_CIRCUIT_CODE[circuit], h1, h2)
-    if per_row < 0:
-        raise ValueError(f"network_tick kernel: {circuit} stacks of "
-                         f"MLP({h1}, {h2}) heads leave no shared memory for "
-                         "a row tile beside them")
-    return per_row
+    return fn(_CIRCUIT_CODE[circuit], h1, h2)
 
 
 # one park scratch per (device, stream), grown to the largest N seen:
@@ -392,24 +482,24 @@ def _park(dev, stream: int, floats: int):
 
 def _check_pack(kernel, pack, circuit, layout):
     """Validate a pack for ``circuit`` rows; returns the stacks' widths
-    ``(p_a, p_t, f_a, f_t, h1, h2)``."""
+    ``(p_a, p_t, f_a, f_t, h1, h2)``. :func:`pack_heads` builds no pack
+    the kernel refuses; this guards a caller that builds its own."""
     if circuit not in _CIRCUIT_CODE:
         raise ValueError(f"{kernel} kernel: no feature row for circuit "
                          f"{circuit!r}; it takes {sorted(_CIRCUIT_CODE)}")
-    circ = get_circuit(circuit)
     sA, sT = pack["a"], pack["t"]
     p_a, f_a, h1 = sA["w0"].shape
     p_t, f_t, _ = sT["w0"].shape
     h2 = sA["w1"].shape[2]
-    # the circuit's own feature widths (x, v, tau, params, derived column)
-    fa_row = circ.n_inputs + 2 + circ.n_params + 1
-    if (f_a < fa_row or f_t < fa_row + 2 or fa_row + 2 > mlp_surrogate.MAX_F
-            or h1 > mlp_surrogate.MAX_H1):
-        raise ValueError(f"{kernel} kernel: {circuit} rows take stacks "
-                         f"of F >= {fa_row}/{fa_row + 2} (at most "
-                         f"{mlp_surrogate.MAX_F}) and H1 <= "
-                         f"{mlp_surrogate.MAX_H1}, got F={f_a}/{f_t}, "
-                         f"H1={h1}")
+    takes = chunk_takes if kernel == "network_tick_chunk" else kernel_takes
+    if not takes(circuit, f_a, f_t, h1, h2):
+        fa_row = _row_width(circuit)
+        raise ValueError(f"{kernel} kernel refuses {circuit} stacks of F="
+                         f"{f_a}/{f_t}, MLP({h1}, {h2}) heads: it takes F >= "
+                         f"{fa_row}/{fa_row + 2}, H1 <= {MAX_H1} and heads "
+                         "that leave shared memory for a row tile"
+                         + (" (LIF rows, both stacks staged together)"
+                            if takes is chunk_takes else ""))
     if layout.a_off + len(PACK_HEADS_A) > p_a or \
             layout.t_off + len(PACK_HEADS_T) > p_t:
         raise ValueError(f"{kernel} kernel: offsets {layout.a_off}/"
@@ -488,9 +578,6 @@ def _launch(pack, v, o, t_last, params, changed, x, t, known, *, circuit,
 
 def _launch_chunk(pack, v, o, t_last, params, changed_seq, x_seq, t_seq, *,
                   circuit, clock_ns, layout, out_eps, spiking, vdd):
-    if circuit != "lif":
-        raise ValueError("network_tick_chunk kernel: LIF rows only (both "
-                         f"stacks staged once per launch), got {circuit!r}")
     widths = _check_pack("network_tick_chunk", pack, circuit, layout)
     circ = get_circuit(circuit)
     n = v.shape[0]
@@ -551,7 +638,8 @@ def network_tick_chunk(pack, v, o, t_last, params, changed_seq, x_seq, t_seq,
     """T standalone ticks in one launch: ``(v', o', t_last', o_seq, e_seq,
     l_seq)``, the sequences ``(T, N)``. ``changed_seq`` (T, N) bool,
     ``x_seq`` (T, N, n_in), ``t_seq`` (T,) float32 tick times. The kernel
-    takes LIF rows; its plain version is T plain ticks."""
+    takes the LIF packs :func:`chunk_takes` accepts; its plain version is T
+    plain ticks."""
     kw = dict(out_eps=out_eps, spiking=spiking, vdd=vdd, layout=layout)
     tensors = (v, o, t_last, params, changed_seq, x_seq, t_seq)
     if all(a.device.type == "cpu" for a in tensors):

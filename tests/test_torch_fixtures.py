@@ -9,7 +9,8 @@ package produced on the CPU. Regenerate all of them with::
 
 or only the crossbar and mixed-graph files (the LIF four stay as they
 are) with ``--regen-crossbar``, only the stream record with
-``--regen-stream``, or only the LM record with ``--regen-lm``.
+``--regen-stream``, only the LM record with ``--regen-lm``, or only
+the wide-surrogate artifact and its record with ``--regen-wide``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -47,6 +48,14 @@ the reference's chunk body with ``fused_kernel=True`` — the jnp body of
 ``_chunk_fast_path`` for the packable surrogate — and keeps per-neuron
 spike counts, per-tick energy / latency / events, the flush and the final
 ``v`` of the golden and lasana runs.
+
+The wide surrogate (``--regen-wide``, ``lif_wide_200_50.npz``) is
+``lasana.train("lif", TrainConfig(n_runs=300, n_steps=100,
+families=("mlp",), seed=0))`` with every head an MLP(200, 50): wider
+than the one-tick kernel takes, so the engine evaluates it through the
+stacked-dispatch tick. Its record (``snn_wide_ref_record.npz``) runs the
+784-128-10 SNN on the first :data:`WIDE_IMAGES` chip-smoke digits for 100
+ticks through ``repro.lasana.simulate``.
 """
 
 from __future__ import annotations
@@ -71,6 +80,10 @@ MIXED_WEIGHTS = ARTIFACTS / "mixed_144_24_10.npz"
 XBAR_RECORD = ARTIFACTS / "xbar_ref_record.npz"
 MIXED_RECORD = ARTIFACTS / "mixed_ref_record.npz"
 STREAM_RECORD = ARTIFACTS / "stream_784_128_ref_record.npz"
+WIDE = ARTIFACTS / "lif_wide_200_50.npz"
+WIDE_RECORD = ARTIFACTS / "snn_wide_ref_record.npz"
+WIDE_HIDDEN = (200, 50)                # MLP widths of every wide head
+WIDE_IMAGES = 20                       # digits of the wide record
 
 # the unpackable artifact: every head an MLP(100, 50) except this one
 UNPACKABLE_FAMILIES = {"M_ED": "mlp", "M_ES": "gbdt", "M_L": "mlp",
@@ -431,6 +444,45 @@ def _regen_stream():
           f"{time.time() - t0:.0f} s")
 
 
+def _regen_wide():
+    """Write the wide-surrogate artifact and its SNN record only."""
+    import functools
+    import time
+
+    import jax.numpy as jnp
+
+    import repro.lasana as lasana
+    from repro.core import predictors
+    from repro.core.models import MLPModel
+    from repro.core.network import snn_spec
+
+    t0 = time.time()
+    mlp = predictors.MODEL_FAMILIES["mlp"]
+    predictors.MODEL_FAMILIES["mlp"] = functools.partial(
+        MLPModel, hidden=WIDE_HIDDEN)
+    try:
+        wide = lasana.train("lif", lasana.TrainConfig(
+            n_runs=300, n_steps=100, families=("mlp",), seed=0))
+    finally:
+        predictors.MODEL_FAMILIES["mlp"] = mlp
+    for p in ("M_ES", "M_V", "M_O", "M_ED", "M_L"):
+        assert wide.params[p]["w0"].shape[1] == WIDE_HIDDEN[0]
+        assert wide.params[p]["w1"].shape[1] == WIDE_HIDDEN[1]
+    wide.save(str(WIDE))
+    print(f"trained in {time.time() - t0:.0f} s", flush=True)
+    weights, knobs = snn_weights()
+    spec = snn_spec([jnp.asarray(w) for w in weights],
+                    [jnp.asarray(p) for p in knobs])
+    x, _ = chip_workload(WIDE_IMAGES)
+    run = lasana.simulate(spec, jnp.asarray(x),
+                          surrogates=lasana.load(str(WIDE)))
+    np.savez_compressed(WIDE_RECORD, **{
+        f"lasana_wide/{f}": a for f, a in jax_run_fields(run).items()})
+    for p in (WIDE, WIDE_RECORD):
+        print(p.name, os.path.getsize(p), "bytes")
+    print(f"wide regen took {time.time() - t0:.0f} s")
+
+
 def _regen_lm():
     """Write the LM record only (JAX on the CPU)."""
     import dataclasses
@@ -489,12 +541,16 @@ if __name__ == "__main__":
         _regen_crossbar()
         _regen_stream()
         _regen_lm()
+        _regen_wide()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
     elif sys.argv[1:] == ["--regen-stream"]:
         _regen_stream()
     elif sys.argv[1:] == ["--regen-lm"]:
         _regen_lm()
+    elif sys.argv[1:] == ["--regen-wide"]:
+        _regen_wide()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
-                 "--regen | --regen-crossbar | --regen-stream | --regen-lm")
+                 "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
+                 "--regen-wide")

@@ -215,14 +215,34 @@ def _mlp_stacks(sur, pnames):
             for k in keys]
 
 
-@pytest.mark.parametrize("variant", ["act", "tr"])
+def _wide_stacks(p, f, h1, h2, seed):
+    """P standardized MLP(h1, h2) heads at F columns from a seed."""
+    rng = np.random.default_rng(seed)
+    shapes = ((p, f), (p, f), (p, 1), (p, 1), (p, f, h1), (p, h1),
+              (p, h1, h2), (p, h2), (p, h2, 1), (p, 1))
+    stacks = [rng.normal(0, 0.3, s).astype(np.float32) for s in shapes]
+    for i in (1, 3):                                    # x_sd, y_sd
+        stacks[i] = np.abs(stacks[i]) + 0.5
+    for i, fan in ((4, f), (6, h1), (8, h2)):
+        stacks[i] *= np.float32(fan ** -0.5 / 0.3)
+    return stacks
+
+
+@pytest.mark.parametrize("variant", ["act", "tr", "wide"])
 @pytest.mark.parametrize("n", [300, 7])
 def test_plain_mlp_heads_match_pallas_interpret(surrogate_pairs, variant, n):
+    """The stacked groups of the packable artifact, and (``wide``) two
+    F = 100, MLP(200, 50) heads, wider than the first CUDA design took."""
     from repro.kernels import ops as jax_ops
     from repro_torch.kernels import ops
     jsur, _ = surrogate_pairs["packable"]
-    pnames = ("M_O", "M_V", "M_ES") if variant == "act" else ("M_ED", "M_L")
-    stacks = _mlp_stacks(jsur, pnames)
+    if variant == "wide":
+        pnames = ("M_ED", "M_L")
+        stacks = _wide_stacks(len(pnames), 100, 200, 50, n)
+    else:
+        pnames = (("M_O", "M_V", "M_ES") if variant == "act"
+                  else ("M_ED", "M_L"))
+        stacks = _mlp_stacks(jsur, pnames)
     f = stacks[0].shape[1]
     x = np.random.default_rng(n).normal(0, 1, (n, f)).astype(np.float32)
     want = np.asarray(jax_ops.mlp_surrogate_heads(
