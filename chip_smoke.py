@@ -12,10 +12,16 @@ Phases, one output line each (JSON where it helps):
    main path's shapes and at a ragged N, and time both on the device
    (CUDA events, median of 25 calls after warm-up); the time-looped
    kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
-   launches of their one-tick kernels, bit for bit; ``network_tick``'s and
-   the head kernels' outputs digested (SHA-256) case by case and held to
-   the committed digests of their first designs (``TICK_DIGESTS``,
-   ``HEADS_DIGESTS``), ``network_tick`` also at the widest heads it takes;
+   launches of their one-tick kernels, bit for bit; ``network_tick``'s,
+   the head kernels' and the golden kernels' outputs digested (SHA-256)
+   case by case and held to the committed digests of their first designs
+   (``TICK_DIGESTS``, ``HEADS_DIGESTS``, ``LIF_DIGESTS``,
+   ``XBAR_DIGESTS``), ``network_tick`` also at the widest heads it takes;
+   the golden kernels (``lif_step``, ``crossbar_target``) timed at every
+   main-path shape beside an empty launch, and their generic instances
+   (other substep counts, rows narrower than 32) held against the plain
+   versions too; the branch-free division they share (``quot.cuh``) held
+   to IEEE division bit for bit over some 25 million operand pairs;
    ``mlp_surrogate_heads`` / ``mlp_surrogate`` also at widths the first
    design refused (F = 100 with MLP(200, 50), and F = 80 with MLP(512,
    256) heads larger than shared memory, staged in slices); the Python
@@ -75,10 +81,13 @@ one more steady run under ``torch.profiler`` (for the stream phase: one
 more steady stream of the SNN and of its hidden layer; for the LM phase:
 one more prefill and decode loop of the serve run).
 
-``--digests`` only prints the digests of the head and tick kernels' outputs
-on the check cases; with ``--src DIR`` they come from the ``repro_torch``
-under DIR (another commit's kernels on the same inputs), which is how the
-committed digests were taken.
+``--digests`` only prints the digests of the head, tick and golden
+(``lif_step``, ``lif_chunk``, ``crossbar_target``) kernels' outputs on the
+check cases and the golden kernels' times at the main path's shapes; with
+``--src DIR`` they come from the ``repro_torch`` under DIR (another
+commit's kernels on the same inputs), which is how the committed digests
+were taken. ``--parent DIR`` runs that in a subprocess and puts the other
+commit's golden-kernel times beside this tree's in the ``kernels`` line.
 
 Any failed phase raises, and the script exits non-zero. It needs CUDA and
 the repository's ``src/``; without either it fails before printing a
@@ -87,6 +96,7 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
 import statistics
@@ -102,12 +112,34 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# unfused fp32 operations: 132 SMs x 128 lanes x 1.98 GHz, one a lane a
+# cycle. PEAK_FP32_FLOPS counts a fused multiply-add as two operations; the
+# golden kernels, built with --fmad=false, have none
+SM_CLOCK_HZ = 1.98e9
+PEAK_FP32_UNFUSED_OPS = 132 * 128 * SM_CLOCK_HZ
 
 N_MAIN = 12800          # layer-1 neurons on the main path (100 x 128)
 N_RAGGED = 12837        # not a multiple of any block size
 N_XBAR = 312000         # crossbar MNIST layer-1 rows (200 x 120 x 13)
 N_XBAR_RAGGED = 312037
 N_MIXED_XBAR = 7680     # mixed-net crossbar rows per tick (64 x 24 x 5)
+# every shape the golden kernels take on the main paths: lif_step per
+# tick (SNN layers 100 x 128 and 100 x 10, the mixed net's 64 x 10) and
+# crossbar_target per layer (crossbar MNIST 200 x 120 x 13, 200 x 84 x 4,
+# 200 x 10 x 3 rows; the mixed net's 64 x 24 x 5 per tick)
+LIF_SHAPES = (N_MAIN, 1000, 640)
+XBAR_SHAPES = (N_XBAR, 67200, 6000, N_MIXED_XBAR)
+LIF_OBS = ("output", "energy", "latency", "spiked")
+# the golden kernels' generic instances (a runtime substep count, rows
+# narrower than CrossbarRow's 32): their circuits' fields and row counts,
+# ragged at both of crossbar_mvm.plan's tile sizes
+LIF_GENERIC = ({"n_substeps": 32},)
+XBAR_GENERIC = ({"n_inputs": 16}, {"n_substeps": 32},
+                {"n_inputs": 16, "n_substeps": 32})
+N_GENERIC_LIF = (1000, N_RAGGED)
+N_GENERIC_XBAR = (7699, N_XBAR_RAGGED)
+T_GENERIC = 8           # ticks of the generic lif_chunk case
+QUOT_PAIRS = 1 << 22    # operand pairs per random part of the quot check
 N_WIDE = 4099           # rows of the widest-heads network_tick cases
 XBAR_IMAGES = 200
 MIXED_IMAGES = 64
@@ -244,6 +276,72 @@ HEADS_DIGESTS = {
     "mlp_surrogate F=67 n=12837 torch.bfloat16":
         "6a61911ba696f7c9409c4554644da116a7a02d62d329a32337b1ecd9e3060a56",
 }
+# the golden kernels' outputs per case and output (lif_cases, xbar_cases),
+# SHA-256, first 12 hex digits: the first designs' kernels (one thread a
+# row, runtime substep loops; commit e55fc13) printed these on the same
+# seeded inputs on an NVIDIA H100 80GB HBM3, 700.00 W (``chip_smoke.py
+# --digests --src <its src>``), and every later design must reproduce
+# them bit for bit
+LIF_DIGESTS = {
+    "lif_step n=12800 new_state": "d857758a7370",
+    "lif_step n=12800 output": "bae2e6fa63be",
+    "lif_step n=12800 energy": "4b5d618d9cee",
+    "lif_step n=12800 latency": "c49dd02434ef",
+    "lif_step n=12800 spiked": "d5fae5e4a507",
+    "lif_step n=1000 new_state": "c81732f178ba",
+    "lif_step n=1000 output": "175d67f0bf09",
+    "lif_step n=1000 energy": "8805247492da",
+    "lif_step n=1000 latency": "221cd29c11bc",
+    "lif_step n=1000 spiked": "7d851bb2cb7f",
+    "lif_step n=640 new_state": "cfaefa7e2525",
+    "lif_step n=640 output": "eff3444d558d",
+    "lif_step n=640 energy": "bf469588f91e",
+    "lif_step n=640 latency": "d560b42d5c13",
+    "lif_step n=640 spiked": "4177e91f8d33",
+    "lif_step n=12837 new_state": "d0d8239af942",
+    "lif_step n=12837 output": "997a9c28c744",
+    "lif_step n=12837 energy": "bcf3ee5aae44",
+    "lif_step n=12837 latency": "4faa3ae70126",
+    "lif_step n=12837 spiked": "0a918111a38c",
+    "lif_chunk T=64 n=12800 new_state": "447558867704",
+    "lif_chunk T=64 n=12800 output": "f1075c0c5e70",
+    "lif_chunk T=64 n=12800 energy": "f7de4750f315",
+    "lif_chunk T=64 n=12800 latency": "5db9730c1e5c",
+    "lif_chunk T=64 n=12800 spiked": "828f92b418fc",
+    "lif_chunk T=64 n=12837 new_state": "39051d7eccda",
+    "lif_chunk T=64 n=12837 output": "ff4205d885e1",
+    "lif_chunk T=64 n=12837 energy": "944e27849852",
+    "lif_chunk T=64 n=12837 latency": "d294fa660f67",
+    "lif_chunk T=64 n=12837 spiked": "a5d1e18d715e",
+}
+XBAR_DIGESTS = {
+    "crossbar_target n=312000 v_tgt": "62667af90fe5",
+    "crossbar_target n=312000 tau": "406c16c6d9a5",
+    "crossbar_target n=312037 v_tgt": "89cc05413b96",
+    "crossbar_target n=312037 tau": "c3606ceb229a",
+    "crossbar_target n=7680 v_tgt": "8cc4dc9f73c4",
+    "crossbar_target n=7680 tau": "c967c6d7b8da",
+    "crossbar_step n=312000 state": "d11bb0dc2e89",
+    "crossbar_step n=312000 energy": "b6ca0cbcc8fe",
+    "crossbar_step n=312000 latency": "e344bc7d417f",
+    "crossbar_step n=312000 spiked": "8873aa072e67",
+    "crossbar_step n=67200 state": "1cc47dca2938",
+    "crossbar_step n=67200 energy": "5f1477cc650b",
+    "crossbar_step n=67200 latency": "d401c2e6eb07",
+    "crossbar_step n=67200 spiked": "ccb07033ea1c",
+    "crossbar_step n=6000 state": "8598504a0e61",
+    "crossbar_step n=6000 energy": "353a9047c7d4",
+    "crossbar_step n=6000 latency": "75901b4c7d4c",
+    "crossbar_step n=6000 spiked": "a8ea3712993c",
+    "crossbar_step n=7680 state": "abbbaf44b481",
+    "crossbar_step n=7680 energy": "b6add0a15798",
+    "crossbar_step n=7680 latency": "f67f5ecf6bfc",
+    "crossbar_step n=7680 spiked": "a61c5a810fdd",
+    "crossbar_step n=312037 state": "8f973f82965e",
+    "crossbar_step n=312037 energy": "2b33375c33f1",
+    "crossbar_step n=312037 latency": "f92c9c6b3f62",
+    "crossbar_step n=312037 spiked": "3b91eb9200fc",
+}
 # (h1, h2) of the routing-rule sweep, for both row kinds: across the band
 # network_tick refuses (crossbar H1 >= 94 with H2 near 128), its H1 limit
 # and the widths where the chunk kernel's two stacks stop fitting together
@@ -324,10 +422,14 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops=PEAK_FP32_FLOPS):
 # --- operation counts (fp32; a fused multiply-add counts 2) ---------------
 
 # one LIF substep (lif_step.cu loop body): update 2, clamp 2, threshold 2,
-# compare 1, refractory 2, adaptation 2, t_now 1, static energy 2+1+3,
-# integration energy 5, accumulate 2
+# compare 1, refractory 2, adaptation 2, first spike 1, static energy
+# 2+1+3, integration energy 5, accumulate 2
 LIF_FLOPS_PER_SUBSTEP = 27
 LIF_FLOPS_SETUP = 25
+# the substep's serial chain: (v + dv) * decay, clamp (2), the threshold
+# compare and the reset select, ~4 cycles each on the card's fp32 pipes
+LIF_CHAIN_OPS = 6
+FP32_LATENCY_CYCLES = 4
 
 
 def mlp_head_flops(f, h1, h2):
@@ -345,43 +447,266 @@ def head_flops(fam, f, h1, h2):
 
 # --- phase 3: each kernel against its plain version -------------------------
 
-def check_lif(torch, np, dev):
+def lif_inputs(torch, np, dev, n):
+    """One period's (state (N, 3), x (N, 3), params (N, 4)) on the card,
+    seeded by N: membranes, adaptation and 30% of rows refractory, drives
+    as the engine gives them (w in [-1, 1], V_dd, 5 spikes)."""
+    rng = np.random.default_rng(n)
+    state = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 0.3, n),
+                      rng.uniform(0, 3, n) * (rng.random(n) < 0.3)], 1)
+    x = np.stack([rng.uniform(-1, 1, n), np.full(n, 1.5),
+                  np.full(n, 5.0)], 1)
+    params = rng.uniform(0.5, 0.8, (n, 4))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (state, x, params)]
+
+
+def lif_cases(torch, np, dev):
+    """The LIF kernels' digest cases, ``(tag, fn, args)`` with ``fn(*args)``
+    returning the named outputs: ``lif_step`` at every main-path shape and
+    a ragged N, ``lif_chunk`` at T = 64 (N = 12,800 and 12,837)."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
-    out = {"shape": f"state ({N_MAIN}, 3), x ({N_MAIN}, 3), "
-                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0}
-    for n in (N_MAIN, N_RAGGED):
-        rng = np.random.default_rng(n)
-        state = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 0.3, n),
-                          rng.uniform(0, 3, n) * (rng.random(n) < 0.3)], 1)
-        x = np.stack([rng.uniform(-1, 1, n), np.full(n, 1.5),
-                      np.full(n, 5.0)], 1)
-        params = rng.uniform(0.5, 0.8, (n, 4))
-        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
-                for a in (state, x, params)]
-        new_state, obs = lif_scan.lif_step(*args, circ=circ)
-        got = (new_state, obs["output"], obs["energy"], obs["latency"],
-               obs["spiked"])
-        want = lif_scan._period_math(circ, *args)
+
+    def named(res):
+        new_state, obs = res
+        return {"new_state": new_state, **{k: obs[k] for k in LIF_OBS}}
+
+    cases = [(f"lif_step n={n}",
+              lambda *a: named(lif_scan.lif_step(*a, circ=circ)),
+              lif_inputs(torch, np, dev, n))
+             for n in (*LIF_SHAPES, N_RAGGED)]
+    cases += [(f"lif_chunk T={T_CHUNK_CHECK} n={n}",
+               lambda *a: named(lif_scan.lif_chunk(*a, circ=circ)),
+               lif_chunk_inputs(torch, np, dev, n, T_CHUNK_CHECK, n))
+              for n in (N_MAIN, N_RAGGED)]
+    return cases
+
+
+def xbar_inputs(torch, np, dev, n):
+    """``xbar_rows`` seeded by N, on the card: (v, w, state)."""
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in xbar_rows(np, n, n)]
+
+
+def xbar_cases(torch, np, dev):
+    """The crossbar kernels' digest cases, as :func:`lif_cases`:
+    ``crossbar_target`` at the layer-1 rows, a ragged N and the mixed net's
+    rows; ``crossbar_step`` (the fused period) at every main-path shape and
+    the ragged N."""
+    from repro_torch.core.circuits import CrossbarRow
+    from repro_torch.kernels import crossbar_mvm
+    circ = CrossbarRow()
+
+    def target(v, w, state):
+        v_tgt, tau = crossbar_mvm.crossbar_target(v, w, circ=circ)
+        return {"v_tgt": v_tgt, "tau": tau}
+
+    def step(v, w, state):
+        new_state, obs = crossbar_mvm.crossbar_step(state, v, w, circ=circ)
+        return {"state": new_state, **{k: obs[k] for k in LIF_OBS[1:]}}
+
+    cases = [(f"crossbar_target n={n}", target, xbar_inputs(torch, np, dev, n))
+             for n in (N_XBAR, N_XBAR_RAGGED, N_MIXED_XBAR)]
+    cases += [(f"crossbar_step n={n}", step, xbar_inputs(torch, np, dev, n))
+              for n in (*XBAR_SHAPES, N_XBAR_RAGGED)]
+    return cases
+
+
+def golden_digests(torch, cases, want):
+    """Run each case, digest each output (SHA-256, 12 hex digits) and, with
+    ``want`` (the committed digests), fail on any difference. Returns
+    ``({tag output: digest}, {tag: outputs})``."""
+    got, outs = {}, {}
+    for tag, fn, args in cases:
+        outs[tag] = fn(*args)
         torch.cuda.synchronize()
-        if not torch.equal(got[4], want[4]):
-            fail(f"lif_step n={n}: spiked differs on "
-                 f"{int((got[4] != want[4]).sum())} neurons")
-        for name, g, w in zip(("state", "output", "energy", "latency"),
-                              got[:4], want[:4]):
-            out["max_abs_err"] = max(out["max_abs_err"],
-                                     compare(g, w, f"lif_step {name}"))
+        for name, t in outs[tag].items():
+            got[f"{tag} {name}"] = digest([t])[:12]
+    if want is not None:
+        bad = sorted(k for k in got if got[k] != want.get(k))
+        if bad:
+            fail(f"golden kernels: {len(bad)} outputs differ from the "
+                 f"committed digests, e.g. {bad[:4]}")
+    return got, outs
+
+
+def shape_times(torch, np, dev):
+    """Device ms per call of ``lif_step``, ``crossbar_step`` and
+    ``crossbar_target`` at every main-path shape, ``lif_chunk`` at T = 64,
+    N = 12,800, and an empty launch (``torch.cuda._sleep(0)``) between the
+    same events: the launch floor. Keys are N."""
+    from repro_torch.core.circuits import CrossbarRow, LIFNeuron
+    from repro_torch.kernels import crossbar_mvm, lif_scan
+    lif, xbar = LIFNeuron(), CrossbarRow()
+    out = {"launch_floor": time_ms(lambda: torch.cuda._sleep(0), torch),
+           "lif_step": {}, "crossbar_step": {}, "crossbar_target": {}}
+    for n in LIF_SHAPES:
+        args = lif_inputs(torch, np, dev, n)
+        out["lif_step"][n] = time_ms(
+            lambda: lif_scan.lif_step(*args, circ=lif), torch)
+    for n in XBAR_SHAPES:
+        v, w, state = xbar_inputs(torch, np, dev, n)
+        out["crossbar_step"][n] = time_ms(
+            lambda: crossbar_mvm.crossbar_step(state, v, w, circ=xbar), torch)
+        if n in (N_XBAR, N_MIXED_XBAR):
+            out["crossbar_target"][n] = time_ms(
+                lambda: crossbar_mvm.crossbar_target(v, w, circ=xbar), torch)
+    args = lif_chunk_inputs(torch, np, dev, N_MAIN, T_CHUNK_CHECK, N_MAIN)
+    out["lif_chunk"] = {N_MAIN: time_ms(
+        lambda: lif_scan.lif_chunk(*args, circ=lif), torch)}
+    return out
+
+
+def lif_against_plain(torch, circ, tag, got, args, out):
+    """Hold one ``lif_step`` case's outputs against ``_period_math``:
+    spiked equal, the rest within RTOL; widens ``out["max_abs_err"]``."""
+    from repro_torch.kernels import lif_scan
+    want = dict(zip(("new_state", *LIF_OBS),
+                    lif_scan._period_math(circ, *args)))
+    torch.cuda.synchronize()
+    if not torch.equal(got["spiked"], want["spiked"]):
+        fail(f"{tag}: spiked differs on "
+             f"{int((got['spiked'] != want['spiked']).sum())} neurons")
+    for name in ("new_state", *LIF_OBS[:3]):
+        out["max_abs_err"] = max(out["max_abs_err"], compare(
+            got[name], want[name], f"{tag} {name}"))
+
+
+def check_lif(torch, np, dev, times):
+    """``lif_step``: each output of :func:`lif_cases`'s ``lif_step`` cases
+    digested and held to LIF_DIGESTS; against the plain version at every
+    main-path shape and the ragged N, and the generic instance (a runtime
+    substep count, LIF_GENERIC) at N_GENERIC_LIF; ``times``
+    (:func:`shape_times`) at each shape beside its bound and the
+    serial-chain estimate."""
+    from repro_torch.core.circuits import LIFNeuron
+    from repro_torch.kernels import lif_scan
+    circ = LIFNeuron()
+    cases = [c for c in lif_cases(torch, np, dev) if c[0].startswith(
+        "lif_step")]
+    digests, outs = golden_digests(torch, cases, LIF_DIGESTS)
+    out = {"shape": f"state ({N_MAIN}, 3), x ({N_MAIN}, 3), "
+                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0,
+           "digests_held": len(digests), "ms_by_shape": times["lif_step"],
+           "bound_ms_by_shape": {}, "launch_floor_ms": times["launch_floor"],
+           "generic_cases": []}
+    for (tag, _, args), n in zip(cases, (*LIF_SHAPES, N_RAGGED)):
+        got = outs[tag]
+        lif_against_plain(torch, circ, tag, got, args, out)
+        if n == N_RAGGED:
+            continue
+        n_bytes = n * (3 + 3 + 4) * 4 + n * (3 + 3) * 4 + n
+        ops = n * (LIF_FLOPS_SETUP + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+        bound, by = bound_ms(n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
+        out["bound_ms_by_shape"][n] = bound
         if n == N_MAIN:
-            out["spiking_share"] = float(got[4].float().mean())
-            out["ms"] = time_ms(lambda: lif_scan.lif_step(*args, circ=circ),
-                                torch)
+            out["spiking_share"] = float(got["spiked"].float().mean())
+            out["ms"] = times["lif_step"][n]
             out["plain_ms"] = time_ms(
                 lambda: lif_scan._period_math(circ, *args), torch)
-            n_bytes = n * (3 + 3 + 4) * 4 + n * (3 + 3) * 4 + n
-            flops = n * (LIF_FLOPS_SETUP
-                         + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
+            out["bound_ms"], out["bound_by"] = bound, by
+    for fields in LIF_GENERIC:
+        gen = LIFNeuron(**fields)
+        for n in N_GENERIC_LIF:
+            tag = f"lif_step {fields} n={n}"
+            args = lif_inputs(torch, np, dev, n)
+            new_state, obs = lif_scan.lif_step(*args, circ=gen)
+            lif_against_plain(torch, gen, tag, {"new_state": new_state,
+                                                **obs}, args, out)
+            out["generic_cases"].append(tag)
+    # an estimate, not a bound and not a reading: the dependent fp32 chain
+    # of one period, any N (left out of the kernels line)
+    out["chain_ms"] = (circ.n_substeps * LIF_CHAIN_OPS * FP32_LATENCY_CYCLES
+                       / SM_CLOCK_HZ * 1e3)
+    return out
+
+
+def check_quot(torch, np, dev):
+    """``quot`` / ``quot_nonneg`` (csrc/quot.cuh), each with the ``/`` its
+    caller falls back to where it declines, against IEEE fp32 division on
+    the host, bit for bit: every significand of a divisor in [1, 2) (all
+    ones included) against a random dividend; random operands with
+    exponents in [-62, 62] (some quotients beyond the 2^100 guard) and in
+    [-100, 100] (the guard's edges; quotients that overflow or are
+    subnormal, where the callers' `/` runs); the 512 significands nearest
+    all ones and 1.0 at random exponents; the
+    divisors the kernels use (5, LIFNeuron's ut and c_mem, CrossbarRow's
+    dt_s); signed zero dividends. Also fails where the guard declined a
+    pair it should take, which would leave the kernels' path unchecked."""
+    from repro_torch.core.circuits import CrossbarRow, LIFNeuron
+    from repro_torch.kernels import _build, crossbar_mvm
+    rng = np.random.default_rng(17)
+    u32 = np.uint32
+
+    def floats(n, e_lo, e_hi, sig=None):
+        """Random signs, exponents in [e_lo, e_hi] and significand bits
+        (or the given ones)."""
+        bits = rng.integers(0, 1 << 23, n, dtype=u32) if sig is None else sig
+        exp = rng.integers(127 + e_lo, 127 + e_hi + 1, n, dtype=u32)
+        sign = rng.integers(0, 2, n, dtype=u32) << u32(31)
+        return (sign | (exp << u32(23)) | bits).view(np.float32)
+
+    every = np.arange(1 << 23, dtype=u32)
+    ends = np.concatenate([np.arange(256, dtype=u32),
+                           (1 << 23) - 1 - np.arange(256, dtype=u32)])
+    lif, xbar = LIFNeuron(), CrossbarRow()
+    used = np.array([5.0, lif.ut, lif.c_mem, crossbar_mvm._consts(xbar).dt_s],
+                    np.float32)
+    parts = [
+        (floats(every.size, -40, 40), (u32(127 << 23) | every).view(
+            np.float32)),
+        (floats(QUOT_PAIRS, -62, 62), floats(QUOT_PAIRS, -62, 62)),
+        (floats(QUOT_PAIRS, -100, 100), floats(QUOT_PAIRS, -100, 100)),
+        (floats(QUOT_PAIRS, -62, 62),
+         floats(QUOT_PAIRS, -62, 62, rng.choice(ends, QUOT_PAIRS))),
+        (floats(QUOT_PAIRS, -62, 62), rng.choice(used, QUOT_PAIRS)),
+        (np.repeat(np.array([0.0, -0.0], np.float32), 4096),
+         floats(8192, -62, 62)),
+    ]
+    x = np.concatenate([p[0] for p in parts])
+    d = np.concatenate([p[1] for p in parts])
+    n = x.size
+    xt = torch.as_tensor(x, device=dev)
+    dt = torch.as_tensor(d, device=dev)
+    q, qn = torch.empty_like(xt), torch.empty_like(xt)
+    took = torch.empty(n, dtype=torch.uint8, device=dev)
+    lib = _build.library("lif_step")
+    fn = lib.quot_check_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    code = fn(xt.data_ptr(), dt.data_ptr(), q.data_ptr(), qn.data_ptr(),
+              took.data_ptr(), n, dev.index or 0,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(lib, code, "quot_check")
+    torch.cuda.synchronize()
+    with np.errstate(over="ignore", under="ignore"):
+        want = x / d
+        want_n = np.abs(x) / d
+    took = took.cpu().numpy()
+    out = {"pairs": int(n)}
+    for name, got, ref, bit in (("quot", q, want, 1),
+                                ("quot_nonneg", qn, want_n, 2)):
+        got = got.cpu().numpy()
+        bad = got.view(u32) != ref.view(u32)
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            fail(f"{name}: {int(bad.sum())} of {n} quotients differ from "
+                 f"IEEE division, e.g. {x[i]!r} / {d[i]!r}: "
+                 f"{got[i]!r} against {ref[i]!r}")
+        num = np.abs(x) if bit == 2 else x
+        inside = [np.abs(a) for a in (num, d, ref)]
+        guard = ((inside[0] == 0) | ((inside[0] >= 2.0 ** -100)
+                                     & (inside[0] <= 2.0 ** 100)))
+        for a in inside[1:]:
+            guard &= (a >= 2.0 ** -100) & (a <= 2.0 ** 100)
+        kept = (took & bit) > 0
+        if (guard & ~kept).any():
+            fail(f"{name}: declined {int((guard & ~kept).sum())} pairs "
+                 f"inside its range guard")
+        out[f"{name}_kept"] = int(kept.sum())
     return out
 
 
@@ -423,58 +748,101 @@ def settle_margin(torch, circ, state, v, w):
     return margin, torch.abs(torch.abs(vv - v0) - 0.02)
 
 
-def check_crossbar(torch, np, dev):
-    """Both entry points of crossbar_step.cu against their plain versions
-    at the crossbar MNIST layer-1 rows and at a ragged N; the fused period
-    (the golden backend's launch) is timed."""
+def xbar_bound(n, fused=True):
+    """(bound ms, by) of ``n`` crossbar rows: the fused period or the
+    target alone, unfused fp32 operations."""
+    if fused:
+        return bound_ms(n * (32 + 33 + 1) * 4 + n * (3 * 4 + 1),
+                        n * (XBAR_FLOPS_SETUP + 32 * XBAR_FLOPS_PER_INPUT
+                             + 64 * XBAR_FLOPS_PER_SUBSTEP),
+                        PEAK_FP32_UNFUSED_OPS)
+    return bound_ms(n * (32 + 33) * 4 + n * 8, n * (4 * 32 + 8),
+                    PEAK_FP32_UNFUSED_OPS)
+
+
+def narrow_rows(torch, v, w, state, n_in):
+    """The first ``n_in`` inputs of crossbar rows and their bias column,
+    each contiguous: rows of a CrossbarRow(n_inputs=n_in)."""
+    return (v[:, :n_in].contiguous(),
+            torch.cat([w[:, :n_in], w[:, -1:]], 1).contiguous(), state)
+
+
+def xbar_against_plain(torch, circ, tag, got, v, w, state, out):
+    """Hold one crossbar case's outputs against ``target_plain`` (v_tgt,
+    tau) or ``step_plain`` (spiked / t90 may differ only at rows within
+    XBAR_BAND of a threshold, the rest within RTOL); widens
+    ``out["max_abs_err"]`` and counts ``out["threshold_rows"]``."""
+    from repro_torch.kernels import crossbar_mvm
+    if "v_tgt" in got:
+        for name, p in zip(("v_tgt", "tau"),
+                           crossbar_mvm.target_plain(circ, v, w)):
+            out["max_abs_err"] = max(out["max_abs_err"], compare(
+                got[name], p, f"{tag} {name}"))
+        return
+    plain = crossbar_mvm.step_plain(circ, state, v, w)
+    torch.cuda.synchronize()
+    margin, spike_margin = settle_margin(torch, circ, state, v, w)
+    flip = (got["spiked"] != plain[4]) | (got["latency"] != plain[3])
+    near = (margin <= XBAR_BAND) | (spike_margin <= XBAR_BAND)
+    if (flip & ~near).any():
+        fail(f"{tag}: spiked or t90 differs on "
+             f"{int((flip & ~near).sum())} rows away from a threshold")
+    out["threshold_rows"] += int(flip.sum())
+    keep = (~flip).cpu().numpy()
+    for name, p in (("state", plain[1]), ("energy", plain[2])):
+        g = got[name][:, 0] if name == "state" else got[name]
+        out["max_abs_err"] = max(out["max_abs_err"], compare(
+            g, p, f"{tag} {name}", mask=keep))
+
+
+def check_crossbar(torch, np, dev, times):
+    """Both entry points of crossbar_step.cu: each output of
+    :func:`xbar_cases` digested and held to XBAR_DIGESTS; against the plain
+    versions at every case and on the generic instances (XBAR_GENERIC at
+    N_GENERIC_XBAR); ``times`` (:func:`shape_times`) at each shape beside
+    their bounds."""
     from repro_torch.core.circuits import CrossbarRow
     from repro_torch.kernels import crossbar_mvm
     circ = CrossbarRow()
+    cases = xbar_cases(torch, np, dev)
+    digests, outs = golden_digests(torch, cases, XBAR_DIGESTS)
     out = {"shape": f"v ({N_XBAR}, 32), w ({N_XBAR}, 33), state "
                     f"({N_XBAR}, 1): the fused period", "max_abs_err": 0.0,
-           "threshold_rows": 0}
-    for n in (N_XBAR, N_XBAR_RAGGED):
-        v, w, state = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                       for a in xbar_rows(np, n, n))
-        tag = f"crossbar_target n={n}"
-        got = crossbar_mvm.crossbar_target(v, w, circ=circ)
-        want = crossbar_mvm.target_plain(circ, v, w)
-        new_state, obs = crossbar_mvm.crossbar_step(state, v, w, circ=circ)
-        plain = crossbar_mvm.step_plain(circ, state, v, w)
-        torch.cuda.synchronize()
-        for name, g, p in (("v_tgt", got[0], want[0]), ("tau", got[1],
-                                                         want[1])):
-            out["max_abs_err"] = max(out["max_abs_err"],
-                                     compare(g, p, f"{tag} {name}"))
-        margin, spike_margin = settle_margin(torch, circ, state, v, w)
-        flip = (obs["spiked"] != plain[4]) | (obs["latency"] != plain[3])
-        near = (margin <= XBAR_BAND) | (spike_margin <= XBAR_BAND)
-        if (flip & ~near).any():
-            fail(f"{tag} step: spiked or t90 differs on "
-                 f"{int((flip & ~near).sum())} rows away from a threshold")
-        out["threshold_rows"] += int(flip.sum())
-        keep = (~flip).cpu().numpy()
-        for name, g, p in (("state", new_state[:, 0], plain[1]),
-                           ("energy", obs["energy"], plain[2])):
-            out["max_abs_err"] = max(out["max_abs_err"], compare(
-                g, p, f"{tag} step {name}", mask=keep))
+           "threshold_rows": 0, "digests_held": len(digests),
+           "ms_by_shape": times["crossbar_step"], "bound_ms_by_shape": {},
+           "target_ms_by_shape": times["crossbar_target"],
+           "target_bound_ms_by_shape": {},
+           "launch_floor_ms": times["launch_floor"], "generic_cases": []}
+    for tag, _, (v, w, state) in cases:
+        n = v.shape[0]
+        xbar_against_plain(torch, circ, tag, outs[tag], v, w, state, out)
+        if n == N_XBAR_RAGGED:
+            continue
+        if tag.startswith("crossbar_target"):
+            out["target_bound_ms_by_shape"][n] = xbar_bound(n, False)[0]
+            continue
+        out["bound_ms_by_shape"][n] = xbar_bound(n)[0]
         if n == N_XBAR:
-            out["spiked_share"] = float(obs["spiked"].float().mean())
-            out["ms"] = time_ms(
-                lambda: crossbar_mvm.crossbar_step(state, v, w, circ=circ),
-                torch)
+            out["spiked_share"] = float(outs[tag]["spiked"].float().mean())
+            out["ms"] = times["crossbar_step"][n]
             out["plain_ms"] = time_ms(
                 lambda: crossbar_mvm.step_plain(circ, state, v, w), torch)
-            out["target_ms"] = time_ms(
-                lambda: crossbar_mvm.crossbar_target(v, w, circ=circ), torch)
             out["target_plain_ms"] = time_ms(
                 lambda: crossbar_mvm.target_plain(circ, v, w), torch)
-            n_bytes = n * (32 + 33 + 1) * 4 + n * (3 * 4 + 1)
-            flops = n * (XBAR_FLOPS_SETUP + 32 * XBAR_FLOPS_PER_INPUT
-                         + circ.n_substeps * XBAR_FLOPS_PER_SUBSTEP)
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
-            out["target_bound_ms"] = bound_ms(
-                n * (32 + 33) * 4 + n * 8, n * (4 * 32 + 8))[0]
+            out["bound_ms"], out["bound_by"] = xbar_bound(n)
+    for fields in XBAR_GENERIC:
+        gen = CrossbarRow(**fields)
+        for n in N_GENERIC_XBAR:
+            v, w, state = narrow_rows(torch, *xbar_inputs(torch, np, dev, n),
+                                      gen.n_inputs)
+            tag = f"crossbar {fields} n={n}"
+            v_tgt, tau = crossbar_mvm.crossbar_target(v, w, circ=gen)
+            xbar_against_plain(torch, gen, f"{tag} target",
+                               {"v_tgt": v_tgt, "tau": tau}, v, w, state, out)
+            new_state, obs = crossbar_mvm.crossbar_step(state, v, w, circ=gen)
+            xbar_against_plain(torch, gen, f"{tag} step",
+                               {"state": new_state, **obs}, v, w, state, out)
+            out["generic_cases"].append(tag)
     return out
 
 
@@ -885,45 +1253,56 @@ def lif_chunk_inputs(torch, np, dev, n, t_steps, seed):
     return f32(state), f32(x), f32(rng.uniform(0.5, 0.8, (n, 4)))
 
 
-def check_lif_chunk(torch, np, dev):
-    """``lif_chunk`` against its plain version (T chained periods) and
-    against T ``lif_step`` launches, both bit for bit."""
+def chunk_against_plain(torch, circ, tag, got, state, x, params, out):
+    """Hold one ``lif_chunk`` case's outputs (new_state then LIF_OBS)
+    against its plain version (T chained periods; spiked equal, the rest
+    within RTOL) and against T ``lif_step`` launches, bit for bit."""
+    from repro_torch.kernels import lif_scan
+    t_steps = x.shape[0]
+    want = lif_scan.chunk_plain(circ, state, x, params)
+    s, steps = state, []
+    for k in range(t_steps):
+        s, o = lif_scan.lif_step(s, x[k], params, circ=circ)
+        steps.append(o)
+    torch.cuda.synchronize()
+    if not torch.equal(got[4], want[4]):
+        fail(f"{tag}: spiked differs from the plain version on "
+             f"{int((got[4] != want[4]).sum())} neuron-ticks")
+    for name, g, w in zip(("state", "output", "energy", "latency"),
+                          got[:4], want[:4]):
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 compare(g, w, f"{tag} {name}"))
+    obs = dict(zip(LIF_OBS, got[1:]))
+    same = torch.equal(got[0], s) and all(
+        torch.equal(obs[f][k], steps[k][f]) for k in range(t_steps)
+        for f in ("output", "energy", "latency", "spiked"))
+    if not same:
+        fail(f"{tag}: differs from {t_steps} lif_step launches")
+
+
+def check_lif_chunk(torch, np, dev, times):
+    """``lif_chunk``: each output of :func:`lif_cases`'s ``lif_chunk``
+    cases digested and held to LIF_DIGESTS; against its plain version (T
+    chained periods) and against T ``lif_step`` launches, both bit for
+    bit, there and on the generic instance (LIF_GENERIC, T_GENERIC ticks
+    at N_GENERIC_LIF); ``times`` (:func:`shape_times`) at N = 12,800."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
     t_steps = T_CHUNK_CHECK
+    cases = [c for c in lif_cases(torch, np, dev) if c[0].startswith(
+        "lif_chunk")]
+    digests, outs = golden_digests(torch, cases, LIF_DIGESTS)
     out = {"shape": f"state ({N_MAIN}, 3), x_seq ({t_steps}, {N_MAIN}, 3), "
-                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0}
-    for n in (N_MAIN, N_RAGGED):
-        state, x, params = lif_chunk_inputs(torch, np, dev, n, t_steps, n)
-        new_state, obs = lif_scan.lif_chunk(state, x, params, circ=circ)
-        got = (new_state, obs["output"], obs["energy"], obs["latency"],
-               obs["spiked"])
-        want = lif_scan.chunk_plain(circ, state, x, params)
-        s, steps = state, []
-        for k in range(t_steps):
-            s, o = lif_scan.lif_step(s, x[k], params, circ=circ)
-            steps.append(o)
-        torch.cuda.synchronize()
-        tag = f"lif_chunk n={n}"
-        if not torch.equal(got[4], want[4]):
-            fail(f"{tag}: spiked differs from the plain version on "
-                 f"{int((got[4] != want[4]).sum())} neuron-ticks")
-        for name, g, w in zip(("state", "output", "energy", "latency"),
-                              got[:4], want[:4]):
-            out["max_abs_err"] = max(out["max_abs_err"],
-                                     compare(g, w, f"{tag} {name}"))
-        same = torch.equal(new_state, s) and all(
-            torch.equal(obs[f][k], steps[k][f]) for k in range(t_steps)
-            for f in ("output", "energy", "latency", "spiked"))
-        if not same:
-            fail(f"{tag}: differs from {t_steps} lif_step launches")
+                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0,
+           "digests_held": len(digests), "generic_cases": []}
+    for (tag, _, (state, x, params)), n in zip(cases, (N_MAIN, N_RAGGED)):
+        got = tuple(outs[tag][k] for k in ("new_state", *LIF_OBS))
+        chunk_against_plain(torch, circ, tag, got, state, x, params, out)
         out[f"equals_{t_steps}_lif_step_launches"] = True
         if n == N_MAIN:
             out["spiking_share"] = float(got[4].float().mean())
-            out["ms"] = time_ms(
-                lambda: lif_scan.lif_chunk(state, x, params, circ=circ),
-                torch)
+            out["ms"] = times["lif_chunk"][n]
             # 64 x 64 substeps of small PyTorch ops: over a second a call
             out["plain_ms"] = time_ms(
                 lambda: lif_scan.chunk_plain(circ, state, x, params), torch,
@@ -933,9 +1312,19 @@ def check_lif_chunk(torch, np, dev):
                 lif_scan.lif_step(state, x[k], params, circ=circ)
                 for k in range(t_steps)], torch)
             n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
-            flops = t_steps * n * (LIF_FLOPS_SETUP
-                                   + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
+            ops = t_steps * n * (LIF_FLOPS_SETUP
+                                 + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+            out["bound_ms"], out["bound_by"] = bound_ms(
+                n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
+    for fields in LIF_GENERIC:
+        gen = LIFNeuron(**fields)
+        for n in N_GENERIC_LIF:
+            tag = f"lif_chunk {fields} T={T_GENERIC} n={n}"
+            args = lif_chunk_inputs(torch, np, dev, n, T_GENERIC, n)
+            new_state, obs = lif_scan.lif_chunk(*args, circ=gen)
+            chunk_against_plain(torch, gen, tag, (new_state, *(
+                obs[k] for k in LIF_OBS)), *args, out)
+            out["generic_cases"].append(tag)
     return out
 
 
@@ -1080,7 +1469,8 @@ def check_routing_rule():
 
 
 def print_digests(torch, np, dev, surs):
-    """The digests of every heads_cases and tick_cases output, from the
+    """The digests of every heads_cases, tick_cases, lif_cases and
+    xbar_cases output and the golden kernels' :func:`shape_times`, from the
     kernels of whichever ``repro_torch`` is imported (``--src``)."""
     from repro_torch.kernels import tick_megakernel as mk
     out = {}
@@ -1097,7 +1487,26 @@ def print_digests(torch, np, dev, surs):
                         pk, v, o, t_last, params, ch, x, t, known,
                         circuit=circuit, clock_ns=clock, layout=ly,
                         out_eps=0.02, annotate=annotate, **ckw))
-    line({"phase": "digests", "src": str(sys.path[0]), "digests": out})
+    golden = {}
+    for cases in (lif_cases(torch, np, dev), xbar_cases(torch, np, dev)):
+        golden.update(golden_digests(torch, cases, None)[0])
+    line({"phase": "digests", "src": str(sys.path[0]), "digests": out,
+          "golden_digests": golden,
+          "golden_ms": shape_times(torch, np, dev)})
+
+
+def parent_times(src: str) -> dict:
+    """:func:`shape_times` of the kernels under another commit's ``src``
+    directory, from ``chip_smoke.py --digests --src`` in a subprocess (the
+    same seeded inputs, the same card)."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--digests", "--src", src], capture_output=True,
+                         text=True, timeout=900, check=False)
+    for ln in res.stdout.splitlines():
+        if ln.startswith('{"phase": "digests"'):
+            return json.loads(ln)["golden_ms"]
+    fail(f"--parent {src}: no digests line (exit {res.returncode}):\n"
+         f"{res.stderr[-2000:]}")
 
 
 def flash_inputs(torch, dev, bh, g, s, d, dtype, seed):
@@ -1874,6 +2283,10 @@ def main() -> int:
     ap.add_argument("--src", help="with --digests: import repro_torch from "
                                   "this src directory (another commit's "
                                   "kernels on the same inputs)")
+    ap.add_argument("--parent", help="a src directory of another commit: "
+                                     "its golden kernels' times at the main "
+                                     "path's shapes (--digests --src in a "
+                                     "subprocess) go beside this tree's")
     args = ap.parse_args()
     if args.src:
         sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
@@ -1909,21 +2322,31 @@ def main() -> int:
         print_digests(torch, np, dev, surs)
         return 0
     line({"phase": "routing_rule", **check_routing_rule()})
+    line({"phase": "quot_check", **check_quot(torch, np, dev)})
+    parent = parent_times(args.parent) if args.parent else None
+    times = shape_times(torch, np, dev)
     cases = tick_cases(torch, np, dev, surs)
     heads, single = check_mlp_heads(torch, np, dev, surs)
     checks = {
-        "crossbar_target": check_crossbar(torch, np, dev),
-        "lif_step": check_lif(torch, np, dev),
+        "crossbar_target": check_crossbar(torch, np, dev, times),
+        "lif_step": check_lif(torch, np, dev, times),
         "mlp_surrogate_heads": heads,
         "network_tick": check_network_tick(torch, np, dev, cases),
         "network_tick_chunk": check_network_tick_chunk(torch, np, dev, [
             ("lif packable", *mk.pack_heads(surs["lif"]), True),
             ("lif mean_linear",
              *mk.pack_heads(mean_linear_surrogate(np, dev)), False)]),
-        "lif_chunk": check_lif_chunk(torch, np, dev),
+        "lif_chunk": check_lif_chunk(torch, np, dev, times),
         "mlp_surrogate": single,
         "flash_attention": check_flash_attention(torch, np, dev),
     }
+    if parent:
+        checks["lif_step"]["parent_ms_by_shape"] = parent["lif_step"]
+        checks["lif_chunk"]["parent_ms"] = parent["lif_chunk"][str(N_MAIN)]
+        checks["crossbar_target"].update({
+            "parent_ms_by_shape": parent["crossbar_step"],
+            "parent_target_ms_by_shape": parent["crossbar_target"],
+            "parent_launch_floor_ms": parent["launch_floor"]})
     for name, c in checks.items():
         line({"phase": "kernel_check", "kernel": name, **c})
 
@@ -1963,7 +2386,8 @@ def main() -> int:
             fail(f"{name}: no main-path run launched it")
         extra = {k: v for k, v in c.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms", "digests")}
+                              "bound_by", "library_ms", "digests",
+                              "chain_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),

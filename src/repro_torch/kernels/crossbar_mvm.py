@@ -8,8 +8,9 @@ the fused clock period that settles each row's output toward it.
 settling marker. Both sum each row in index order (``circuits.row_sum``),
 as the reference's XLA reductions do. :func:`crossbar_target` and
 :func:`crossbar_step` run them on CPU tensors and launch the two entry
-points of ``csrc/crossbar_step.cu`` — one thread per row — on CUDA
-tensors; every launch counts as one ``crossbar_target``.
+points of ``csrc/crossbar_step.cu`` — a persistent grid walking row tiles
+(:func:`plan`), one thread a row — on CUDA tensors; every launch counts as
+one ``crossbar_target``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ from repro_torch.core.circuits import CrossbarRow, row_sum
 from repro_torch.kernels import _build, ops
 
 MAX_IN = 32         # csrc/crossbar_step.cu kMaxIn: inputs per row
+TILE_ROWS = 128     # csrc/crossbar_step.cu kMaxTile: rows per tile
+SMALL_TILE_ROWS = 32
+# resident blocks an SM holds at 128-row tiles (35 KB of shared memory each)
+BLOCKS_PER_SM = 6
+ALIGN = 16          # bytes: v and w arrive by 16-byte asynchronous copies
 
 
 def target_plain(circ: CrossbarRow, v, w):
@@ -69,17 +75,42 @@ def step_plain(circ: CrossbarRow, state, v_in, params):
     return v[:, None], v, energy, latency, spiked
 
 
+def plan(n: int, sms: int) -> tuple[int, int]:
+    """``(tile_rows, grid)`` of a launch over ``n`` rows on a card of
+    ``sms`` SMs. Tiles are 128 rows when there are enough of them to give
+    every SM one (large N: the bytes bound), else 32 (one warp a tile, so
+    that small N spreads over every SM's warp schedulers). The grid is
+    persistent: at most BLOCKS_PER_SM blocks of 128 rows an SM (as many
+    warps in 32-row blocks), block ``b`` walking tiles ``b``, ``b + grid``,
+    ..."""
+    tile_rows = TILE_ROWS if n >= TILE_ROWS * sms else SMALL_TILE_ROWS
+    n_tiles = -(-n // tile_rows)
+    slots = sms * BLOCKS_PER_SM * (TILE_ROWS // tile_rows)
+    return tile_rows, max(1, min(n_tiles, slots))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# csrc/crossbar_step.cu: the tensors' pointers, then (n, n_in, tile_rows,
+# grid, device), the XbarConsts pointer and the stream
+TARGET_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+STEP_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p, ctypes.c_void_p])
+
+
 @functools.cache
 def _kernels():
     lib = _build.library("crossbar_step")
     tgt = lib.crossbar_target_launch
     tgt.restype = ctypes.c_int
-    tgt.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                    + [ctypes.c_void_p, ctypes.c_void_p])
+    tgt.argtypes = TARGET_ARGTYPES
     step = lib.crossbar_step_launch
     step.restype = ctypes.c_int
-    step.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p, ctypes.c_void_p])
+    step.argtypes = STEP_ARGTYPES
     return lib, tgt, step
 
 
@@ -111,6 +142,11 @@ def _check_rows(circ: CrossbarRow, v, w):
     n = v.shape[0]
     ops.check(v, "v", (n, n_in))
     ops.check(w, "w", (n, n_in + 1))
+    for t, name in ((v, "v"), (w, "w")):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: the crossbar kernels take a "
+                             f"{ALIGN}-byte-aligned tensor, got one at "
+                             f"{t.data_ptr() % ALIGN} bytes past a boundary")
     return n, n_in
 
 
@@ -122,9 +158,10 @@ def _launch_target(circ, v, w):
     if n:
         lib, fn, _ = _kernels()
         consts = _consts(circ)
+        index = dev.index or 0
         code = fn(v.data_ptr(), w.data_ptr(), v_tgt.data_ptr(),
-                  tau.data_ptr(), n, n_in, dev.index or 0,
-                  ctypes.addressof(consts),
+                  tau.data_ptr(), n, n_in, *plan(n, _sms(index)),
+                  index, ctypes.addressof(consts),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "crossbar_target")
         ops.count_launch("crossbar_target")
@@ -142,10 +179,12 @@ def _launch_step(circ, state, v_in, params):
     if n:
         lib, _, fn = _kernels()
         consts = _consts(circ)
+        index = dev.index or 0
         code = fn(state.data_ptr(), v_in.data_ptr(), params.data_ptr(),
                   new_state.data_ptr(), energy.data_ptr(),
                   latency.data_ptr(), spiked.data_ptr(), n, n_in,
-                  dev.index or 0, ctypes.addressof(consts),
+                  *plan(n, _sms(index)), index,
+                  ctypes.addressof(consts),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "crossbar_target")
         ops.count_launch("crossbar_target")

@@ -4,9 +4,9 @@
 reference's ``kernels/lif_scan.py:_period_math`` (itself the same math as
 ``circuits.LIFNeuron.step``), with the per-neuron constants hoisted out
 of the 64-substep loop. :func:`lif_step` runs it on CPU tensors and
-launches ``csrc/lif_step.cu`` — one thread per neuron, the substep loop in
-registers — on CUDA tensors. :func:`lif_chunk` is the time-looped variant:
-T periods in one launch, the state resident across the chunk; its plain
+launches ``csrc/lif_step.cu`` — one thread per neuron, the substep loop
+compiled in and unrolled — on CUDA tensors. :func:`lif_chunk` is the
+time-looped variant: T periods in one launch, the state resident across the chunk; its plain
 version chains :func:`_period_math` T times, and the kernel calls the same
 device function as ``lif_step``, so both equal T ``lif_step`` calls bit
 for bit.
@@ -83,14 +83,20 @@ def chunk_plain(circ: LIFNeuron, state, x_seq, params):
     return (state, *(torch.stack(col) for col in zip(*outs)))
 
 
+# csrc/lif_step.cu lif_step_launch / lif_chunk_launch: 8 pointers, the
+# ints (n, n_substeps, device / n, t_steps, n_substeps, device), the 9
+# floats of _consts, the stream
+ARGTYPES = {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int
+            + [ctypes.c_float] * 9 + [ctypes.c_void_p]
+            for name, n_int in (("lif_step", 3), ("lif_chunk", 4))}
+
+
 @functools.cache
 def _kernel(name: str = "lif_step"):
     lib = _build.library("lif_step")
     fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    n_int = 4 if name == "lif_chunk" else 3
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int
-                   + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES[name]
     return lib, fn
 
 

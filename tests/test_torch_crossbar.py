@@ -52,12 +52,13 @@ def _t(*arrays):
     return tuple(torch.as_tensor(a) for a in arrays)
 
 
-def _settle_margins(state, v, w):
+def _settle_margins(state, v, w, circ=None):
     """Per row: the least distance between |v_k - v_tgt| and the 90%
-    settling band over the substeps, and |v_end - v0| from 0.02."""
+    settling band over the substeps, and |v_end - v0| from 0.02, for
+    ``circ`` (by default CrossbarRow())."""
     from repro_torch.core.circuits import CrossbarRow
     from repro_torch.kernels import crossbar_mvm
-    circ = CrossbarRow()
+    circ = circ or CrossbarRow()
     s, vv, ww = _t(state, v, w)
     v_tgt, tau = crossbar_mvm.target_plain(circ, vv, ww)
     dt = circ.clock_ns / circ.n_substeps
