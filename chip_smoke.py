@@ -12,7 +12,9 @@ Phases, one output line each (JSON where it helps):
    main path's shapes and at a ragged N, and time both on the device
    (CUDA events, median of 25 calls after warm-up); the time-looped
    kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
-   launches of their one-tick kernels, bit for bit; ``network_tick``'s,
+   launches of their one-tick kernels, bit for bit, and ``lif_chunk`` at
+   the golden simulation's N = 2,000 x T = 125 too (digested, timed,
+   against 125 ``lif_step`` launches); ``network_tick``'s,
    the head kernels' and the golden kernels' outputs digested (SHA-256)
    case by case and held to the committed digests of their first designs
    (``TICK_DIGESTS``, ``HEADS_DIGESTS``, ``LIF_DIGESTS``,
@@ -24,7 +26,9 @@ Phases, one output line each (JSON where it helps):
    to IEEE division bit for bit over some 25 million operand pairs;
    ``mlp_surrogate_heads`` / ``mlp_surrogate`` also at widths the first
    design refused (F = 100 with MLP(200, 50), and F = 80 with MLP(512,
-   256) heads larger than shared memory, staged in slices); the Python
+   256) heads larger than shared memory, staged in slices),
+   ``mlp_surrogate`` timed on fp32 and bf16 rows and its wrapper's cast
+   of fp16 rows checked; the Python
    copies of ``network_tick``'s routing rules (``kernel_takes``,
    ``chunk_takes``) against the compiled rules over a sweep of widths;
    ``flash_attention``'s tensor-core route at q 96 x 512 x 128 and the
@@ -83,11 +87,12 @@ one more prefill and decode loop of the serve run).
 
 ``--digests`` only prints the digests of the head, tick and golden
 (``lif_step``, ``lif_chunk``, ``crossbar_target``) kernels' outputs on the
-check cases and the golden kernels' times at the main path's shapes; with
-``--src DIR`` they come from the ``repro_torch`` under DIR (another
-commit's kernels on the same inputs), which is how the committed digests
-were taken. ``--parent DIR`` runs that in a subprocess and puts the other
-commit's golden-kernel times beside this tree's in the ``kernels`` line.
+check cases and the golden kernels' and ``mlp_surrogate``'s times at the
+main path's shapes; with ``--src DIR`` they come from the ``repro_torch``
+under DIR (another commit's kernels on the same inputs), which is how the
+committed digests were taken. ``--parent DIR`` runs that in a subprocess
+and puts the other commit's times beside this tree's in the ``kernels``
+line.
 
 Any failed phase raises, and the script exits non-zero. It needs CUDA and
 the repository's ``src/``; without either it fails before printing a
@@ -151,6 +156,13 @@ BUSY_CYCLES = 100_000_000   # ~50 ms of spinning at the H100's clocks
 T_STEPS = 100
 N_IMAGES = 100
 T_CHUNK_CHECK = 64      # ticks of the time-looped kernel checks
+# lif_chunk at the golden simulation of training data: the reference's
+# dataset.simulate_golden scans LIFNeuron.step over TestbenchConfig's
+# 2,000 runs x 125 steps (src/repro/core/dataset.py:26-30, 60-84)
+N_GOLDEN_SIM = 2000
+T_GOLDEN_SIM = 125
+LIF_CHUNK_SHAPES = ((N_MAIN, T_CHUNK_CHECK), (N_RAGGED, T_CHUNK_CHECK),
+                    (N_GOLDEN_SIM, T_GOLDEN_SIM))
 STREAM_TICKS = 2000     # the stream phase's horizon
 STREAM_BLOCK = 250      # ticks per host block
 STREAM_CHUNK = 512      # ticks per chunk: three full, one of 464
@@ -313,6 +325,13 @@ LIF_DIGESTS = {
     "lif_chunk T=64 n=12837 energy": "944e27849852",
     "lif_chunk T=64 n=12837 latency": "d294fa660f67",
     "lif_chunk T=64 n=12837 spiked": "a5d1e18d715e",
+    # the golden simulation's shape, from the parent's kernel (commit
+    # b65b4c0, its first redesign's period) on the same card
+    "lif_chunk T=125 n=2000 new_state": "de80a71e65ed",
+    "lif_chunk T=125 n=2000 output": "ae6c751689a9",
+    "lif_chunk T=125 n=2000 energy": "b83256ae953d",
+    "lif_chunk T=125 n=2000 latency": "a57b59cf57b3",
+    "lif_chunk T=125 n=2000 spiked": "ec2d25a06505",
 }
 XBAR_DIGESTS = {
     "crossbar_target n=312000 v_tgt": "62667af90fe5",
@@ -464,7 +483,8 @@ def lif_inputs(torch, np, dev, n):
 def lif_cases(torch, np, dev):
     """The LIF kernels' digest cases, ``(tag, fn, args)`` with ``fn(*args)``
     returning the named outputs: ``lif_step`` at every main-path shape and
-    a ragged N, ``lif_chunk`` at T = 64 (N = 12,800 and 12,837)."""
+    a ragged N, ``lif_chunk`` at LIF_CHUNK_SHAPES (T = 64 at N = 12,800
+    and 12,837; T = 125 at N = 2,000, the golden simulation's)."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
@@ -477,10 +497,10 @@ def lif_cases(torch, np, dev):
               lambda *a: named(lif_scan.lif_step(*a, circ=circ)),
               lif_inputs(torch, np, dev, n))
              for n in (*LIF_SHAPES, N_RAGGED)]
-    cases += [(f"lif_chunk T={T_CHUNK_CHECK} n={n}",
+    cases += [(f"lif_chunk T={t} n={n}",
                lambda *a: named(lif_scan.lif_chunk(*a, circ=circ)),
-               lif_chunk_inputs(torch, np, dev, n, T_CHUNK_CHECK, n))
-              for n in (N_MAIN, N_RAGGED)]
+               lif_chunk_inputs(torch, np, dev, n, t, n))
+              for n, t in LIF_CHUNK_SHAPES]
     return cases
 
 
@@ -535,10 +555,12 @@ def golden_digests(torch, cases, want):
 def shape_times(torch, np, dev):
     """Device ms per call of ``lif_step``, ``crossbar_step`` and
     ``crossbar_target`` at every main-path shape, ``lif_chunk`` at T = 64,
-    N = 12,800, and an empty launch (``torch.cuda._sleep(0)``) between the
-    same events: the launch floor. Keys are N."""
+    N = 12,800 and at T = 125, N = 2,000, ``mlp_surrogate`` at (12,800,
+    41) on fp32 and bf16 rows, and an empty launch
+    (``torch.cuda._sleep(0)``) between the same events: the launch floor.
+    Keys are N (``lif_chunk``) and the row dtype (``mlp_surrogate``)."""
     from repro_torch.core.circuits import CrossbarRow, LIFNeuron
-    from repro_torch.kernels import crossbar_mvm, lif_scan
+    from repro_torch.kernels import crossbar_mvm, lif_scan, mlp_surrogate
     lif, xbar = LIFNeuron(), CrossbarRow()
     out = {"launch_floor": time_ms(lambda: torch.cuda._sleep(0), torch),
            "lif_step": {}, "crossbar_step": {}, "crossbar_target": {}}
@@ -553,9 +575,17 @@ def shape_times(torch, np, dev):
         if n in (N_XBAR, N_MIXED_XBAR):
             out["crossbar_target"][n] = time_ms(
                 lambda: crossbar_mvm.crossbar_target(v, w, circ=xbar), torch)
-    args = lif_chunk_inputs(torch, np, dev, N_MAIN, T_CHUNK_CHECK, N_MAIN)
-    out["lif_chunk"] = {N_MAIN: time_ms(
-        lambda: lif_scan.lif_chunk(*args, circ=lif), torch)}
+    out["lif_chunk"] = {}
+    for n, t in LIF_CHUNK_SHAPES:
+        if n == N_RAGGED:
+            continue
+        args = lif_chunk_inputs(torch, np, dev, n, t, n)
+        out["lif_chunk"][n] = time_ms(
+            lambda: lif_scan.lif_chunk(*args, circ=lif), torch)
+    x, w = single_case(torch, np, dev, 41)
+    out["mlp_surrogate"] = {str(xx.dtype): time_ms(
+        lambda: mlp_surrogate.mlp_surrogate(xx, *w), torch)
+        for xx in (x, x.bfloat16())}
     return out
 
 
@@ -893,6 +923,16 @@ def single_head(torch, np, dev, rng, f, h1, h2, scale=0.1):
             for s in ((f, h1), (h1,), (h1, h2), (h2,), (h2, 1), (1,))]
 
 
+def single_case(torch, np, dev, f):
+    """``heads_cases``' ``mlp_surrogate`` inputs at F and N = 12,800: x
+    (fp32) and the head's six arrays."""
+    rng = np.random.default_rng(f)
+    w = single_head(torch, np, dev, rng, f, 100, 50)
+    x = torch.as_tensor(rng.normal(0, 1, (N_MAIN, f)), dtype=torch.float32,
+                        device=dev)
+    return x, w
+
+
 def wide_heads(torch, np, dev, p, f, h1, h2, seed):
     """P standardized MLP(h1, h2) heads at F columns from a seed, as
     ``mlp_surrogate_heads`` takes them, and x (N_MAIN, F)."""
@@ -913,14 +953,15 @@ def wide_heads(torch, np, dev, p, f, h1, h2, seed):
 WIDE_HEADS = ((2, 100, 200, 50), (3, 12, 200, 50), (2, 80, 512, 256))
 
 
-def check_mlp_heads(torch, np, dev, surs):
+def check_mlp_heads(torch, np, dev, surs, times):
     """``mlp_surrogate_heads`` and ``mlp_surrogate``: every case of
     :func:`heads_cases` digested and held to HEADS_DIGESTS and to the
     plain version; the main path's groups timed (LIF: the line's entry;
-    crossbar rows: ``crossbar``); then the widths of WIDE_HEADS, and
-    ``mlp_surrogate`` at F = 100 with MLP(200, 50), against the plain
-    version at N = 12,800, each with the kernel's launch plan. Returns
-    (the heads' entry, the single head's entry)."""
+    crossbar rows: ``crossbar``), ``mlp_surrogate`` at F = 67 (F = 41 on
+    fp32 and bf16 rows from ``times``, :func:`shape_times`); then the
+    widths of WIDE_HEADS, and ``mlp_surrogate`` at F = 100 with MLP(200,
+    50), against the plain version at N = 12,800, each with the kernel's
+    launch plan. Returns (the heads' entry, the single head's entry)."""
     from repro_torch.kernels import mlp_surrogate, ops
     heads = {"lif": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0},
              "crossbar": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
@@ -951,9 +992,13 @@ def check_mlp_heads(torch, np, dev, surs):
             key = "" if f == 41 else "_f67"
             w = args[1:]
             h1, h2 = w[0].shape[1], w[2].shape[1]
-            single[f"ms{key}"] = time_ms(lambda: fn(*args), torch)
+            single[f"ms{key}"] = times["mlp_surrogate"][str(x.dtype)] \
+                if f == 41 else time_ms(lambda: fn(*args), torch)
             single[f"plain_ms{key}"] = time_ms(lambda: plain[fn](*args),
                                                torch)
+            if f == 41:
+                single["ms_bf16"] = times["mlp_surrogate"]["torch.bfloat16"]
+                single["plan"] = mlp_surrogate.single_plan(f, h1, h2)
             flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
             n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
             single[f"bound_ms{key}"], single["bound_by"] = bound_ms(
@@ -1008,8 +1053,17 @@ def check_mlp_heads(torch, np, dev, surs):
         got, want, "mlp_surrogate F=100 MLP(200, 50)"))
     single["wide"] = {"F=100 MLP(200, 50)": {
         "plan": mlp_surrogate.plan(1, 100, 200, 50),
+        "single_plan": mlp_surrogate.single_plan(100, 200, 50),
         "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate(x, *w), torch),
         "plain_ms": time_ms(lambda: mlp_surrogate.mlp_plain(x, *w), torch)}}
+    # rows of a dtype the kernel does not read: the wrapper casts them
+    x, w = single_case(torch, np, dev, 41)
+    got = mlp_surrogate.mlp_surrogate(x.half(), *w)
+    same = torch.equal(got, mlp_surrogate.mlp_surrogate(x.half().float(), *w))
+    single["max_abs_err"] = max(single["max_abs_err"], compare(
+        got, mlp_surrogate.mlp_plain(x.half(), *w), "mlp_surrogate float16"))
+    if not same:
+        fail("mlp_surrogate: float16 rows differ from their fp32 cast")
     single["kernel_check_launches"] = ops.LAUNCHES["mlp_surrogate"] - before
     lif = heads.pop("lif")
     lif["max_abs_err"] = max(lif["max_abs_err"],
@@ -1285,21 +1339,39 @@ def check_lif_chunk(torch, np, dev, times):
     cases digested and held to LIF_DIGESTS; against its plain version (T
     chained periods) and against T ``lif_step`` launches, both bit for
     bit, there and on the generic instance (LIF_GENERIC, T_GENERIC ticks
-    at N_GENERIC_LIF); ``times`` (:func:`shape_times`) at N = 12,800."""
+    at N_GENERIC_LIF); ``times`` (:func:`shape_times`) at N = 12,800, T =
+    64 (the line's entry) and at N = 2,000, T = 125, each beside its bound
+    and the serial-chain estimate."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
-    t_steps = T_CHUNK_CHECK
     cases = [c for c in lif_cases(torch, np, dev) if c[0].startswith(
         "lif_chunk")]
     digests, outs = golden_digests(torch, cases, LIF_DIGESTS)
-    out = {"shape": f"state ({N_MAIN}, 3), x_seq ({t_steps}, {N_MAIN}, 3), "
-                    f"params ({N_MAIN}, 4)", "max_abs_err": 0.0,
-           "digests_held": len(digests), "generic_cases": []}
-    for (tag, _, (state, x, params)), n in zip(cases, (N_MAIN, N_RAGGED)):
+    out = {"shape": f"state ({N_MAIN}, 3), x_seq ({T_CHUNK_CHECK}, {N_MAIN}, "
+                    f"3), params ({N_MAIN}, 4)", "max_abs_err": 0.0,
+           "digests_held": len(digests), "ms_by_shape": {},
+           "bound_ms_by_shape": {}, "chain_ms_by_shape": {},
+           "generic_cases": []}
+    for (tag, _, (state, x, params)), (n, t_steps) in zip(cases,
+                                                          LIF_CHUNK_SHAPES):
         got = tuple(outs[tag][k] for k in ("new_state", *LIF_OBS))
         chunk_against_plain(torch, circ, tag, got, state, x, params, out)
         out[f"equals_{t_steps}_lif_step_launches"] = True
+        if n == N_RAGGED:
+            continue
+        key = f"n={n} T={t_steps}"
+        out["ms_by_shape"][key] = times["lif_chunk"][n]
+        n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
+        ops = t_steps * n * (LIF_FLOPS_SETUP
+                             + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+        bound, by = bound_ms(n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
+        out["bound_ms_by_shape"][key] = bound
+        # an estimate, not a bound and not a reading: the dependent fp32
+        # chain of T periods, any N (left out of the kernels line)
+        out["chain_ms_by_shape"][key] = (
+            t_steps * circ.n_substeps * LIF_CHAIN_OPS * FP32_LATENCY_CYCLES
+            / SM_CLOCK_HZ * 1e3)
         if n == N_MAIN:
             out["spiking_share"] = float(got[4].float().mean())
             out["ms"] = times["lif_chunk"][n]
@@ -1311,11 +1383,8 @@ def check_lif_chunk(torch, np, dev, times):
             out["lif_step_x64_ms"] = time_ms(lambda: [
                 lif_scan.lif_step(state, x[k], params, circ=circ)
                 for k in range(t_steps)], torch)
-            n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
-            ops = t_steps * n * (LIF_FLOPS_SETUP
-                                 + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-            out["bound_ms"], out["bound_by"] = bound_ms(
-                n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
+            out["bound_ms"], out["bound_by"] = bound, by
+            out["chain_ms"] = out["chain_ms_by_shape"][key]
     for fields in LIF_GENERIC:
         gen = LIFNeuron(**fields)
         for n in N_GENERIC_LIF:
@@ -2326,7 +2395,7 @@ def main() -> int:
     parent = parent_times(args.parent) if args.parent else None
     times = shape_times(torch, np, dev)
     cases = tick_cases(torch, np, dev, surs)
-    heads, single = check_mlp_heads(torch, np, dev, surs)
+    heads, single = check_mlp_heads(torch, np, dev, surs, times)
     checks = {
         "crossbar_target": check_crossbar(torch, np, dev, times),
         "lif_step": check_lif(torch, np, dev, times),
@@ -2343,6 +2412,13 @@ def main() -> int:
     if parent:
         checks["lif_step"]["parent_ms_by_shape"] = parent["lif_step"]
         checks["lif_chunk"]["parent_ms"] = parent["lif_chunk"][str(N_MAIN)]
+        checks["lif_chunk"]["parent_ms_by_shape"] = {
+            f"n={n} T={t}": parent["lif_chunk"].get(str(n))
+            for n, t in LIF_CHUNK_SHAPES if n != N_RAGGED}
+        checks["mlp_surrogate"]["parent_ms"] = \
+            parent["mlp_surrogate"]["torch.float32"]
+        checks["mlp_surrogate"]["parent_ms_bf16"] = \
+            parent["mlp_surrogate"]["torch.bfloat16"]
         checks["crossbar_target"].update({
             "parent_ms_by_shape": parent["crossbar_step"],
             "parent_target_ms_by_shape": parent["crossbar_target"],
@@ -2387,7 +2463,7 @@ def main() -> int:
         extra = {k: v for k, v in c.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "digests",
-                              "chain_ms")}
+                              "chain_ms", "chain_ms_by_shape")}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_run.values()),

@@ -10,7 +10,11 @@ slice by slice where they do not fit), each layer a register-tiled
 product from shared memory.
 
 :func:`mlp_surrogate` is the single unstandardized head, ``(N, F) ->
-(N,)``: the same kernel at P = 1 with the identity standardizer.
+(N,)``: a kernel of its own (``mlp_single``: the same row tiles and
+products without the standardizer, the head staged in two groups so that
+the first layer starts before the second layer's weights land, fp32 or
+bf16 rows read as they are); a head too wide for it runs through the
+heads' kernel at P = 1.
 """
 
 from __future__ import annotations
@@ -40,14 +44,23 @@ def mlp_plain(x, w1, b1, w2, b2, w3, b3):
     return (h @ w3 + b3)[:, 0]
 
 
+# csrc/mlp_heads.cu mlp_heads_launch: x, the arrays, out, (n, p, f, h1, h2,
+# device), the stream; mlp_surrogate_launch: x, whether x is bf16, the
+# arrays, out, (n, f, h1, h2, device), the stream
+ARGTYPES = {
+    "mlp_heads": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "mlp_surrogate": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+}
+
 @functools.cache
 def _kernel(name: str = "mlp_heads"):
     lib = _build.library("mlp_heads")
     fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    n_int = 6 if name == "mlp_heads" else 5
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES[name]
     return lib, fn
 
 
@@ -73,6 +86,21 @@ def plan(p: int, f: int, h1: int, h2: int) -> dict:
                          f"F={f}, MLP({h1}, {h2}) heads does not fit in "
                          "shared memory")
     return res
+
+
+@functools.cache
+def single_plan(f: int, h1: int, h2: int) -> dict:
+    """The single-head kernel's layout at (F, H1, H2), from its own rule
+    (``csrc/mlp_heads.cu:single_takes``): rows per tile at the most (0:
+    it does not take the head, which then runs through the heads' kernel
+    at P = 1, on fp32 rows) and the shared-memory bytes of a block."""
+    lib = _build.library("mlp_heads")
+    fn = lib.mlp_surrogate_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 2)()
+    fn(f, h1, h2, out)
+    return dict(zip(("rows", "smem_bytes"), out))
 
 
 def _launch(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
@@ -115,10 +143,8 @@ def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
 def _launch_single(x, w1, b1, w2, b2, w3, b3):
     arrays = (w1, b1, w2, b2, w3, b3)
     dev = ops.same_cuda_device(x, *arrays)
-    x = x.float()
     n, f = x.shape
     h1, h2 = w1.shape[1], w2.shape[1]
-    ops.check(x, "x", (n, f))
     for name, a, shape in (("w1", w1, (f, h1)), ("b1", b1, (h1,)),
                            ("w2", w2, (h1, h2)), ("b2", b2, (h2,)),
                            ("w3", w3, (h2, 1)), ("b3", b3, (1,))):
@@ -126,17 +152,26 @@ def _launch_single(x, w1, b1, w2, b2, w3, b3):
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
         plan(1, f, h1, h2)
+        # the single-head kernel reads fp32 and bf16 rows as they are; the
+        # heads' kernel, which takes the heads too wide for it, fp32 rows
+        reads = (torch.float32, torch.bfloat16) if single_plan(
+            f, h1, h2)["rows"] else (torch.float32,)
+        if x.dtype not in reads:
+            x = x.float()
+        ops.check(x, "x", (n, f), dtype=x.dtype)
         lib, fn = _kernel("mlp_surrogate")
         ptrs = (ctypes.c_void_p * 6)(*(a.data_ptr() for a in arrays))
-        code = fn(x.data_ptr(), ptrs, out.data_ptr(), n, f, h1, h2,
-                  dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        code = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), ptrs,
+                  out.data_ptr(), n, f, h1, h2, dev.index or 0,
+                  torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "mlp_surrogate")
         ops.count_launch("mlp_surrogate")
     return out
 
 
 def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
-    """One fused 3-layer ReLU MLP: x (N, F) fp32 or bf16 (cast to fp32),
+    """One fused 3-layer ReLU MLP: x (N, F) (fp32 and bf16 rows read as
+    they are, any other dtype cast to fp32 first),
     w1 (F, H1), b1 (H1,), w2 (H1, H2), b2 (H2,), w3 (H2, 1), b3 (1,) ->
     (N,) fp32."""
     args = (x, w1, b1, w2, b2, w3, b3)

@@ -1,7 +1,9 @@
-"""The golden kernels' C interface and launch plan, checked on the CPU.
+"""The golden and head kernels' C interface and launch plan, checked on
+the CPU.
 
-``lif_step.cu`` and ``crossbar_step.cu`` are compiled only where there is
-a card; their wrappers pass arguments through ``ctypes``. These tests
+``lif_step.cu``, ``crossbar_step.cu`` and ``mlp_heads.cu`` are compiled
+only where there is a card; their wrappers pass arguments through
+``ctypes``. These tests
 parse the sources and hold the wrappers' ctypes signatures and constants
 to them, pin the crossbar's launch plan at the main path's shapes, and
 check that a tensor the kernels do not take is refused before any launch.
@@ -28,7 +30,8 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.core.circuits import CrossbarRow, LIFNeuron  # noqa: E402
-from repro_torch.kernels import crossbar_mvm, lif_scan, ops  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    crossbar_mvm, lif_scan, mlp_surrogate, ops)
 from test_torch_crossbar import (  # noqa: E402
     BAND, _rows as _xbar_rows, _settle_margins)
 from test_torch_fixtures import assert_close  # noqa: E402
@@ -70,6 +73,14 @@ def test_lif_argtypes_match_the_source(name):
     ("crossbar_step_launch", crossbar_mvm.STEP_ARGTYPES)])
 def test_crossbar_argtypes_match_the_source(fn, want):
     assert _params(_source("crossbar_step"), fn) == want
+
+
+@pytest.mark.parametrize("name", ["mlp_heads", "mlp_surrogate"])
+def test_mlp_argtypes_match_the_source(name):
+    """mlp_surrogate_launch takes x as fp32 or bf16 rows and a flag that
+    says which; the wrapper's ctypes signature follows the source."""
+    assert (_params(_source("mlp_heads"), f"{name}_launch")
+            == mlp_surrogate.ARGTYPES[name])
 
 
 def test_xbar_consts_match_the_source():

@@ -477,15 +477,16 @@ def test_megakernel_chunk_plain_matches_reference(surrogate_pairs):
     assert torch.equal(st.v, tst.v) and torch.equal(st.o, tst.o)
 
 
-def test_lif_chunk_plain_matches_chained_reference_steps():
+@pytest.mark.parametrize("n, t_steps", [(300, 6), (40, 125)])
+def test_lif_chunk_plain_matches_chained_reference_steps(n, t_steps):
     """``lif_chunk`` (plain) against T chained reference
     ``LIFNeuron.step`` calls: spikes identical, state / energy / latency
-    to rtol 1e-5; and against T chained port ``lif_step`` bit for bit."""
+    to rtol 1e-5; and against T chained port ``lif_step`` bit for bit.
+    T = 125 is the golden simulation's (``TestbenchConfig``'s steps)."""
     import jax
     from repro.core.circuits import LIFNeuron as JaxLIF
     from repro_torch.kernels import ops
     rng = np.random.default_rng(21)
-    n, t_steps = 300, 6
     state = np.stack([rng.uniform(0, 1.0, n), rng.uniform(0, 0.3, n),
                       rng.uniform(0, 3.0, n) * (rng.random(n) < 0.3)],
                      1).astype(np.float32)
@@ -533,15 +534,20 @@ def test_mlp_surrogate_plain_matches_reference(n, f, h1, h2):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_mlp_surrogate_plain_casts_bf16():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64])
+def test_mlp_surrogate_plain_casts_bf16(dtype):
+    """Rows of any dtype give the head on their fp32 values, as the
+    reference casts whatever it is given (the kernel reads fp32 and bf16
+    rows as they are; its wrapper casts the others first)."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.normal(0, 1, (128, 41)).astype(np.float32))
     w = [torch.as_tensor((rng.normal(0, 1, s) * 0.1).astype(np.float32))
          for s in ((41, 100), (100,), (100, 50), (50,), (50, 1), (1,))]
-    got = ops.mlp_surrogate(x.bfloat16(), *w)
+    got = ops.mlp_surrogate(x.to(dtype), *w)
     assert got.dtype == torch.float32
-    want = ops.mlp_surrogate(x.bfloat16().float(), *w)
+    want = ops.mlp_surrogate(x.to(dtype).float(), *w)
     assert torch.equal(got, want)
 
 
