@@ -13,8 +13,10 @@ Phases, one output line each (JSON where it helps):
    (CUDA events, median of 25 calls after warm-up); the time-looped
    kernels (``network_tick_chunk``, ``lif_chunk``, T = 64) also against 64
    launches of their one-tick kernels, bit for bit, and ``lif_chunk`` at
-   the golden simulation's N = 2,000 x T = 125 too (digested, timed,
-   against 125 ``lif_step`` launches); ``network_tick``'s,
+   the golden simulations' N = 2,000 and 1,000 x T = 125 too (digested,
+   timed, against 125 ``lif_step`` launches; at 1,000, training's shape,
+   also the per-tick V_mem output ``v_seq`` against the state of 125
+   chained ``lif_step`` launches, bit for bit); ``network_tick``'s,
    the head kernels' and the golden kernels' outputs digested (SHA-256)
    case by case and held to the committed digests of their first designs
    (``TICK_DIGESTS``, ``HEADS_DIGESTS``, ``LIF_DIGESTS``,
@@ -73,17 +75,32 @@ Phases, one output line each (JSON where it helps):
    then ``repro_torch.launch.serve`` with ``Model.init``'s weights at
    batch 8 x 512 + 64 (first and steady prefill / decode times, tokens/s,
    peak device bytes, finite logits);
-7. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+7. train at the reference's scale (``TrainConfig()``: 1,000 runs x 125
+   steps, all five families): LIF on the committed JAX record's own
+   testbench (``train_lif_ref_record.npz``) through ``simulate_golden``
+   (one ``lif_chunk`` launch recording V_mem), ``extract_events``,
+   ``split_runwise`` and a ``PredictorBank`` on the card, its event
+   counts, energies, every family's validation MSE and the selection held
+   to the record; crossbar through ``repro_torch.lasana.train`` (125
+   ``crossbar_step`` launches, counted as ``crossbar_target``; the MLP
+   heads' validation passes and predictions through ``mlp_surrogate``);
+   the port's LIF testbench's distribution; one GBDT fit on the card
+   against the CPU (nodes differing, validation MSE); the trained
+   surrogates on the SNN and the crossbar MNIST wave against the port's
+   golden runs, beside the committed JAX-trained artifacts; and
+   ``mlp_surrogate`` timed at the training shapes;
+8. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time, its lower bound on
    this card and, where one exists, a library call's time
    (crossbar-width times of the head kernels beside the LIF ones);
-8. ``{"ok": true, "device": {...}}`` as the last line.
+9. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
 one more steady run under ``torch.profiler`` (for the stream phase: one
 more steady stream of the SNN and of its hidden layer; for the LM phase:
-one more prefill and decode loop of the serve run).
+one more prefill and decode loop of the serve run; for the train phase:
+one more LIF training on a fifth of the testbench).
 
 ``--digests`` only prints the digests of the head, tick and golden
 (``lif_step``, ``lif_chunk``, ``crossbar_target``) kernels' outputs on the
@@ -156,13 +173,44 @@ BUSY_CYCLES = 100_000_000   # ~50 ms of spinning at the H100's clocks
 T_STEPS = 100
 N_IMAGES = 100
 T_CHUNK_CHECK = 64      # ticks of the time-looped kernel checks
-# lif_chunk at the golden simulation of training data: the reference's
-# dataset.simulate_golden scans LIFNeuron.step over TestbenchConfig's
-# 2,000 runs x 125 steps (src/repro/core/dataset.py:26-30, 60-84)
+# lif_chunk at the golden simulation of training data, one launch over
+# (steps, runs): build_dataset(circuit) with no config simulates 2,000
+# LIF runs x 125 steps (src/repro/core/dataset.py:133-135); lasana.train
+# simulates TrainConfig()'s 1,000 runs x 125 steps (src/repro/lasana.py:
+# 91-109), recording each step's V_mem (v_seq)
 N_GOLDEN_SIM = 2000
 T_GOLDEN_SIM = 125
+N_TRAIN = 1000
+T_TRAIN = 125
 LIF_CHUNK_SHAPES = ((N_MAIN, T_CHUNK_CHECK), (N_RAGGED, T_CHUNK_CHECK),
-                    (N_GOLDEN_SIM, T_GOLDEN_SIM))
+                    (N_GOLDEN_SIM, T_GOLDEN_SIM), (N_TRAIN, T_TRAIN))
+# the entry point each lif_chunk case stands for
+LIF_CHUNK_LABELS = {
+    (N_MAIN, T_CHUNK_CHECK): "simulate_stream: the SNN's hidden layer, "
+                             "one 64-tick chunk",
+    (N_RAGGED, T_CHUNK_CHECK): "a ragged N",
+    (N_GOLDEN_SIM, T_GOLDEN_SIM): "build_dataset(circuit) with no config",
+    (N_TRAIN, T_TRAIN): "lasana.train(circuit, TrainConfig()), with v_seq"}
+# the train phase: limits against the JAX record of lasana.train("lif",
+# TrainConfig()) on its own testbench (train_lif_ref_record.npz)
+TRAIN_COUNT_REL = 1e-3       # events per kind (a spike may flip in a ULP)
+TRAIN_ENERGY_REL = 1e-4      # energy sum per kind
+TRAIN_VAL_MSE_REL = {"mean": 1e-3, "linear": 1e-3, "table": 1e-3,
+                     "gbdt": 1e-2}
+# gbdt: the 1e-2 around the record's own band of refits on its rows with
+# 1% of the targets nudged one ULP (``gbdt_band/{predictor}``). Trees
+# amplify rounding: the reference's M_ES fit moves from 13.51 to 13.92
+# under such nudges, and on the port's rows (ULPs from its golden
+# simulation) it gives the port's value exactly (my CPU probe, PR 19)
+TRAIN_MLP_FACTOR = 1.5       # mlp val_mse either way (its own init)
+TRAIN_TIE = 0.10             # the record's two best families this close:
+                             # either may be selected
+TRAIN_GBDT_NODES = 0.01      # gbdt on the card vs the CPU: nodes differing
+TRAIN_GBDT_VAL = 1e-4        # and its val_mse gap, relative
+TRAIN_ALPHA_TOL = 0.01       # the testbench's active share against alpha
+TRAIN_SPIKE_POINTS = 0.01    # spike mismatch / argmax agreement vs golden
+TRAIN_ENERGY_FACTOR = 1.5    # energy error vs golden: 1.5x the artifact's
+TRAIN_ENERGY_FLOOR = 0.02    # or 2%, the larger
 STREAM_TICKS = 2000     # the stream phase's horizon
 STREAM_BLOCK = 250      # ticks per host block
 STREAM_CHUNK = 512      # ticks per chunk: three full, one of 464
@@ -332,6 +380,13 @@ LIF_DIGESTS = {
     "lif_chunk T=125 n=2000 energy": "b83256ae953d",
     "lif_chunk T=125 n=2000 latency": "a57b59cf57b3",
     "lif_chunk T=125 n=2000 spiked": "ec2d25a06505",
+    # lasana.train's shape, from the parent's kernel (commit ff9b155,
+    # before v_seq) on the same card
+    "lif_chunk T=125 n=1000 new_state": "1d59318bb696",
+    "lif_chunk T=125 n=1000 output": "af58b745c81d",
+    "lif_chunk T=125 n=1000 energy": "1b28e69c0c91",
+    "lif_chunk T=125 n=1000 latency": "c65c3d07ad85",
+    "lif_chunk T=125 n=1000 spiked": "a9d44ac6db09",
 }
 XBAR_DIGESTS = {
     "crossbar_target n=312000 v_tgt": "62667af90fe5",
@@ -484,7 +539,9 @@ def lif_cases(torch, np, dev):
     """The LIF kernels' digest cases, ``(tag, fn, args)`` with ``fn(*args)``
     returning the named outputs: ``lif_step`` at every main-path shape and
     a ragged N, ``lif_chunk`` at LIF_CHUNK_SHAPES (T = 64 at N = 12,800
-    and 12,837; T = 125 at N = 2,000, the golden simulation's)."""
+    and 12,837; T = 125 at N = 2,000 and 1,000, the golden simulations
+    of ``build_dataset`` with no config and of ``lasana.train``; each
+    labelled in LIF_CHUNK_LABELS)."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
@@ -554,8 +611,9 @@ def golden_digests(torch, cases, want):
 
 def shape_times(torch, np, dev):
     """Device ms per call of ``lif_step``, ``crossbar_step`` and
-    ``crossbar_target`` at every main-path shape, ``lif_chunk`` at T = 64,
-    N = 12,800 and at T = 125, N = 2,000, ``mlp_surrogate`` at (12,800,
+    ``crossbar_target`` at every main-path shape (``crossbar_step`` also
+    at training's N = 1,000), ``lif_chunk`` at T = 64, N = 12,800 and at
+    T = 125, N = 2,000 and 1,000, ``mlp_surrogate`` at (12,800,
     41) on fp32 and bf16 rows, and an empty launch
     (``torch.cuda._sleep(0)``) between the same events: the launch floor.
     Keys are N (``lif_chunk``) and the row dtype (``mlp_surrogate``)."""
@@ -568,7 +626,7 @@ def shape_times(torch, np, dev):
         args = lif_inputs(torch, np, dev, n)
         out["lif_step"][n] = time_ms(
             lambda: lif_scan.lif_step(*args, circ=lif), torch)
-    for n in XBAR_SHAPES:
+    for n in (*XBAR_SHAPES, N_TRAIN):
         v, w, state = xbar_inputs(torch, np, dev, n)
         out["crossbar_step"][n] = time_ms(
             lambda: crossbar_mvm.crossbar_step(state, v, w, circ=xbar), torch)
@@ -860,6 +918,9 @@ def check_crossbar(torch, np, dev, times):
             out["target_plain_ms"] = time_ms(
                 lambda: crossbar_mvm.target_plain(circ, v, w), torch)
             out["bound_ms"], out["bound_by"] = xbar_bound(n)
+    # lasana.train's golden simulation: one fused period a step over its
+    # 1,000 runs, timed only (its rows are xbar_rows, as every case's)
+    out["bound_ms_by_shape"][N_TRAIN] = xbar_bound(N_TRAIN)[0]
     for fields in XBAR_GENERIC:
         gen = CrossbarRow(**fields)
         for n in N_GENERIC_XBAR:
@@ -966,9 +1027,8 @@ def check_mlp_heads(torch, np, dev, surs, times):
     heads = {"lif": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0},
              "crossbar": {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
     single = {"max_abs_err": 0.0,
-              "main_path": "none: no entry point of the JAX package or of "
-                           "the port calls it (only tests/test_kernels.py); "
-                           "its launches are the kernel check's"}
+              "main_path": "lasana.train: the mlp family's validation "
+                           "pass every epoch and its predictions"}
     digests = {}
     plain = {mlp_surrogate.mlp_surrogate_heads: mlp_surrogate.mlp_heads_plain,
              mlp_surrogate.mlp_surrogate: mlp_surrogate.mlp_plain}
@@ -1307,18 +1367,28 @@ def lif_chunk_inputs(torch, np, dev, n, t_steps, seed):
     return f32(state), f32(x), f32(rng.uniform(0.5, 0.8, (n, 4)))
 
 
-def chunk_against_plain(torch, circ, tag, got, state, x, params, out):
+def chunk_against_plain(torch, circ, tag, got, state, x, params, out,
+                        v_seq=None):
     """Hold one ``lif_chunk`` case's outputs (new_state then LIF_OBS)
     against its plain version (T chained periods; spiked equal, the rest
-    within RTOL) and against T ``lif_step`` launches, bit for bit."""
+    within RTOL) and against T ``lif_step`` launches, bit for bit; and
+    ``v_seq`` (``record_v=True``), where given, against the V_mem of those
+    launches' states, bit for bit, and the plain version's within RTOL."""
     from repro_torch.kernels import lif_scan
     t_steps = x.shape[0]
-    want = lif_scan.chunk_plain(circ, state, x, params)
-    s, steps = state, []
+    want = lif_scan.chunk_plain(circ, state, x, params, v_seq is not None)
+    s, steps, v_mem = state, [], []
     for k in range(t_steps):
         s, o = lif_scan.lif_step(s, x[k], params, circ=circ)
         steps.append(o)
+        v_mem.append(s[:, 0])
     torch.cuda.synchronize()
+    if v_seq is not None:
+        if not all(torch.equal(v_seq[k], v_mem[k]) for k in range(t_steps)):
+            fail(f"{tag}: v_seq differs from the V_mem of {t_steps} "
+                 "lif_step launches")
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 compare(v_seq, want[5], f"{tag} v_seq"))
     if not torch.equal(got[4], want[4]):
         fail(f"{tag}: spiked differs from the plain version on "
              f"{int((got[4] != want[4]).sum())} neuron-ticks")
@@ -1339,9 +1409,12 @@ def check_lif_chunk(torch, np, dev, times):
     cases digested and held to LIF_DIGESTS; against its plain version (T
     chained periods) and against T ``lif_step`` launches, both bit for
     bit, there and on the generic instance (LIF_GENERIC, T_GENERIC ticks
-    at N_GENERIC_LIF); ``times`` (:func:`shape_times`) at N = 12,800, T =
-    64 (the line's entry) and at N = 2,000, T = 125, each beside its bound
-    and the serial-chain estimate."""
+    at N_GENERIC_LIF); at training's shape (N_TRAIN, T_TRAIN) also with
+    ``record_v``: its other outputs equal to the call without it, and
+    ``v_seq`` held by :func:`chunk_against_plain`; ``times``
+    (:func:`shape_times`) at N = 12,800, T = 64 (the line's entry) and at
+    T = 125, N = 2,000 and 1,000 (there with ``v_seq`` too), each beside
+    its bound and the serial-chain estimate."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
     circ = LIFNeuron()
@@ -1352,7 +1425,9 @@ def check_lif_chunk(torch, np, dev, times):
                     f"3), params ({N_MAIN}, 4)", "max_abs_err": 0.0,
            "digests_held": len(digests), "ms_by_shape": {},
            "bound_ms_by_shape": {}, "chain_ms_by_shape": {},
-           "generic_cases": []}
+           "generic_cases": [],
+           "cases": {f"n={n} T={t}": label
+                     for (n, t), label in LIF_CHUNK_LABELS.items()}}
     for (tag, _, (state, x, params)), (n, t_steps) in zip(cases,
                                                           LIF_CHUNK_SHAPES):
         got = tuple(outs[tag][k] for k in ("new_state", *LIF_OBS))
@@ -1362,9 +1437,24 @@ def check_lif_chunk(torch, np, dev, times):
             continue
         key = f"n={n} T={t_steps}"
         out["ms_by_shape"][key] = times["lif_chunk"][n]
-        n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
         ops = t_steps * n * (LIF_FLOPS_SETUP
                              + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+        n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
+        if (n, t_steps) == (N_TRAIN, T_TRAIN):
+            run_v = lambda: lif_scan.lif_chunk(state, x, params, circ=circ,
+                                               record_v=True)
+            new_state, obs = run_v()
+            if not (torch.equal(new_state, got[0]) and all(
+                    torch.equal(obs[k], g) for k, g in zip(LIF_OBS,
+                                                           got[1:]))):
+                fail(f"{tag}: record_v changed the other outputs")
+            chunk_against_plain(torch, circ, f"{tag} record_v", got, state,
+                                x, params, out, v_seq=obs["v_seq"])
+            out["v_seq_equals_lif_step_states"] = True
+            vkey = f"{key} v_seq"
+            out["ms_by_shape"][vkey] = time_ms(run_v, torch)
+            out["bound_ms_by_shape"][vkey] = bound_ms(
+                n_bytes + t_steps * n * 4, ops, PEAK_FP32_UNFUSED_OPS)[0]
         bound, by = bound_ms(n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
         out["bound_ms_by_shape"][key] = bound
         # an estimate, not a bound and not a reading: the dependent fp32
@@ -1977,6 +2067,326 @@ def mixed_runs(torch, np, dev, surs, profile):
     return total
 
 
+# --- the train phase -------------------------------------------------------------
+
+def counted(torch, fn):
+    """``fn()`` with the launch counters reset just before it and read just
+    after it: (result, counts)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, dict(ops.LAUNCHES)
+
+
+def selection_ok(rec, pname, families, selected):
+    """The port's selected family against the record's: the same, or the
+    record's runner-up where it lies within TRAIN_TIE of the best."""
+    ranked = sorted(families, key=lambda f: float(rec[f"val_mse/{pname}/{f}"]))
+    best = float(rec[f"val_mse/{pname}/{ranked[0]}"])
+    allowed = {ranked[0]} | {f for f in ranked[1:2] if float(
+        rec[f"val_mse/{pname}/{f}"]) <= (1 + TRAIN_TIE) * best}
+    return selected in allowed, sorted(allowed)
+
+
+def train_record_check(np, rec, ds, bank):
+    """Dataset counts and energies per event kind, and every family's
+    val_mse and the selection, against the JAX record."""
+    from repro_torch.core.events import EventKind, EventSet
+    full = EventSet.concat([ds.train, ds.test, ds.val])
+    out = {"events": {}, "val_mse": {}, "selected": {}}
+    for k in EventKind:
+        sel = full.kind == int(k)
+        n, e = int(sel.sum()), float(full.energy[sel].sum())
+        n_ref, e_ref = int(rec[f"count/{k.name}"]), float(rec[f"energy/{k.name}"])
+        out["events"][k.name] = {"count": n, "count_ref": n_ref, "energy_j": e,
+                                 "energy_ref_j": e_ref}
+        if abs(n - n_ref) > TRAIN_COUNT_REL * n_ref or abs(
+                e - e_ref) > TRAIN_ENERGY_REL * abs(e_ref):
+            fail(f"train record: {k.name} count {n} (record {n_ref}) or "
+                 f"energy {e:.6e} (record {e_ref:.6e}) off its limit")
+    for p, fams in bank.results.items():
+        out["val_mse"][p] = {}
+        for f, r in fams.items():
+            ref = float(rec[f"val_mse/{p}/{f}"])
+            out["val_mse"][p][f] = {"port": r.val_mse, "record": ref}
+            if f == "mlp":
+                ok = ref / TRAIN_MLP_FACTOR <= r.val_mse <= TRAIN_MLP_FACTOR * ref
+            elif f == "gbdt":
+                band = [ref, *rec[f"gbdt_band/{p}"].tolist()]
+                out["val_mse"][p][f]["record_band"] = [min(band), max(band)]
+                ok = (min(band) * (1 - TRAIN_VAL_MSE_REL[f]) <= r.val_mse
+                      <= max(band) * (1 + TRAIN_VAL_MSE_REL[f]))
+            else:
+                ok = abs(r.val_mse - ref) <= TRAIN_VAL_MSE_REL[f] * ref
+            if not ok:
+                fail(f"train record: {p} {f} val_mse {r.val_mse:.6g} against "
+                     f"the record's {ref:.6g}")
+        got = min(fams.values(), key=lambda r: r.val_mse).family
+        ok, allowed = selection_ok(rec, p, tuple(fams), got)
+        out["selected"][p] = {"port": got,
+                              "record": str(rec[f"selected/{p}"]),
+                              "allowed": allowed}
+        if not ok:
+            fail(f"train record: {p} selected {got}, allowed {allowed}")
+    return out
+
+
+def gbdt_cpu_vs_card(torch, np, dev, ds, pname):
+    """One predictor's GBDT fit on CPU tensors (one thread: the histograms
+    summed in row order, as numpy's add.at) and on the card, on the same
+    rows: the share of internal nodes of the first min(kept) trees whose
+    (feature, threshold) differ, and the val_mse gap."""
+    from repro_torch.core.models import GBDTModel
+    from repro_torch.core.predictors import (PREDICTOR_DEFS, PredictorBank,
+                                             build_features, build_target)
+    d = PREDICTOR_DEFS[pname]
+    bank = PredictorBank("lif", device="cpu")
+    rows = []
+    for split in (ds.train, ds.val):
+        ev = split.of_kind(*d["kinds"])
+        rows.append(bank.augment_features(build_features(
+            ev, prev_out=d["prev_out"], chain_out=d.get("chain_out", False))))
+        rows.append(build_target(ev, d["target"], d["scale"]))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        cpu = GBDTModel(device="cpu").fit(*rows)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    card = GBDTModel(device=dev).fit(*rows)
+    t_card = time.perf_counter() - t0
+    k = min(cpu._kept, card._kept)
+    differ = (cpu.feat[:k] != card.feat[:k]) | (cpu.thr[:k] != card.thr[:k])
+    mse = [float(np.mean((m.predict(rows[2]) - rows[3]) ** 2))
+           for m in (cpu, card)]
+    res = {"predictor": pname, "rows": len(rows[1]), "kept_cpu": cpu._kept,
+           "kept_card": card._kept, "nodes_compared": int(differ.size),
+           "nodes_differing_share": float(differ.mean()),
+           "val_mse_cpu": mse[0], "val_mse_card": mse[1],
+           "val_mse_gap": abs(mse[1] - mse[0]) / mse[0],
+           "fit_s_cpu_one_thread": t_cpu, "fit_s_card": t_card}
+    if res["nodes_differing_share"] > TRAIN_GBDT_NODES or \
+            res["val_mse_gap"] > TRAIN_GBDT_VAL:
+        fail(f"gbdt on the card vs the CPU: {res}")
+    return res
+
+
+def mlp_train_shapes(torch, np, dev, bank, ds, smi):
+    """``mlp_surrogate`` at the training shapes: the LIF bank's trained
+    M_V (F = 10) and M_ED (F = 12) heads on their validation rows, and
+    MLP(100, 50) heads from a seed at the crossbar's F = 68 / 70 on as
+    many rows; kernel against the plain version, each timed beside its
+    bound."""
+    from repro_torch.core.predictors import (PREDICTOR_DEFS, build_features)
+    from repro_torch.kernels import mlp_surrogate
+    out = {}
+    for pname in ("M_V", "M_ED"):
+        d = PREDICTOR_DEFS[pname]
+        ev = ds.val.of_kind(*d["kinds"])
+        model = bank.results[pname]["mlp"].model
+        x = model.sx.apply_t(torch.as_tensor(bank.augment_features(
+            build_features(ev, prev_out=d["prev_out"],
+                           chain_out=d.get("chain_out", False))), device=dev))
+        w = [torch.as_tensor(lyr[k], device=dev) for lyr in model.params
+             for k in ("w", "b")]
+        out[f"lif {pname}"] = (x.contiguous(), w)
+    n = out["lif M_V"][0].shape[0]
+    rng = np.random.default_rng(68)
+    for f in (68, 70):
+        x = torch.as_tensor(rng.normal(0, 1, (n, f)), dtype=torch.float32,
+                            device=dev)
+        out[f"crossbar F={f}"] = (x, single_head(torch, np, dev, rng, f, 100,
+                                                 50))
+    res = {}
+    for tag, (x, w) in out.items():
+        n, f = x.shape
+        h1, h2 = w[0].shape[1], w[2].shape[1]
+        got = mlp_surrogate.mlp_surrogate(x, *w)
+        err = compare(got, mlp_surrogate.mlp_plain(x, *w), f"{tag} mlp")
+        flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
+        n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
+        bound, by = bound_ms(n_bytes, flops)
+        res[f"{tag} x ({n}, {f})"] = {
+            "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate(x, *w), torch),
+            "plain_ms": time_ms(lambda: mlp_surrogate.mlp_plain(x, *w),
+                                torch),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "plan": mlp_surrogate.single_plan(f, h1, h2)}
+    line({"phase": "train_kernel_shapes", "kernel": "mlp_surrogate",
+          "nvidia_smi": smi, "shapes": res})
+    return res
+
+
+def trained_on_workloads(torch, np, dev, surs, sur_lif, sur_x, total):
+    """The port-trained surrogates on the SNN (100 digits x 100 ticks) and
+    the crossbar MNIST wave (200 digits), each against the port's golden
+    run of the same workload beside the committed JAX-trained artifact."""
+    import repro_torch.lasana as lasana
+    from repro_torch.convert import crossbar_spec_from_numpy
+    from repro_torch.data.mnist import make_digits
+    spec, x, _ = snn_workload(torch, np, dev)
+    with np.load(ART / "xbar_400_120_84_10.npz") as z:
+        ws = [z[f"w{i}"].astype(np.float32) for i in range(3)]
+    xspec = crossbar_spec_from_numpy(ws)
+    imgs, _ = make_digits(XBAR_IMAGES, size=20, seed=999)
+    volts = torch.as_tensor(imgs * 1.6 - 0.8, dtype=torch.float32, device=dev)
+    res = {}
+    for wl, sp, stim, arts in (
+            ("snn_784_128_10", spec, x, (("jax_trained", surs["lif"]),
+                                         ("port_trained", sur_lif))),
+            ("xbar_400_120_84_10", xspec, volts,
+             (("jax_trained", surs["crossbar"]),
+              ("port_trained", sur_x)))):
+        runs = {}
+        for name, kw in (("golden", dict(backend="golden")),
+                         *((n, dict(surrogates=s)) for n, s in arts)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            run, counts = counted(torch, lambda: lasana.simulate(sp, stim,
+                                                                 **kw))
+            runs[name] = run
+            add_counts(total, f"train/{wl}/{name}", counts)
+            e = float(run.energy.sum() + run.flush_energy.sum())
+            entry = {"energy_j": e, "launches": counts,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                     "route": ("golden" if name == "golden" else
+                               "packed network_tick" if counts["network_tick"]
+                               else "stacked heads (mlp_surrogate_heads)"
+                               if counts["mlp_surrogate_heads"] else
+                               "per-head predictions (single-head groups "
+                               "and gbdt walks, no head kernel)")}
+            if not np.isfinite(run.energy).all() or not np.isfinite(
+                    run.outputs).all():
+                fail(f"train {wl} {name}: non-finite records")
+            if name != "golden":
+                g = runs["golden"]
+                eg = float(g.energy.sum() + g.flush_energy.sum())
+                entry["energy_err_vs_golden"] = abs(e - eg) / abs(eg)
+                if g.out_spikes is not None:
+                    entry["spike_mismatch_vs_golden"] = float(np.mean(
+                        (run.out_spikes > 0.75) != (g.out_spikes > 0.75)))
+                entry["argmax_agreement_vs_golden"] = float(np.mean(
+                    np.argmax(run.outputs, -1) == np.argmax(g.outputs, -1)))
+            res[f"{wl} {name}"] = entry
+        jax_, port = res[f"{wl} jax_trained"], res[f"{wl} port_trained"]
+        e_lim = max(TRAIN_ENERGY_FACTOR * jax_["energy_err_vs_golden"],
+                    TRAIN_ENERGY_FLOOR)
+        if wl.startswith("snn"):
+            bad = port["spike_mismatch_vs_golden"] > \
+                jax_["spike_mismatch_vs_golden"] + TRAIN_SPIKE_POINTS
+        else:
+            bad = port["argmax_agreement_vs_golden"] < \
+                jax_["argmax_agreement_vs_golden"] - TRAIN_SPIKE_POINTS
+        if bad or port["energy_err_vs_golden"] > e_lim:
+            fail(f"train {wl}: the port-trained surrogate {port} against "
+                 f"the JAX-trained artifact's {jax_} (energy limit {e_lim})")
+    return res
+
+
+def train_runs(torch, np, dev, surs, profile, smi):
+    """The training pipeline at the reference's scale (TrainConfig():
+    1,000 runs x 125 steps, five families): LIF from the JAX record's own
+    testbench through simulate_golden / extract_events / split_runwise and
+    a PredictorBank on the card, held to the record; crossbar through
+    ``lasana.train`` with the port's own testbench; the port's LIF
+    testbench's distribution; one GBDT on the card against the CPU; the
+    trained surrogates on the SNN and crossbar MNIST workloads. Returns
+    (launches by run, ``mlp_surrogate``'s times at the training shapes)."""
+    import repro_torch.lasana as lasana
+    from repro_torch.core.dataset import (CircuitDataset, TestbenchConfig,
+                                          generate_testbench,
+                                          simulate_golden)
+    from repro_torch.core.events import extract_events, split_runwise
+    from repro_torch.core.predictors import PredictorBank
+    t_phase = time.perf_counter()
+    cfg = lasana.TrainConfig()
+    if (cfg.n_runs, cfg.n_steps) != (N_TRAIN, T_TRAIN):
+        fail(f"TrainConfig() is {cfg}, the phase expects {N_TRAIN} x "
+             f"{T_TRAIN}")
+    total = {}
+    rec = dict(np.load(ART / "train_lif_ref_record.npz"))
+
+    def lif_from_record():
+        seconds = {}
+        t0 = time.perf_counter()
+        trace = simulate_golden("lif", rec["active"], rec["inputs"],
+                                rec["params"], device=dev)
+        seconds["golden"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr, te, va = split_runwise(extract_events(trace), cfg.n_runs,
+                                   seed=cfg.seed)
+        ds = CircuitDataset("lif", tr, te, va, 0.0, cfg.n_runs)
+        seconds["events"] = time.perf_counter() - t0
+        bank = PredictorBank("lif", families=cfg.families, device=dev)
+        bank.fit(ds)
+        t0 = time.perf_counter()
+        sur = bank.to_surrogate()
+        seconds.update(bank.seconds)
+        seconds["freeze"] = time.perf_counter() - t0
+        return ds, bank, sur, seconds
+
+    t0 = time.perf_counter()
+    (ds, bank, sur_lif, seconds), counts = counted(torch, lif_from_record)
+    wall = time.perf_counter() - t0
+    check_launches("train lif", counts, {
+        "lif_chunk": 1, "lif_step": 0, "crossbar_target": 0,
+        "mlp_surrogate": (">=", 1)})
+    add_counts(total, "train/lif_record", counts)
+    line({"phase": "train_record", "circuit": "lif", "nvidia_smi": smi,
+          **train_record_check(np, rec, ds, bank)})
+    line({"phase": "train", "circuit": "lif",
+          "testbench": "the JAX record's (train_lif_ref_record.npz)",
+          "wall_s": wall, "seconds": seconds, "events": ds.counts(),
+          "selected": dict(sur_lif.manifest.families), "launches": counts,
+          "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    sur_x, counts = counted(torch, lambda: lasana.train("crossbar", cfg))
+    wall = time.perf_counter() - t0
+    check_launches("train crossbar", counts, {
+        "crossbar_target": T_TRAIN, "lif_chunk": 0, "lif_step": 0,
+        "mlp_surrogate": (">=", 1)})
+    add_counts(total, "train/crossbar", counts)
+    line({"phase": "train", "circuit": "crossbar",
+          "testbench": "the port's (seed 0)", "wall_s": wall,
+          "seconds": sur_x.train_report["seconds"],
+          "events": sur_x.train_report["events"],
+          "selected": dict(sur_x.manifest.families),
+          "val_mse": {p: {f: r["val_mse"] for f, r in d.items()}
+                      for p, d in sur_x.fit_info.items()},
+          "launches": counts, "nvidia_smi": smi})
+
+    active, inputs, _ = generate_testbench("lif", TestbenchConfig(
+        n_runs=cfg.n_runs, n_steps=cfg.n_steps, alpha=cfg.alpha,
+        seed=cfg.seed), dev)
+    share = float(active[:, 1:].float().mean())
+    idle_zero = bool((inputs[~active] == 0).all())
+    if abs(share - cfg.alpha) > TRAIN_ALPHA_TOL or not bool(
+            active[:, 0].all()) or not idle_zero:
+        fail(f"generate_testbench(lif): active share {share}, first step "
+             f"{bool(active[:, 0].all())}, idle inputs zero {idle_zero}")
+    testbench = {"active_share": share, "first_step_active": True,
+                 "idle_inputs_zero": idle_zero}
+    gbdt = gbdt_cpu_vs_card(torch, np, dev, ds, "M_O")
+    workloads = trained_on_workloads(torch, np, dev, surs, sur_lif, sur_x,
+                                     total)
+    times = mlp_train_shapes(torch, np, dev, bank, ds, smi)
+    res = {"phase": "train_checks", "testbench_lif_on_card": testbench,
+           "gbdt_cpu_vs_card": gbdt, "workloads": workloads,
+           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    if profile:
+        # the same code on a fifth of the testbench: every family's fit
+        # of every predictor, traced
+        res["profile"] = profile_run(torch, lambda: lasana.train(
+            "lif", lasana.TrainConfig(n_runs=cfg.n_runs // 5)))
+        res["profile"]["cut"] = f"TrainConfig(n_runs={cfg.n_runs // 5})"
+    line(res)
+    return total, times
+
+
 # --- phase 5: streaming --------------------------------------------------------
 
 RECORD_FIELDS = ("outputs", "out_spikes", "energy", "latency", "events",
@@ -2432,6 +2842,11 @@ def main() -> int:
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)
+    by_kernel, train_shapes = train_runs(torch, np, dev, surs, args.profile,
+                                         smi)
+    for kernel, by_run in by_kernel.items():
+        launches.setdefault(kernel, {}).update(by_run)
+    checks["mlp_surrogate"]["train_shapes"] = train_shapes
 
     meta = {
         "crossbar_target": ("src/repro_torch/kernels/csrc/crossbar_step.cu",
@@ -2455,10 +2870,7 @@ def main() -> int:
     for name, (source, replaces) in meta.items():
         c = checks[name]
         by_run = launches.get(name, {})
-        if name == "mlp_surrogate":
-            # on no main path: its launches are the kernel check's
-            by_run = {"kernel_check": c.pop("kernel_check_launches")}
-        elif not by_run:
+        if not by_run:
             fail(f"{name}: no main-path run launched it")
         extra = {k: v for k, v in c.items()
                  if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -28,6 +28,18 @@ def row_sum(a):
     return acc
 
 
+def _gen_device(gen, device):
+    """The device the testbench draws land on: the generator's own unless
+    given (torch refuses a generator on another device)."""
+    return gen.device if device is None else device
+
+
+def _uniform(gen, shape, device, lo, hi):
+    """fp32 uniform draws in [lo, hi) from ``gen``."""
+    u = torch.rand(shape, generator=gen, device=device)
+    return u * (hi - lo) + lo
+
+
 @dataclasses.dataclass(frozen=True)
 class CrossbarRow:
     """One n-input differential PCM crossbar row driving a TIA (cf. [3]).
@@ -61,6 +73,25 @@ class CrossbarRow:
     @property
     def input_hi(self):
         return 0.8
+
+    def sample_params(self, gen, n, device=None):
+        """Random row weights and bias in {-1, 0, 1}, (n, n_params), drawn
+        from ``gen`` (a ``torch.Generator`` on ``device``)."""
+        return torch.randint(-1, 2, (n, self.n_params), generator=gen,
+                             device=_gen_device(gen, device)).float()
+
+    def sample_inputs(self, gen, shape, device=None):
+        """Mixture testbench, as the reference's: 70% uniform analog levels
+        in [-0.8, 0.8], 30% full-swing "digital" patterns ({-0.8, 0, 0.8}),
+        chosen per (run, step). Matches the reference in distribution
+        (``jax.random`` streams cannot be replayed here)."""
+        dev = _gen_device(gen, device)
+        full = (*shape, self.n_inputs)
+        uni = _uniform(gen, full, dev, self.input_lo, self.input_hi)
+        lvl = torch.randint(-1, 2, full, generator=gen, device=dev)
+        dig = lvl.float() * self.input_hi
+        is_dig = torch.rand((*shape, 1), generator=gen, device=dev) < 0.3
+        return torch.where(is_dig, dig, uni)
 
     def init_state(self, n: int, device=None):
         """V_out zeros, (n, 1), on ``device`` (as :meth:`LIFNeuron.init_state`)."""
@@ -117,6 +148,27 @@ class LIFNeuron:
     @property
     def n_params(self) -> int:
         return 4
+
+    def sample_params(self, gen, n, device=None):
+        """Knobs (V_leak, V_th, V_adap, V_refrac) uniform in [0.5, 0.8],
+        (n, 4), drawn from ``gen`` (a ``torch.Generator`` on ``device``)."""
+        return _uniform(gen, (n, 4), _gen_device(gen, device), 0.5, 0.8)
+
+    def sample_inputs(self, gen, shape, device=None):
+        """Mixture testbench, as the reference's: 70% independent (w, x, n)
+        draws (w in [-1, 1], x in [0, 1.5], n in {0..5}), 30% aggregated
+        drives (signed w, x = V_dd, n = 5), chosen per (run, step).
+        Matches the reference in distribution."""
+        dev = _gen_device(gen, device)
+        w = _uniform(gen, shape, dev, -1.0, 1.0)
+        x = _uniform(gen, shape, dev, 0.0, 1.5)
+        n = torch.randint(0, 6, shape, generator=gen, device=dev).float()
+        uni = torch.stack([w, x, n], dim=-1)
+        w_agg = _uniform(gen, shape, dev, -1.0, 1.0)
+        agg = torch.stack([w_agg, torch.full_like(w_agg, 1.5),
+                           torch.full_like(w_agg, 5.0)], dim=-1)
+        is_agg = torch.rand((*shape, 1), generator=gen, device=dev) < 0.3
+        return torch.where(is_agg, agg, uni)
 
     def init_state(self, n: int, device=None):
         """(V_mem, I_adap, t_ref) zeros on ``device`` (default: the port's

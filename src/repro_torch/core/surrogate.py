@@ -18,6 +18,8 @@ Per-family array schemas::
 Treat instances as immutable: :meth:`predict_heads` caches the stacks of
 same-family heads it builds (the reference builds them at trace time),
 and ``NetworkEngine`` keys its runners on the arrays' shapes.
+:meth:`Surrogate.from_bank` freezes a fitted ``PredictorBank``'s selected
+models into these arrays, as the reference's does.
 """
 
 from __future__ import annotations
@@ -187,6 +189,42 @@ def _augment(circuit_name: str, feats):
     return augment_features(circ, feats)
 
 
+def _feature_names(circuit_name: str) -> tuple:
+    try:
+        circ = get_circuit(circuit_name)
+    except KeyError:
+        return ()
+    return (tuple(f"x{i}" for i in range(circ.n_inputs)) + ("v", "tau")
+            + tuple(f"p{i}" for i in range(circ.n_params)))
+
+
+def _model_arrays(model) -> tuple:
+    """Freeze a fitted ``models.SurrogateModel`` -> (family, host arrays):
+    inference state only (the GBDT's bin edges are dropped), under the
+    reference's family names and keys."""
+    from repro_torch.core.models import (GBDTModel, LinearModel, MLPModel,
+                                         MeanModel, TableModel)
+    if isinstance(model, MeanModel):
+        return "mean", {"mu": np.float32(model.mu)}
+    if isinstance(model, LinearModel):
+        return "linear", {"w": model.w, "mu": model.sx.mu, "sd": model.sx.sd}
+    if isinstance(model, TableModel):
+        return "table", {"tx": model.tx, "ty": model.ty,
+                         "mu": model.sx.mu, "sd": model.sx.sd}
+    if isinstance(model, GBDTModel):
+        return "gbdt", {"feat": model.feat, "thr": model.thr,
+                        "leaf": model.leaf, "base": np.float32(model.base)}
+    if isinstance(model, MLPModel):
+        arrays = {}
+        for i, lyr in enumerate(model.params):
+            arrays[f"w{i}"] = np.asarray(lyr["w"])
+            arrays[f"b{i}"] = np.asarray(lyr["b"])
+        arrays.update({"x_mu": model.sx.mu, "x_sd": model.sx.sd,
+                       "y_mu": model.sy.mu, "y_sd": model.sy.sd})
+        return "mlp", arrays
+    raise TypeError(f"cannot freeze {type(model).__name__} into a Surrogate")
+
+
 # --- the artifact -------------------------------------------------------------
 
 @dataclasses.dataclass(eq=False, repr=False)
@@ -194,13 +232,42 @@ class Surrogate:
     """Immutable inference artifact: selected-predictor tensors + manifest.
 
     ``fit_info`` carries the optional training metrics persisted in the
-    manifest JSON."""
+    manifest JSON; ``train_report``, set by ``lasana.train`` and not
+    persisted, the seconds of each training stage and the dataset's event
+    counts."""
 
     manifest: Manifest
     params: dict
     fit_info: Optional[dict] = None
+    train_report: Optional[dict] = dataclasses.field(default=None,
+                                                     repr=False)
     _stacks: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False)
+
+    @classmethod
+    def from_bank(cls, bank) -> "Surrogate":
+        """Freeze a fitted ``PredictorBank``'s selected models onto the
+        bank's device, with every family's fit metrics as ``fit_info``."""
+        families, scales, params = [], [], {}
+        for pname in sorted(bank.selected):
+            fam, arrays = _model_arrays(bank.selected[pname])
+            families.append((pname, fam))
+            scales.append((pname, float(bank.scales[pname])))
+            params[pname] = {k: torch.as_tensor(np.array(v),
+                                                device=bank.device)
+                             for k, v in arrays.items()}
+        fit_info = None
+        if bank.results:
+            fit_info = {
+                p: {f: {"val_mse": r.val_mse, "test_mse": r.test_mse,
+                        "test_mape": r.test_mape}
+                    for f, r in fams.items()}
+                for p, fams in bank.results.items()}
+        manifest = Manifest(
+            circuit=bank.circuit_name, format_version=FORMAT_VERSION,
+            families=tuple(families), scales=tuple(scales),
+            features=_feature_names(bank.circuit_name))
+        return cls(manifest=manifest, params=params, fit_info=fit_info)
 
     @property
     def circuit(self) -> str:
@@ -402,13 +469,16 @@ def structure_key(surrogates) -> tuple:
 
 
 def as_surrogate(obj) -> Surrogate:
-    """Pass a :class:`Surrogate` through; anything else is refused (the
-    reference's legacy ``PredictorBank`` has no counterpart here)."""
+    """Pass a :class:`Surrogate` through, or freeze a fitted
+    ``PredictorBank``; anything else is refused."""
     if isinstance(obj, Surrogate):
         return obj
+    from repro_torch.core.predictors import PredictorBank
+    if isinstance(obj, PredictorBank):
+        return Surrogate.from_bank(obj)
     raise ValueError(
         f"cannot use {type(obj).__name__!r} as a surrogate; pass a "
-        "repro_torch Surrogate (load one with Surrogate.load)")
+        "repro_torch Surrogate (or a fitted PredictorBank)")
 
 
 class SurrogateLibrary:

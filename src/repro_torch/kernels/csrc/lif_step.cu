@@ -232,8 +232,10 @@ __global__ void __launch_bounds__(kThreads)
 // T periods in one launch, one thread a neuron (replaces
 // lif_scan.py:lif_chunk): the state and the period constants stay in
 // registers across the chunk; tick t + 1's drive is loaded before tick
-// t's substeps start.
-template <int S>
+// t's substeps start. With kRecordV, each tick also stores its
+// end-of-period V_mem to v_seq[t * n + i] (the golden simulation's
+// exposed state); without it the instance is the kernel as it was.
+template <int S, bool kRecordV>
 __global__ void __launch_bounds__(kChunkThreads)
     lif_chunk_kernel(const float* __restrict__ state,
                      const float* __restrict__ x_seq,
@@ -241,8 +243,8 @@ __global__ void __launch_bounds__(kChunkThreads)
                      float* __restrict__ new_state,
                      float* __restrict__ out_o, float* __restrict__ energy_o,
                      float* __restrict__ latency_o,
-                     bool* __restrict__ spiked_o, int n, int t_steps,
-                     LifConsts c) {
+                     bool* __restrict__ spiked_o, float* __restrict__ v_seq,
+                     int n, int t_steps, LifConsts c) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = state[3 * i], adap = state[3 * i + 1], ref = state[3 * i + 2];
@@ -259,6 +261,7 @@ __global__ void __launch_bounds__(kChunkThreads)
     const size_t r = static_cast<size_t>(t) * n + i;
     lif_period<S>(c, k, d, v, adap, ref, out_o[r], energy_o[r], latency_o[r],
                   spiked_o[r]);
+    if (kRecordV) v_seq[r] = v;
   }
   new_state[3 * i] = v;
   new_state[3 * i + 1] = adap;
@@ -294,6 +297,23 @@ cudaError_t use_device(int device) {
   return cur == device ? cudaSuccess : cudaSetDevice(device);
 }
 
+template <int S>
+void lif_chunk_enqueue(const float* state, const float* x_seq,
+                       const float* params, float* new_state, float* out,
+                       float* energy, float* latency, bool* spiked,
+                       float* v_seq, int n, int t_steps, LifConsts c,
+                       cudaStream_t s) {
+  const int blocks = (n + kChunkThreads - 1) / kChunkThreads;
+  if (v_seq)
+    lif_chunk_kernel<S, true><<<blocks, kChunkThreads, 0, s>>>(
+        state, x_seq, params, new_state, out, energy, latency, spiked,
+        v_seq, n, t_steps, c);
+  else
+    lif_chunk_kernel<S, false><<<blocks, kChunkThreads, 0, s>>>(
+        state, x_seq, params, new_state, out, energy, latency, spiked,
+        nullptr, n, t_steps, c);
+}
+
 }  // namespace
 
 extern "C" {
@@ -323,27 +343,25 @@ int lif_step_launch(const float* state, const float* xin, const float* params,
   return cudaGetLastError();
 }
 
+// v_seq: null, or (t_steps, n) floats for each tick's end-of-period V_mem
 int lif_chunk_launch(const float* state, const float* x_seq,
                      const float* params, float* new_state, float* out,
-                     float* energy, float* latency, bool* spiked, int n,
-                     int t_steps, int n_substeps, int device, float dt,
-                     float clock_ns, float g_syn, float c_mem, float leak0,
-                     float ut, float vdd, float g_static, float e_spike,
-                     void* stream) {
+                     float* energy, float* latency, bool* spiked,
+                     float* v_seq, int n, int t_steps, int n_substeps,
+                     int device, float dt, float clock_ns, float g_syn,
+                     float c_mem, float leak0, float ut, float vdd,
+                     float g_static, float e_spike, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return err;
   LifConsts c{n_substeps, dt, clock_ns, g_syn, c_mem, leak0, ut, vdd,
               g_static, e_spike};
-  const int blocks = (n + kChunkThreads - 1) / kChunkThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_substeps == kSubsteps)
-    lif_chunk_kernel<kSubsteps><<<blocks, kChunkThreads, 0, s>>>(
-        state, x_seq, params, new_state, out, energy, latency, spiked, n,
-        t_steps, c);
+    lif_chunk_enqueue<kSubsteps>(state, x_seq, params, new_state, out, energy,
+                                 latency, spiked, v_seq, n, t_steps, c, s);
   else
-    lif_chunk_kernel<0><<<blocks, kChunkThreads, 0, s>>>(
-        state, x_seq, params, new_state, out, energy, latency, spiked, n,
-        t_steps, c);
+    lif_chunk_enqueue<0>(state, x_seq, params, new_state, out, energy,
+                         latency, spiked, v_seq, n, t_steps, c, s);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,10 @@ compiled in and unrolled — on CUDA tensors. :func:`lif_chunk` is the
 time-looped variant: T periods in one launch, the state resident across the chunk; its plain
 version chains :func:`_period_math` T times, and the kernel calls the same
 device function as ``lif_step``, so both equal T ``lif_step`` calls bit
-for bit.
+for bit. Asked with ``record_v=True``, it also returns each tick's
+end-of-period ``V_mem`` (``v_seq`` (T, N), the golden simulation's
+exposed state), which is ``new_state[:, 0]`` after t + 1 ``lif_step``
+calls.
 """
 
 from __future__ import annotations
@@ -70,25 +73,29 @@ def _period_math(circ: LIFNeuron, st, xx, pp):
     return new_state, out, energy, latency, spiked
 
 
-def chunk_plain(circ: LIFNeuron, state, x_seq, params):
+def chunk_plain(circ: LIFNeuron, state, x_seq, params, record_v=False):
     """T chained periods: ``(new_state, out, energy, latency, spiked)``,
-    the last four ``(T, N)``."""
+    the last four ``(T, N)``; with ``record_v``, also ``v_seq`` (T, N),
+    each period's end-of-period ``V_mem``."""
     outs = []
     for x in x_seq:
         state, *obs = _period_math(circ, state, x, params)
-        outs.append(obs)
+        outs.append((*obs, state[:, 0]) if record_v else obs)
     if not outs:
         empty = state.new_zeros((0, state.shape[0]))
-        return state, empty, empty, empty, empty.bool()
+        return (state, empty, empty, empty, empty.bool(),
+                *((empty,) if record_v else ()))
     return (state, *(torch.stack(col) for col in zip(*outs)))
 
 
-# csrc/lif_step.cu lif_step_launch / lif_chunk_launch: 8 pointers, the
-# ints (n, n_substeps, device / n, t_steps, n_substeps, device), the 9
-# floats of _consts, the stream
-ARGTYPES = {name: [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_int
+# csrc/lif_step.cu lif_step_launch / lif_chunk_launch: 8 pointers (9:
+# lif_chunk's v_seq, null when not recorded), the ints (n, n_substeps,
+# device / n, t_steps, n_substeps, device), the 9 floats of _consts, the
+# stream
+ARGTYPES = {name: [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
             + [ctypes.c_float] * 9 + [ctypes.c_void_p]
-            for name, n_int in (("lif_step", 3), ("lif_chunk", 4))}
+            for name, n_ptr, n_int in (("lif_step", 8, 3),
+                                       ("lif_chunk", 9, 4))}
 
 
 @functools.cache
@@ -141,7 +148,7 @@ def lif_step(state, x, params, *, circ: LIFNeuron | None = None):
                        "spiked": spiked}
 
 
-def _launch_chunk(circ: LIFNeuron, state, x_seq, params):
+def _launch_chunk(circ: LIFNeuron, state, x_seq, params, record_v=False):
     dev = ops.same_cuda_device(state, x_seq, params)
     n = state.shape[0]
     t_steps = x_seq.shape[0]
@@ -152,29 +159,38 @@ def _launch_chunk(circ: LIFNeuron, state, x_seq, params):
     out, energy, latency = (torch.empty((t_steps, n), dtype=torch.float32,
                                         device=dev) for _ in range(3))
     spiked = torch.empty((t_steps, n), dtype=torch.bool, device=dev)
+    v_seq = (torch.empty((t_steps, n), dtype=torch.float32, device=dev)
+             if record_v else None)
     if n and t_steps:
         lib, fn = _kernel("lif_chunk")
         code = fn(state.data_ptr(), x_seq.data_ptr(), params.data_ptr(),
                   new_state.data_ptr(), out.data_ptr(), energy.data_ptr(),
-                  latency.data_ptr(), spiked.data_ptr(), n, t_steps,
+                  latency.data_ptr(), spiked.data_ptr(),
+                  None if v_seq is None else v_seq.data_ptr(), n, t_steps,
                   circ.n_substeps, dev.index or 0, *_consts(circ),
                   torch.cuda.current_stream(dev).cuda_stream)
         _build.raise_on_error(lib, code, "lif_chunk")
         ops.count_launch("lif_chunk")
     else:
         new_state.copy_(state)
-    return new_state, out, energy, latency, spiked
+    return (new_state, out, energy, latency, spiked,
+            *(() if v_seq is None else (v_seq,)))
 
 
-def lif_chunk(state, x_seq, params, *, circ: LIFNeuron | None = None):
+def lif_chunk(state, x_seq, params, *, circ: LIFNeuron | None = None,
+              record_v: bool = False):
     """T clock periods in one launch. state (N, 3), x_seq (T, N, 3),
     params (N, 4) -> ``(new_state, {"output", "energy", "latency",
-    "spiked"})`` with (T, N) observables (``spiked`` bool)."""
+    "spiked"})`` with (T, N) observables (``spiked`` bool); ``record_v``
+    adds ``"v_seq"``, each tick's end-of-period V_mem (T, N)."""
     circ = circ or LIFNeuron()
     if all(t.device.type == "cpu" for t in (state, x_seq, params)):
-        res = chunk_plain(circ, state, x_seq, params)
+        res = chunk_plain(circ, state, x_seq, params, record_v)
     else:
-        res = _launch_chunk(circ, state, x_seq, params)
-    new_state, out, energy, latency, spiked = res
-    return new_state, {"output": out, "energy": energy, "latency": latency,
-                       "spiked": spiked}
+        res = _launch_chunk(circ, state, x_seq, params, record_v)
+    new_state, out, energy, latency, spiked = res[:5]
+    obs = {"output": out, "energy": energy, "latency": latency,
+           "spiked": spiked}
+    if record_v:
+        obs["v_seq"] = res[5]
+    return new_state, obs

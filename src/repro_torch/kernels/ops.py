@@ -110,11 +110,13 @@ def lif_step(state, x, params, *, circ=None):
     return lif_scan.lif_step(state, x, params, circ=circ)
 
 
-def lif_chunk(state, x_seq, params, *, circ=None):
+def lif_chunk(state, x_seq, params, *, circ=None, record_v=False):
     """T golden LIF clock periods in one launch: ``(new_state (N, 3),
-    obs)`` with (T, N) observables."""
+    obs)`` with (T, N) observables (and ``v_seq``, each tick's V_mem, with
+    ``record_v``)."""
     from repro_torch.kernels import lif_scan
-    return lif_scan.lif_chunk(state, x_seq, params, circ=circ)
+    return lif_scan.lif_chunk(state, x_seq, params, circ=circ,
+                              record_v=record_v)
 
 
 def crossbar_target(v, w, *, circ=None):

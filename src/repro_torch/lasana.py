@@ -1,9 +1,11 @@
 """``repro_torch.lasana`` — the port's LASANA entry point.
 
-The counterpart of ``repro.lasana`` for simulation::
+The counterpart of ``repro.lasana`` for training and simulation::
 
     import repro_torch.lasana as lasana
 
+    sur = lasana.train("lif", lasana.TrainConfig(n_runs=300))  # on cuda
+    sur.save("artifacts/lif.npz")           # loads in repro.lasana too
     sur = lasana.load("artifacts/lif.npz")                   # on cuda
     run = lasana.simulate(spec, stimulus, surrogates=sur)    # NetworkRun
 
@@ -31,10 +33,18 @@ Long horizons stream: :func:`simulate_stream` cuts the T axis into chunks
             chunk.checkpoint.save("ckpt.npz")
     run = lasana.resume("ckpt.npz", spec, x, surrogates=sur)
 
-Surrogates load from the reference's ``.npz`` artifacts, and checkpoints
-cross between the two packages; training, exploration, serving and
-multi-device batches come with later slices of the port. Everything runs
-on ``cuda`` unless ``device=`` says otherwise.
+:func:`train` runs the paper's §IV pipeline on the device: the
+randomized testbench, the golden simulation (one ``lif_chunk`` launch
+for LIF, a ``crossbar_step`` launch a step for crossbar rows), event
+extraction, and the fit of every family per predictor (GBDT histograms,
+Adam and every prediction on the card; the MLP heads' predictions through
+``mlp_surrogate``). Surrogates load from the reference's ``.npz``
+artifacts and save to them, and checkpoints cross between the two
+packages. Still to come with later slices: the layer runners
+(``simulate.py``) and the legacy bank shims (``persist.py``),
+exploration (``explore`` / ``CandidateSpec`` / ``DSEReport``), serving,
+and multi-device batches (``mesh=``). Everything runs on ``cuda`` unless
+``device=`` says otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -45,9 +55,13 @@ retrained surrogates of equal structure reuse one runner
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import threading
+import time
 from typing import Optional
+
+import torch
 
 from repro_torch.core.network import (NetworkEngine, NetworkRun, NetworkSpec,
                                       StreamingRun)
@@ -64,6 +78,7 @@ __all__ = [
     "StreamingRun",
     "Surrogate",
     "SurrogateLibrary",
+    "TrainConfig",
     "engine",
     "load",
     "resume",
@@ -71,7 +86,87 @@ __all__ = [
     "simulate",
     "simulate_stream",
     "stream",
+    "train",
 ]
+
+DEFAULT_FAMILIES = ("mean", "table", "linear", "gbdt", "mlp")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Configuration for :func:`train` (testbench scale + model families).
+
+    n_runs    randomized testbench runs golden-simulated for the dataset
+    n_steps   digital clock periods per run
+    alpha     P(timestep is active) in the randomized testbench (§IV-A)
+    seed      testbench seed
+    families  model families fit per predictor; the best validation-MSE
+              family is selected (paper §IV-B)
+    """
+
+    n_runs: int = 1000
+    n_steps: int = 125
+    alpha: float = 0.8
+    seed: int = 0
+    families: tuple = DEFAULT_FAMILIES
+
+
+def train(circuit: str, cfg: Optional[TrainConfig] = None, *,
+          verbose: bool = False, device=None) -> Surrogate:
+    """Train a :class:`Surrogate` for one circuit kind (paper §IV end to
+    end) on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
+    versions).
+
+    Draws the randomized testbench, golden-simulates it, extracts
+    E1/E2/E3 events, splits them run-wise, fits every family in
+    ``cfg.families`` per predictor, selects by validation MSE and freezes
+    the winners. ``fit_info`` carries every family's fit metrics;
+    ``train_report`` the seconds of each stage (testbench, golden, events,
+    features, each family, freeze; printed when ``verbose``) and the
+    dataset's event counts per kind."""
+    from repro_torch.core.dataset import (CircuitDataset, TestbenchConfig,
+                                          generate_testbench,
+                                          simulate_golden)
+    from repro_torch.core.events import extract_events, split_runwise
+    from repro_torch.core.predictors import PredictorBank
+    dev = ops.resolve_device(device)
+    cfg = cfg or TrainConfig()
+    tb = TestbenchConfig(n_runs=cfg.n_runs, n_steps=cfg.n_steps,
+                         alpha=cfg.alpha, seed=cfg.seed)
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        seconds[name] = t1 - t0
+        t0 = t1
+
+    active, inputs, params = generate_testbench(circuit, tb, dev)
+    stage("testbench")
+    trace = simulate_golden(circuit, active, inputs, params, dev)
+    stage("golden")
+    train_ev, test_ev, val_ev = split_runwise(extract_events(trace),
+                                              cfg.n_runs, seed=cfg.seed)
+    ds = CircuitDataset(circuit_name=circuit, train=train_ev, test=test_ev,
+                        val=val_ev, gen_seconds=sum(seconds.values()),
+                        n_runs=cfg.n_runs)
+    stage("events")
+    bank = PredictorBank(circuit, families=tuple(cfg.families), device=dev)
+    bank.fit(ds, verbose=verbose)
+    stage("fit")
+    sur = Surrogate.from_bank(bank)
+    stage("freeze")
+    del seconds["fit"]
+    seconds.update({k: bank.seconds[k] for k in ("features",
+                                                 *cfg.families)})
+    sur.train_report = {"seconds": seconds, "events": ds.counts()}
+    if verbose:
+        print("train " + circuit + ": " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in seconds.items()))
+    return sur
 
 _ENGINE_ATTR = "_lasana_engine_cache"
 _ENGINE_LOCK = threading.Lock()

@@ -10,7 +10,8 @@ package produced on the CPU. Regenerate all of them with::
 or only the crossbar and mixed-graph files (the LIF four stay as they
 are) with ``--regen-crossbar``, only the stream record with
 ``--regen-stream``, only the LM record with ``--regen-lm``, or only
-the wide-surrogate artifact and its record with ``--regen-wide``.
+the wide-surrogate artifact and its record with ``--regen-wide``, or
+only the training record with ``--regen-train``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -56,6 +57,22 @@ than the one-tick kernel takes, so the engine evaluates it through the
 stacked-dispatch tick. Its record (``snn_wide_ref_record.npz``) runs the
 784-128-10 SNN on the first :data:`WIDE_IMAGES` chip-smoke digits for 100
 ticks through ``repro.lasana.simulate``.
+
+The training record (``--regen-train``, ``train_lif_ref_record.npz``) is
+``lasana.train("lif", TrainConfig())`` taken apart: the testbench
+``generate_testbench(LIFNeuron(), TestbenchConfig(n_runs=1000,
+n_steps=125, alpha=0.8, seed=0))`` (``active``, ``inputs``, ``params``),
+the dataset ``build_dataset`` makes from it (the run-wise split seeded 0:
+``count/{kind}`` and ``energy/{kind}``, the event count and the energy
+sum per event kind over all three splits, and ``split_count/{split}``),
+and the five-family ``PredictorBank("lif")`` fit on it
+(``val_mse/{predictor}/{family}``, ``test_mse/...`` and
+``selected/{predictor}``). Every family's own seed is its default, 0.
+``gbdt_band/{predictor}`` holds the reference GBDT's own validation MSE
+over :data:`GBDT_BAND_REFITS` refits on the same rows with 1% of the
+training targets nudged by one ULP (nudge seeds 0, 1, ...): how far a
+fit moves when its inputs move by rounding, as a port's golden
+simulation moves them.
 """
 
 from __future__ import annotations
@@ -123,6 +140,10 @@ LM_RECORD_LAYERS = 4
 LM_PROMPT = (4, 512)         # batch, prompt length
 LM_DECODE_STEPS = 8
 LM_DECODE_ROWS = 2           # rows whose decode logits the record keeps
+TRAIN_RECORD = ARTIFACTS / "train_lif_ref_record.npz"
+PREDICTORS = ("M_O", "M_V", "M_ED", "M_ES", "M_L")
+FAMILIES = ("mean", "table", "linear", "gbdt", "mlp")
+GBDT_BAND_REFITS = 8
 
 STREAM_TICKS = 2000          # the stream phase's horizon
 STREAM_BLOCK = 250           # ticks per host block
@@ -483,6 +504,67 @@ def _regen_wide():
     print(f"wide regen took {time.time() - t0:.0f} s")
 
 
+def _regen_train():
+    """Write the LIF training record only (JAX on the CPU, ~5 min)."""
+    import time
+
+    from repro.core.circuits import LIFNeuron
+    from repro.core.dataset import (CircuitDataset, TestbenchConfig,
+                                    generate_testbench, simulate_golden)
+    from repro.core.events import EventKind, extract_events, split_runwise
+    from repro.core.models import GBDTModel
+    from repro.core.predictors import (PREDICTOR_DEFS, PredictorBank,
+                                       build_features, build_target)
+
+    t0 = time.time()
+    cfg = TestbenchConfig(n_runs=1000, n_steps=125, alpha=0.8, seed=0)
+    circ = LIFNeuron()
+    active, inputs, params = generate_testbench(circ, cfg)
+    trace = simulate_golden(circ, active, inputs, params)
+    events = extract_events(trace)
+    train, test, val = split_runwise(events, cfg.n_runs, seed=cfg.seed)
+    ds = CircuitDataset("lif", train=train, test=test, val=val,
+                        gen_seconds=0.0, n_runs=cfg.n_runs)
+    record = {"active": np.asarray(active), "inputs": np.asarray(inputs),
+              "params": np.asarray(params), "n_runs": np.int32(cfg.n_runs),
+              "n_steps": np.int32(cfg.n_steps),
+              "alpha": np.float32(cfg.alpha), "seed": np.int32(cfg.seed)}
+    for k in EventKind:
+        sel = events.kind == int(k)
+        record[f"count/{k.name}"] = np.int64(sel.sum())
+        record[f"energy/{k.name}"] = np.float64(events.energy[sel].sum())
+    for name, split in (("train", train), ("test", test), ("val", val)):
+        record[f"split_count/{name}"] = np.int64(len(split))
+    t_data = time.time() - t0
+    bank = PredictorBank("lif", families=FAMILIES).fit(ds, verbose=True)
+    for p, fams in bank.results.items():
+        for f, r in fams.items():
+            record[f"val_mse/{p}/{f}"] = np.float64(r.val_mse)
+            record[f"test_mse/{p}/{f}"] = np.float64(r.test_mse)
+        best = min(fams.values(), key=lambda r: r.val_mse)
+        record[f"selected/{p}"] = np.array(best.family)
+        d = PREDICTOR_DEFS[p]
+        rows = []
+        for split in (ds.train, ds.val):
+            ev = split.of_kind(*d["kinds"])
+            rows.append(np.asarray(bank.augment_features(build_features(
+                ev, prev_out=d["prev_out"],
+                chain_out=d.get("chain_out", False)))))
+            rows.append(build_target(ev, d["target"], d["scale"]))
+        band = []
+        for k in range(GBDT_BAND_REFITS):
+            y = rows[1].copy()
+            nudge = np.random.default_rng(k).random(len(y)) < 0.01
+            y[nudge] = np.nextafter(y[nudge], np.float32(np.inf))
+            m = GBDTModel().fit(rows[0], y, rows[2], rows[3])
+            band.append(float(np.mean((m.predict(rows[2]) - rows[3]) ** 2)))
+        record[f"gbdt_band/{p}"] = np.asarray(band, np.float64)
+        print(p, "gbdt band", min(band), max(band), flush=True)
+    np.savez_compressed(TRAIN_RECORD, **record)
+    print(TRAIN_RECORD.name, os.path.getsize(TRAIN_RECORD), "bytes;",
+          f"dataset {t_data:.0f} s, total {time.time() - t0:.0f} s")
+
+
 def _regen_lm():
     """Write the LM record only (JAX on the CPU)."""
     import dataclasses
@@ -542,6 +624,7 @@ if __name__ == "__main__":
         _regen_stream()
         _regen_lm()
         _regen_wide()
+        _regen_train()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
     elif sys.argv[1:] == ["--regen-stream"]:
@@ -550,7 +633,9 @@ if __name__ == "__main__":
         _regen_lm()
     elif sys.argv[1:] == ["--regen-wide"]:
         _regen_wide()
+    elif sys.argv[1:] == ["--regen-train"]:
+        _regen_train()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
                  "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
-                 "--regen-wide")
+                 "--regen-wide | --regen-train")

@@ -45,9 +45,14 @@ def test_no_jax_or_reference_imports_in_the_port():
     "configs/starcoder2_3b.py", "models/params.py", "models/layers.py",
     "models/attention.py", "models/transformer.py", "models/model.py",
     "data/lm_data.py", "launch/serve.py", "kernels/flash_attn.py",
-    "kernels/ops.py", "convert.py"])
+    "kernels/ops.py", "convert.py",
+    # the training slice
+    "core/circuits.py", "core/events.py", "core/dataset.py",
+    "core/models.py", "core/predictors.py", "core/surrogate.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
-    """The modules of the streaming and LM serve slices, one by one: no
+    """The modules of the streaming, LM serve and training slices, one by
+    one (``core/events.py`` keeps its own copy of the reference's pure
+    numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
     (the reference imports ``repro.serve.buckets`` for the checkpoint's
     spec hash; the port keeps its own copy)."""
@@ -92,6 +97,10 @@ def test_port_runs_with_jax_and_reference_unimportable():
                             device="cpu")
         assert np.array_equal(res.energy, full.energy)
         assert np.array_equal(full.outputs, run.outputs)
+        trained = lasana.train("crossbar", lasana.TrainConfig(
+            n_runs=12, n_steps=10, families=("mean", "linear")),
+            device="cpu")
+        assert set(trained.fit_info) == {"M_O", "M_V", "M_ED", "M_ES", "M_L"}
         import contextlib, io
         from repro_torch.launch import serve
         with contextlib.redirect_stdout(io.StringIO()):

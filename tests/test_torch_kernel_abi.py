@@ -68,6 +68,20 @@ def test_lif_argtypes_match_the_source(name):
     assert want.count(ctypes.c_float) == len(lif_scan._consts(LIFNeuron()))
 
 
+def test_lif_chunk_launch_takes_v_seq_after_the_observables():
+    """lif_chunk_launch's ninth pointer is v_seq (null: not recorded), the
+    order ``_launch_chunk`` passes it in; the kernel stores it only in its
+    recording instance."""
+    src = _source("lif_step")
+    m = re.search(r"\bint lif_chunk_launch\(([^)]*)\)", src)
+    names = [p.strip().rsplit(" ", 1)[1].lstrip("*")
+             for p in m.group(1).split(",")]
+    assert names[:9] == ["state", "x_seq", "params", "new_state", "out",
+                         "energy", "latency", "spiked", "v_seq"]
+    assert "if (kRecordV) v_seq[r] = v;" in src
+    assert "lif_chunk_kernel<S, false>" in src and "nullptr" in src
+
+
 @pytest.mark.parametrize("fn, want", [
     ("crossbar_target_launch", crossbar_mvm.TARGET_ARGTYPES),
     ("crossbar_step_launch", crossbar_mvm.STEP_ARGTYPES)])

@@ -516,6 +516,38 @@ def test_lif_chunk_plain_matches_chained_reference_steps(n, t_steps):
     assert torch.equal(ns, s)
 
 
+@pytest.mark.parametrize("n, t_steps", [(300, 6), (37, 125), (5, 0)])
+def test_lif_chunk_plain_records_v_of_each_period(n, t_steps):
+    """``record_v=True``: ``v_seq[t]`` is ``new_state[:, 0]`` after t + 1
+    chained ``_period_math`` periods, bit for bit; the other outputs are
+    those of the call without it. T = 125 is ``TrainConfig``'s steps."""
+    from repro_torch.core.circuits import LIFNeuron
+    from repro_torch.kernels import lif_scan, ops
+    rng = np.random.default_rng(n + t_steps)
+    state = torch.as_tensor(np.stack([
+        rng.uniform(0, 1.0, n), rng.uniform(0, 0.3, n),
+        rng.uniform(0, 3.0, n) * (rng.random(n) < 0.3)], 1), dtype=torch.float32)
+    x = torch.as_tensor(np.stack([
+        rng.uniform(-1, 1, (t_steps, n)), rng.uniform(0, 1.5, (t_steps, n)),
+        rng.integers(0, 6, (t_steps, n))], -1), dtype=torch.float32)
+    params = torch.as_tensor(rng.uniform(0.5, 0.8, (n, 4)),
+                             dtype=torch.float32)
+    ns, obs = ops.lif_chunk(state, x, params, record_v=True)
+    ns0, obs0 = ops.lif_chunk(state, x, params)
+    assert "v_seq" not in obs0 and obs["v_seq"].shape == (t_steps, n)
+    assert torch.equal(ns, ns0)
+    for f in obs0:
+        assert torch.equal(obs[f], obs0[f]), f
+    s = state
+    for k in range(t_steps):
+        s, *_ = lif_scan._period_math(LIFNeuron(), s, x[k], params)
+        assert torch.equal(obs["v_seq"][k], s[:, 0])
+    if t_steps:
+        assert (obs["v_seq"] > 0).any() and (obs["v_seq"] == 0).any()
+    plain = lif_scan.chunk_plain(LIFNeuron(), state, x, params, True)
+    assert len(plain) == 6 and torch.equal(plain[5], obs["v_seq"])
+
+
 @pytest.mark.parametrize("n", [64, 300])
 @pytest.mark.parametrize("f,h1,h2", [(41, 100, 50), (67, 100, 50),
                                      (16, 32, 16)])
