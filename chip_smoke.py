@@ -89,18 +89,35 @@ Phases, one output line each (JSON where it helps):
    surrogates on the SNN and the crossbar MNIST wave against the port's
    golden runs, beside the committed JAX-trained artifacts; and
    ``mlp_surrogate`` timed at the training shapes;
-8. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+8. the layer runners (``repro_torch.core.simulate``) and design-space
+   exploration (``repro_torch.lasana.explore``): the quickstart's layers
+   (LIF N = 1,000 x T = 100, crossbar rows N = 128 x T = 30) on the
+   committed JAX record's stimulus through golden, behavioral, LASANA-P,
+   LASANA-O and annotation (``layer_ref_record.npz``: spike or ADC-code
+   agreement, energy and latency sums; the LASANA-P tick loop also
+   enqueued with host synchronisation forbidden); Table IV's scaling (N =
+   10 ... 200,000 x 100 ticks: the four runners' walls and LASANA-P's
+   speedups); Table III's propagation (N = 20,000: LASANA-O against
+   LASANA-P against golden); ``lasana.explore`` over 4,096 candidates x
+   256 samples against ``dse_ref_record.npz`` (tile table, pricing within
+   rtol 1e-5, the Pareto set, ``explore_arch`` of the four dense configs)
+   with a hot swap that sets nothing up; and ``lif_chunk``,
+   ``network_tick`` and ``mlp_surrogate_heads`` against their plain
+   versions at these runs' shapes, timed beside their bounds;
+9. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time, its lower bound on
    this card and, where one exists, a library call's time
    (crossbar-width times of the head kernels beside the LIF ones);
-9. ``{"ok": true, "device": {...}}`` as the last line.
+10. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
 one more steady run under ``torch.profiler`` (for the stream phase: one
 more steady stream of the SNN and of its hidden layer; for the LM phase:
 one more prefill and decode loop of the serve run; for the train phase:
-one more LIF training on a fifth of the testbench).
+one more LIF training on a fifth of the testbench; for the layer phases:
+golden and LASANA-P at N = 200,000, LASANA-O at N = 20,000 and one more
+exploration sweep).
 
 ``--digests`` only prints the digests of the head, tick and golden
 (``lif_step``, ``lif_chunk``, ``crossbar_target``) kernels' outputs on the
@@ -1268,9 +1285,6 @@ def check_network_tick(torch, np, dev, cases):
     out = {"max_abs_err": 0.0, "threshold_rows": 0, "digests": {}}
     ulp = float(np.spacing(np.float32(0.75)))
     for label, circuit, pk, ly, sizes, timed_as in cases:
-        p_a, f_a, h1 = pk["a"]["w0"].shape
-        p_t, f_t, _ = pk["t"]["w0"].shape
-        h2 = pk["a"]["w1"].shape[2]
         for annotate in (False, True):
             for n in sizes:
                 ins, t, clock, ckw = tick_case(torch, np, dev, circuit, n,
@@ -1318,40 +1332,50 @@ def check_network_tick(torch, np, dev, cases):
                         g, w, f"{tag} {name}", mask=~flip))
                 if timed_as is None or n != sizes[0] or annotate:
                     continue
-                res = {"shape": f"N={n}, {circuit} rows, A stack "
-                                f"{p_a}x({f_a},{h1},{h2}), T stack "
-                                f"{p_t}x({f_t},{h1},{h2})"}
-                res["ms"] = time_ms(lambda: mk.network_tick(*args, **kw),
-                                    torch)
-                res["plain_ms"] = time_ms(lambda: mk._tick_arrays(
-                    pk["a"], pk["t"], v, o, t_last, params, ch, x, t,
-                    known_out=None, **kw), torch)
-                # the work this data needs: active heads on changed rows,
-                # idle heads on stale ones, transition heads where the
-                # output changed; idle rows are copied through
-                stale = ch & (t_last < float(t) - clock)
-                if circuit == "lif":
-                    fired = ch & (o_hat > 0.75)
-                else:
-                    fired = ch & (torch.abs(o_hat - o) > 0.02)
-                n_ch, n_st, n_tr = (int(m.sum()) for m in (ch, stale, fired))
-                f_row = x.shape[1] + 2 + params.shape[1] + 1
-                fa = [head_flops(fm, f_row, h1, h2) for fm in ly.a_fams]
-                ft = [head_flops(fm, f_row + 2, h1, h2) for fm in ly.t_fams]
-                flops = n_ch * sum(fa) + n_st * sum(fa[:2]) \
-                    + n_tr * sum(ft)
-                weights = sum(a.numel() for s in pk.values()
-                              for a in s.values())
-                n_bytes = n * (3 * 4 + 4 * (x.shape[1] + params.shape[1])
-                               + 1) + n * 5 * 4 + weights * 4
-                res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, flops)
-                res["rows"] = {"changed": n_ch, "stale": n_st,
-                               "output_changed": n_tr}
+                res = tick_timing(torch, mk, args, kw, o_hat)
                 if timed_as == "lif":
                     out.update(res)
                 else:
                     out[timed_as] = res
     return out
+
+
+def tick_timing(torch, mk, args, kw, o_hat):
+    """One standalone ``network_tick`` on ``args`` (pack, v, o, t_last,
+    params, changed, x, t, known) timed beside its plain version and its
+    bound; ``o_hat`` is the plain version's M_O prediction."""
+    pk, v, o, t_last, params, ch, x, t, _ = args
+    circuit, clock, ly = kw["circuit"], kw["clock_ns"], kw["layout"]
+    n = v.shape[0]
+    p_a, f_a, h1 = pk["a"]["w0"].shape
+    p_t, f_t, _ = pk["t"]["w0"].shape
+    h2 = pk["a"]["w1"].shape[2]
+    res = {"shape": f"N={n}, {circuit} rows, A stack "
+                    f"{p_a}x({f_a},{h1},{h2}), T stack "
+                    f"{p_t}x({f_t},{h1},{h2})"}
+    res["ms"] = time_ms(lambda: mk.network_tick(*args, **kw), torch)
+    res["plain_ms"] = time_ms(lambda: mk._tick_arrays(
+        pk["a"], pk["t"], v, o, t_last, params, ch, x, t,
+        known_out=None, **kw), torch)
+    # the work this data needs: active heads on changed rows, idle heads
+    # on stale ones, transition heads where the output changed; idle rows
+    # are copied through
+    stale = ch & (t_last < float(t) - clock)
+    if circuit == "lif":
+        fired = ch & (o_hat > 0.75)
+    else:
+        fired = ch & (torch.abs(o_hat - o) > 0.02)
+    n_ch, n_st, n_tr = (int(m.sum()) for m in (ch, stale, fired))
+    f_row = x.shape[1] + 2 + params.shape[1] + 1
+    fa = [head_flops(fm, f_row, h1, h2) for fm in ly.a_fams]
+    ft = [head_flops(fm, f_row + 2, h1, h2) for fm in ly.t_fams]
+    flops = n_ch * sum(fa) + n_st * sum(fa[:2]) + n_tr * sum(ft)
+    weights = sum(a.numel() for s in pk.values() for a in s.values())
+    n_bytes = n * (3 * 4 + 4 * (x.shape[1] + params.shape[1]) + 1) \
+        + n * 5 * 4 + weights * 4
+    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, flops)
+    res["rows"] = {"changed": n_ch, "stale": n_st, "output_changed": n_tr}
+    return res
 
 
 def lif_chunk_inputs(torch, np, dev, n, t_steps, seed):
@@ -2735,6 +2759,515 @@ def lm_runs(torch, np, dev, surs, profile):
     return total
 
 
+# --- phase 8: the layer runners and design-space exploration -----------------
+
+LAYER_SUB = 64                 # neurons whose LIF records the JAX record keeps
+# against the JAX record; first set at 0.999 / 1e-4 (golden, behavioral)
+# and PERF.md §2's network limits 0.99 / 1% (LASANA), tightened once the
+# card agreed on every entry with sums within 6.1e-8 (PERF.md §2, §6)
+LAYER_AGREE_EXACT = 0.9999     # golden / behavioral: spikes or output codes
+LAYER_SUM_REL = 1e-6           # golden / behavioral: energy, latency sums
+LAYER_AGREE = 0.999            # LASANA runs: spikes or output codes
+LAYER_ENERGY_REL = 1e-5        # LASANA runs: total energy
+LAYER_T = {"lif": 100, "xbar": 30}
+# run -> (surrogate key or None, mode, launches); modes as in
+# tests/test_torch_fixtures.py: golden, behavioral, or run_lasana as
+# LASANA-P ("p"), LASANA-O ("o", golden states) or annotation
+LAYER_RUNS = {
+    "lif": {"golden": (None, "golden", {"lif_chunk": 1, "lif_step": 0}),
+            "behavioral": (None, "behavioral", {"lif_chunk": 0,
+                                                "network_tick": 0}),
+            "lasana_p": ("lif", "p", {"network_tick": 100}),
+            "lasana_o": ("lif", "o", {"network_tick": 100}),
+            "annotation": ("lif", "annotate", {"network_tick": 100}),
+            "lasana_p_unpackable": ("lif_unpackable", "p", {
+                "mlp_surrogate_heads": (">=", 100), "network_tick": 0})},
+    "xbar": {"golden": (None, "golden", {"crossbar_target": 30}),
+             "behavioral": (None, "behavioral", {"crossbar_target": 30}),
+             "lasana_p": ("crossbar", "p", {"network_tick": 30})}}
+SCALING_NS = (10, 100, 1000, 5000, 20000, 200000)   # benchmarks FULL_SCALE
+SCALING_T = 100
+PROP_N, PROP_T, PROP_SEED = 20000, 100, 42
+PROP_O_OVER_P = 1.2            # tests/test_system.py::test_oracle_state_mode
+PROP_SPIKE_ACC = 0.92          # ::test_lasana_matches_golden_spikes
+DSE_CANDIDATES = 4096          # benchmarks/bench_dse.py N_CANDIDATES_FULL
+DSE_RTOL = 1e-5
+DSE_TIE = 1e-5                 # a Pareto difference needs a tie this close
+DSE_ARCHS = ("starcoder2-3b", "granite-3-8b", "deepseek-67b",
+             "mistral-large-123b")
+
+
+def layer_run(torch, sim, sur, circuit, stim, mode, golden=None, beh=None):
+    """One layer-runner call: golden, behavioral, or ``run_lasana`` in
+    ``mode`` (LASANA-O on ``golden``'s states, annotation on ``beh``'s)."""
+    if mode == "golden":
+        return sim.run_golden(circuit, *stim)
+    if mode == "behavioral":
+        return sim.run_behavioral(circuit, *stim)
+    kw = {}
+    if mode == "o":
+        kw = {"oracle_states": golden.states}
+    elif mode == "annotate":
+        kw = {"oracle_states": beh.states, "annotate_outputs": beh.outputs}
+    return sim.run_lasana(sur, circuit, *stim, **kw)
+
+
+def rel_diff(got, want):
+    return abs(got - want) / abs(want) if want else abs(got)
+
+
+def layer_record_checks(np, kind, name, run, rec):
+    """A run against the JAX record: spike (LIF) or ADC-code (crossbar)
+    agreement over every (tick, circuit), and the energy and latency sums."""
+    key = f"{kind}/{name}"
+    if kind == "lif":
+        want = np.unpackbits(rec[f"{key}/spikes"], axis=-1,
+                             count=run.outputs.shape[1]).astype(bool)
+        agree = float(np.mean((run.outputs > 0.75) == want))
+        e_ref = float(rec[f"{key}/energy_by_neuron"].sum())
+        l_ref = float(rec[f"{key}/latency_by_neuron"].sum())
+        sub = {f: float(np.max(np.abs(getattr(run, f)[:, :LAYER_SUB]
+                                      - rec[f"{key}/sub/{f}"])))
+               for f in ("states", "energy", "latency")}
+    else:
+        # half an 8-bit ADC step of the row output over [-2, 2] V
+        step = 4.0 / 255
+        agree = float(np.mean(np.abs(run.outputs - rec[f"{key}/outputs"])
+                              < 0.5 * step))
+        e_ref = float(rec[f"{key}/energy"].astype(np.float64).sum())
+        l_ref = float(rec[f"{key}/latency"].astype(np.float64).sum())
+        sub = {f: float(np.max(np.abs(getattr(run, f) - rec[f"{key}/{f}"])))
+               for f in ("outputs", "states", "energy", "latency")}
+    e_port = float(run.energy.astype(np.float64).sum())
+    l_port = float(run.latency.astype(np.float64).sum())
+    return {"agreement_vs_ref": agree, "energy_j": e_port,
+            "energy_rel_diff_vs_ref": rel_diff(e_port, e_ref),
+            "latency_sum_rel_diff_vs_ref": rel_diff(l_port, l_ref),
+            "max_abs_diff_vs_ref_kept_records": sub}
+
+
+def no_sync_ticks(torch, np, sim, sur, circuit, stim, want):
+    """The LASANA-P tick loop enqueued with host synchronisation
+    forbidden; its records equal ``want``'s (the timed run's) bit for
+    bit."""
+    step, dev, _ = sim._lasana_program(
+        sur, circuit, *stim, oracle_states=None, annotate_outputs=None,
+        fused=True, fused_kernel=None, device=None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [t.cpu().numpy() for t in out]
+    for f, g in zip(("outputs", "states", "energy", "latency"), got):
+        if not np.array_equal(g, getattr(want, f)):
+            fail(f"{circuit} LASANA-P: the tick loop under sync debug mode "
+                 f"'error' gave other {f} than the timed run")
+
+
+def layer_record(torch, np, dev, surs, smi):
+    """The quickstart's layers against the JAX record
+    (``layer_ref_record.npz``): LIF N = 1,000 x T = 100 and crossbar rows
+    N = 128 x T = 30 on the record's own stimulus, every runner."""
+    from repro_torch.core import simulate as sim
+    rec = dict(np.load(ART / "layer_ref_record.npz"))
+    total = {}
+    for kind, circuit in (("lif", "lif"), ("xbar", "crossbar")):
+        x = rec[f"{kind}/x"]
+        n = x.shape[1]
+        active = np.unpackbits(rec[f"{kind}/active"], axis=-1,
+                               count=n).astype(bool)
+        stim = tuple(torch.as_tensor(a, device=dev) for a in (
+            active, x, rec[f"{kind}/params"].astype(np.float32)))
+        runs = {}
+        for name, (skey, mode, want) in LAYER_RUNS[kind].items():
+            run, counts = counted(torch, lambda: layer_run(
+                torch, sim, surs.get(skey), circuit, stim, mode,
+                runs.get("golden"), runs.get("behavioral")))
+            check_launches(f"layer {kind} {name}", counts, want)
+            runs[name] = run
+            res = layer_record_checks(np, kind, name, run, rec)
+            exact = mode in ("golden", "behavioral")
+            ok = (res["agreement_vs_ref"] >= LAYER_AGREE_EXACT
+                  and res["energy_rel_diff_vs_ref"] <= LAYER_SUM_REL
+                  and res["latency_sum_rel_diff_vs_ref"] <= LAYER_SUM_REL
+                  ) if exact else (
+                res["agreement_vs_ref"] >= LAYER_AGREE
+                and res["energy_rel_diff_vs_ref"] <= LAYER_ENERGY_REL)
+            finite = all(np.isfinite(getattr(run, f)).all() for f in (
+                "outputs", "states", "energy", "latency"))
+            line({"phase": "layer_record", "layer": kind, "run": name,
+                  "shape": list(run.outputs.shape), "launches": counts,
+                  "wall_s": run.wall_seconds,
+                  "compile_s": run.compile_seconds, **res,
+                  "limits": ({"agreement": LAYER_AGREE_EXACT,
+                              "sums_rel": LAYER_SUM_REL} if exact else
+                             {"agreement": LAYER_AGREE,
+                              "energy_rel": LAYER_ENERGY_REL}),
+                  "card": smi})
+            if not ok or not finite or run.outputs.shape != (
+                    LAYER_T[kind], n):
+                fail(f"layer {kind} {name}: {res} outside its limits, "
+                     f"non-finite records or shape {run.outputs.shape}")
+            add_counts(total, f"layer/{kind}/{name}", counts)
+        no_sync_ticks(torch, np, sim, surs[LAYER_RUNS[kind]["lasana_p"][0]],
+                      circuit, stim, runs["lasana_p"])
+    return total
+
+
+def layer_scaling(torch, np, dev, surs, profile, smi):
+    """Table IV at FULL_SCALE: N LIF neurons x 100 ticks (the port's
+    ``make_stimulus(seed=N)``), golden / behavioral / LASANA-P /
+    annotation walls (no build, no pack) and LASANA-P's speedups."""
+    from repro_torch.core import simulate as sim
+    sur = surs["lif"]
+    total = {}
+    for n in SCALING_NS:
+        stim = sim.make_stimulus("lif", n, SCALING_T, seed=n, device=dev)
+        runs, launches = {}, {}
+        for name, mode in (("golden", "golden"), ("behavioral", "behavioral"),
+                           ("lasana_p", "p"), ("annotation", "annotate")):
+            runs[name], launches[name] = counted(torch, lambda: layer_run(
+                torch, sim, sur, "lif", stim, mode,
+                beh=runs.get("behavioral")))
+            add_counts(total, f"scaling/n={n}/{name}", launches[name])
+        check_launches(f"scaling n={n} golden", launches["golden"],
+                       {"lif_chunk": 1})
+        for name in ("lasana_p", "annotation"):
+            check_launches(f"scaling n={n} {name}", launches[name],
+                           {"network_tick": SCALING_T})
+        if not all(np.isfinite(r.energy).all() and r.outputs.shape == (
+                SCALING_T, n) for r in runs.values()):
+            fail(f"scaling n={n}: non-finite records or wrong shapes")
+        wall = {k: r.wall_seconds for k, r in runs.items()}
+        row = {"phase": "layer_scaling", "n": n, "ticks": SCALING_T,
+               "wall_s": wall,
+               "compile_s": {k: r.compile_seconds for k, r in runs.items()},
+               "speedup_vs_golden": wall["golden"] / wall["lasana_p"],
+               "speedup_vs_behavioral": wall["behavioral"]
+               / wall["lasana_p"],
+               "annotation_over_behavioral": wall["annotation"]
+               / wall["behavioral"],
+               "spikes": int((runs["golden"].outputs > 0.75).sum()),
+               "launches": launches, "card": smi}
+        if profile and n == SCALING_NS[-1]:
+            row["profile"] = {
+                name: profile_run(torch, lambda: layer_run(
+                    torch, sim, sur, "lif", stim, mode,
+                    beh=runs["behavioral"]))
+                for name, mode in (("golden", "golden"), ("lasana_p", "p"))}
+        line(row)
+    return total, stim
+
+
+def propagation_metrics(np, golden, run):
+    """``benchmarks/bench_propagation.py``'s ``_metrics``: the run against
+    golden (dynamic events are golden's spikes)."""
+    spikes_g = golden.outputs > 0.75
+    e1 = spikes_g
+    out = {"state_mse": float(np.mean((golden.states - run.states) ** 2)),
+           "output_mse": float(np.mean((golden.outputs - run.outputs) ** 2)),
+           "spike_acc": float(np.mean(spikes_g == (run.outputs > 0.75)))}
+    if e1.any():
+        le = np.abs(run.latency - golden.latency)[e1]
+        out["latency_mse"] = float(np.mean(
+            (run.latency - golden.latency)[e1] ** 2))
+        out["latency_mape"] = float(np.mean(
+            le / np.maximum(golden.latency[e1], 1e-3)) * 100)
+        ed = (run.energy - golden.energy)[e1] * 1e12
+        out["dyn_energy_mse_pJ2"] = float(np.mean(ed ** 2))
+        out["dyn_energy_mape"] = float(np.mean(
+            np.abs(ed) / np.maximum(golden.energy[e1] * 1e12, 1e-6)) * 100)
+    es = (run.energy - golden.energy)[~e1] * 1e12
+    out["stat_energy_mse_pJ2"] = float(np.mean(es ** 2))
+    return out
+
+
+def layer_propagation(torch, np, dev, surs, profile, smi):
+    """Table III at FULL_SCALE: LASANA-O against LASANA-P on N = 20,000 x
+    100 ticks (seed 42), and Fig. 8's drift ratio."""
+    from repro_torch.core import simulate as sim
+    sur = surs["lif"]
+    stim = sim.make_stimulus("lif", PROP_N, PROP_T, seed=PROP_SEED,
+                             device=dev)
+    total = {}
+    golden, counts = counted(torch, lambda: sim.run_golden("lif", *stim))
+    add_counts(total, "propagation/golden", counts)
+    lp, counts = counted(torch, lambda: sim.run_lasana(sur, "lif", *stim))
+    check_launches("propagation LASANA-P", counts,
+                   {"network_tick": PROP_T})
+    add_counts(total, "propagation/lasana_p", counts)
+    lo, counts = counted(torch, lambda: sim.run_lasana(
+        sur, "lif", *stim, oracle_states=golden.states))
+    check_launches("propagation LASANA-O", counts,
+                   {"network_tick": PROP_T})
+    add_counts(total, "propagation/lasana_o", counts)
+    m_o, m_p = (propagation_metrics(np, golden, r) for r in (lo, lp))
+    mse_t = np.mean((golden.states - lp.states) ** 2, axis=1)
+    third = PROP_T // 3
+    drift = float(np.mean(mse_t[-third:])) / max(
+        float(np.mean(mse_t[:third])), 1e-12)
+    res = {"phase": "layer_propagation", "n": PROP_N, "ticks": PROP_T,
+           "seed": PROP_SEED, "LASANA-O": m_o, "LASANA-P": m_p,
+           "mse_drift_ratio_last_over_first": drift,
+           "energy_rel_diff_p_vs_golden": rel_diff(
+               float(lp.energy.sum()), float(golden.energy.sum())),
+           "wall_s": {"golden": golden.wall_seconds,
+                      "lasana_p": lp.wall_seconds,
+                      "lasana_o": lo.wall_seconds},
+           "limits": {"o_state_mse_over_p": PROP_O_OVER_P,
+                      "p_spike_acc": PROP_SPIKE_ACC}, "card": smi}
+    if profile:
+        res["profile"] = profile_run(torch, lambda: sim.run_lasana(
+            sur, "lif", *stim, oracle_states=golden.states))
+    line(res)
+    finite = all(np.isfinite(v) for m in (m_o, m_p) for v in m.values()) \
+        and np.isfinite(drift)
+    if not finite or m_o["state_mse"] > PROP_O_OVER_P * m_p["state_mse"] \
+            or m_p["spike_acc"] < PROP_SPIKE_ACC:
+        fail(f"propagation: LASANA-O state MSE {m_o['state_mse']:.4g} vs "
+             f"LASANA-P {m_p['state_mse']:.4g} (limit x{PROP_O_OVER_P}), "
+             f"LASANA-P spike accuracy {m_p['spike_acc']:.4f} (limit "
+             f"{PROP_SPIKE_ACC}) or a non-finite metric")
+    return total
+
+
+def pareto_ties(np, got, want):
+    """Where the Pareto sets of objective rows ``got`` and ``want`` (C, K)
+    differ: for each candidate i whose membership differs, each candidate
+    j that dominates i under one set and not the other, as ``[i, j, k]``
+    with k an objective on which i and j tie within DSE_TIE (relative) —
+    the rounding of a tie decides such a pair — or None where they tie
+    on none."""
+    from repro_torch.core.explore import pareto_mask
+    pairs = []
+    for i in np.flatnonzero(pareto_mask(got) != pareto_mask(want)):
+        dom = [np.all(o <= o[i], axis=1) & np.any(o < o[i], axis=1)
+               for o in (got, want)]
+        for j in np.flatnonzero(dom[0] != dom[1]):
+            tie = np.flatnonzero(np.abs(want[j] - want[i]) <= DSE_TIE
+                                 * np.maximum(np.abs(want[j]),
+                                              np.abs(want[i])))
+            pairs.append([int(i), int(j), int(tie[0]) if tie.size
+                          else None])
+    return pairs
+
+
+def dse_objectives(np, energy, latency, frac):
+    return np.stack([energy, latency, -frac], axis=1)
+
+
+def dse_runs(torch, np, dev, surs, profile, smi):
+    """``lasana.explore(CandidateSpec.sample(4096, seed=0),
+    crossbar_unpackable)`` on the process-wide engine, its base rows set
+    from the JAX record (``dse_ref_record.npz``); a hot swap; and
+    ``explore_arch`` of the four dense configs on the record's tile rows.
+    Returns (launches by run, the heads kernel at the sweep's shape)."""
+    import json
+
+    import repro_torch.lasana as lasana
+    from repro_torch import configs
+    from repro_torch.core import explore
+    rec = dict(np.load(ART / "dse_ref_record.npz"))
+    sur = surs["crossbar_unpackable"]
+    eng = explore.dse_engine()
+    eng._base_x, eng._base_p, eng._base_o = (torch.as_tensor(
+        rec[k].astype(np.float32), device=dev)
+        for k in ("base_x", "base_p", "base_o"))
+    cands = lasana.CandidateSpec.sample(DSE_CANDIDATES, seed=0)
+    if not (np.array_equal(cands.v_dd, rec["v_dd"])
+            and np.array_equal(cands.tile, rec["tile"])):
+        fail("dse: CandidateSpec.sample(4096, seed=0) differs from the "
+             "record's candidates")
+    total = {}
+    rep, counts = counted(torch, lambda: lasana.explore(cands, sur))
+    check_launches("dse first", counts, {"mlp_surrogate_heads": 1})
+    add_counts(total, "dse/first", counts)
+    steady, counts = counted(torch, lambda: lasana.explore(cands, sur))
+    check_launches("dse steady", counts, {"mlp_surrogate_heads": 1})
+    add_counts(total, "dse/steady", counts)
+    for f in ("n_tiles", "analog_params", "total_params",
+              "analog_flop_fraction"):
+        if not np.array_equal(getattr(rep, f), rec[f"report/{f}"]):
+            fail(f"dse: tile table {f} differs from the record")
+    errs = {}
+    for f in ("tile_energy_j", "tile_latency_ns", "energy_per_token_j",
+              "latency_critical_ns"):
+        got, want = getattr(rep, f), rec[f"report/{f}"]
+        if got.dtype != np.float64 or not np.isfinite(got).all():
+            fail(f"dse: {f} is {got.dtype} or not finite")
+        bad = np.abs(got - want) > DSE_RTOL * np.abs(want)
+        nz = want != 0
+        errs[f] = float(np.max(np.abs(got[nz] - want[nz])
+                               / np.abs(want[nz]), initial=0.0))
+        if bad.any():
+            fail(f"dse: {f} off the record beyond rtol {DSE_RTOL} on "
+                 f"{int(bad.sum())} candidates (max {errs[f]:.3e})")
+    want_objs = dse_objectives(np, *(rec[f"report/{f}"] for f in (
+        "energy_per_token_j", "latency_critical_ns",
+        "analog_flop_fraction")))
+    from repro_torch.core.explore import pareto_mask
+    if not np.array_equal(np.flatnonzero(pareto_mask(want_objs)),
+                          rec["pareto"]):
+        fail("dse: pareto_mask over the record's objectives is not the "
+             "record's Pareto set")
+    ties = pareto_ties(np, dse_objectives(
+        np, rep.energy_per_token_j, rep.latency_critical_ns,
+        rep.analog_flop_fraction), want_objs)
+    if any(k is None for _, _, k in ties):
+        fail(f"dse: Pareto membership differs from the record without a "
+             f"tie: {[p for p in ties if p[2] is None]}")
+    swapped = scaled_surrogate(sur, SWAP_SCALE)
+    rep2, counts = counted(torch, lambda: lasana.explore(cands, swapped))
+    check_launches("dse hot swap", counts, {"mlp_surrogate_heads": 1})
+    add_counts(total, "dse/hot_swap", counts)
+    if not (rep.compile_count == steady.compile_count
+            == rep2.compile_count == 1):
+        fail(f"dse: compile_count {rep.compile_count} / "
+             f"{steady.compile_count} / {rep2.compile_count} (want 1)")
+    if np.array_equal(rep2.tile_energy_j, rep.tile_energy_j):
+        fail("dse: the hot-swapped surrogate priced the same tile energies")
+    rows = tuple(torch.as_tensor(rec[k].astype(np.float32), device=dev)
+                 for k in ("tile_x", "tile_p", "tile_o"))
+    e_tile, l_tile = explore._price_rows(sur, *rows)
+    archs = {}
+    for arch in DSE_ARCHS:
+        cfg = configs.get_config(arch)
+        got = explore._arch_report(cfg, e_tile, l_tile)
+        comps = json.loads(str(rec[f"arch/{arch}/tiles_by_component"]))
+        if got.tiles_by_component != comps or any(
+                getattr(got, f) != int(rec[f"arch/{arch}/{f}"])
+                for f in ("n_tiles", "n_matrices", "analog_params",
+                          "total_params")):
+            fail(f"dse explore_arch {arch}: tile counts differ from the "
+                 "record")
+        rel = {f: rel_diff(getattr(got, f), float(rec[f"arch/{arch}/{f}"]))
+               for f in ("energy_per_token_j", "latency_critical_ns",
+                         "tile_energy_j", "analog_flop_fraction")}
+        if max(rel.values()) > DSE_RTOL:
+            fail(f"dse explore_arch {arch}: {rel} (limit {DSE_RTOL})")
+        own = explore.explore_arch(cfg, sur)
+        archs[arch] = {"n_tiles": got.n_tiles, "rel_diff_vs_ref": rel,
+                       "energy_per_token_j": got.energy_per_token_j,
+                       "own_draws_energy_per_token_j":
+                           own.energy_per_token_j}
+    res = {"phase": "dse", "candidates": DSE_CANDIDATES,
+           "n_samples": eng.n_samples,
+           "rows": DSE_CANDIDATES * eng.n_samples,
+           "first_wall_s": rep.wall_seconds,
+           "steady_wall_s": steady.wall_seconds,
+           "candidates_per_s": DSE_CANDIDATES / steady.wall_seconds,
+           "hot_swap_wall_s": rep2.wall_seconds,
+           "compile_count": rep2.compile_count,
+           "max_rel_diff_vs_ref": errs, "pareto": int(rep.pareto().size),
+           "pareto_differences": len({p[0] for p in ties}),
+           "pareto_tie_pairs": ties, "explore_arch": archs,
+           "limits": {"rtol": DSE_RTOL, "pareto_tie": DSE_TIE},
+           "card": smi}
+    if profile:
+        res["profile"] = profile_run(torch, lambda: lasana.explore(cands,
+                                                                   sur))
+    line(res)
+    return total, heads_at_dse_shape(torch, np, sur, eng)
+
+
+def heads_at_dse_shape(torch, np, sur, eng):
+    """``mlp_surrogate_heads`` at the sweep's shape: M_ED and M_L (P = 2)
+    over the engine's transition matrix (4,096 x 256 rows, F = 70),
+    against the plain version, timed beside its bound."""
+    from repro_torch.kernels import mlp_surrogate
+    (ws,) = eng._programs.values()
+    s = sur._stacked(("M_ED", "M_L"))
+    args = (ws.tr, s["x_mu"], s["x_sd"], s["y_mu"], s["y_sd"], s["w0"],
+            s["b0"], s["w1"], s["b1"], s["w2"], s["b2"])
+    got = mlp_surrogate.mlp_surrogate_heads(*args)
+    want = mlp_surrogate.mlp_heads_plain(*args)
+    torch.cuda.synchronize()
+    n, f = ws.tr.shape
+    p, _, h1 = s["w0"].shape
+    h2 = s["w1"].shape[2]
+    bound, by = bound_ms(
+        (n * f + sum(a.numel() for a in args[1:]) + p * n) * 4,
+        n * p * mlp_head_flops(f, h1, h2))
+    return {"shape": f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}",
+            "plan": mlp_surrogate.plan(p, f, h1, h2),
+            "max_abs_err": compare(got, want, "mlp_surrogate_heads dse"),
+            "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate_heads(*args),
+                          torch),
+            "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
+                *args), torch),
+            "bound_ms": bound, "bound_by": by}
+
+
+def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
+    """The golden and tick kernels at the layer runners' shapes:
+    ``lif_chunk`` (with ``v_seq``) over the scaling run's N = 200,000 x
+    100 ticks and ``network_tick`` on LIF rows at N = 20,000 and 200,000,
+    each against its plain version, timed beside its bound."""
+    from repro_torch.core.circuits import LIFNeuron
+    from repro_torch.kernels import lif_scan
+    from repro_torch.kernels import tick_megakernel as mk
+    circ = LIFNeuron()
+    _, x, params = stim
+    t_steps, n = x.shape[:2]
+    state = circ.init_state(n, device=dev)
+    run = lambda: lif_scan.lif_chunk(state, x, params, circ=circ,
+                                     record_v=True)
+    new_state, obs = run()
+    want = lif_scan.chunk_plain(circ, state, x, params, True)
+    torch.cuda.synchronize()
+    if not torch.equal(obs["spiked"], want[4]):
+        fail(f"lif_chunk n={n} T={t_steps}: spiked differs from the plain "
+             "version")
+    err = max(compare(g, w, f"lif_chunk n={n} T={t_steps} {k}")
+              for k, g, w in zip(("state", "output", "energy", "latency",
+                                  "v_seq"),
+                                 (new_state, obs["output"], obs["energy"],
+                                  obs["latency"], obs["v_seq"]),
+                                 (want[0], *want[1:4], want[5])))
+    ops_ = t_steps * n * (LIF_FLOPS_SETUP
+                          + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
+    n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 4 * 4 + 1)
+    bound, by = bound_ms(n_bytes, ops_, PEAK_FP32_UNFUSED_OPS)
+    chunk = {f"n={n} T={t_steps} v_seq": {
+        "max_abs_err": err, "ms": time_ms(run, torch),
+        # 100 x 64 substeps of PyTorch ops at 200,000 rows: one call
+        "plain_ms": time_ms(lambda: lif_scan.chunk_plain(
+            circ, state, x, params, True), torch, reps=1),
+        "bound_ms": bound, "bound_by": by,
+        "main_path": "simulate.run_golden('lif'), one launch a run"}}
+    pk, ly = mk.pack_heads(surs["lif"])
+    tick = {}
+    for n_t in (PROP_N, SCALING_NS[-1]):
+        ins, t, clock, ckw = tick_case(torch, np, dev, "lif", n_t, n_t)
+        v, o, t_last, params_t, ch, x_t, _ = ins
+        kw = dict(circuit="lif", clock_ns=clock, layout=ly, out_eps=0.02,
+                  annotate=False, **ckw)
+        args = (pk, v, o, t_last, params_t, ch, x_t, t, None)
+        got = mk.network_tick(*args, **kw)
+        *want_t, o_hat = mk._tick_arrays(pk["a"], pk["t"], v, o, t_last,
+                                         params_t, ch, x_t, t,
+                                         known_out=None, **kw)
+        torch.cuda.synchronize()
+        ulp = float(np.spacing(np.float32(0.75)))
+        flip = (got[1] != want_t[1]).cpu().numpy()
+        near = (torch.abs(o_hat - 0.75) <= HALF_VDD_BAND * ulp).cpu().numpy()
+        if (flip & ~near).any() or not torch.equal(got[2], want_t[2]):
+            fail(f"network_tick n={n_t}: spikes or t_last differ from the "
+                 "plain version away from the threshold")
+        res = tick_timing(torch, mk, args, kw, o_hat)
+        res["max_abs_err"] = max(
+            compare(g, w, f"network_tick n={n_t} {name}", mask=~flip)
+            for name, g, w in zip(("v", "e", "l"), (got[0], got[3], got[4]),
+                                  (want_t[0], want_t[3], want_t[4])))
+        res["main_path"] = "simulate.run_lasana('lif'), one launch a tick"
+        tick[f"n={n_t}"] = res
+    line({"phase": "layer_kernel_shapes", "lif_chunk": chunk,
+          "network_tick": tick, "card": smi})
+    return chunk, tick
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2847,6 +3380,24 @@ def main() -> int:
     for kernel, by_run in by_kernel.items():
         launches.setdefault(kernel, {}).update(by_run)
     checks["mlp_surrogate"]["train_shapes"] = train_shapes
+
+    t_layer = time.perf_counter()
+    parts = [layer_record(torch, np, dev, surs, smi)]
+    by_kernel, stim = layer_scaling(torch, np, dev, surs, args.profile, smi)
+    parts.append(by_kernel)
+    parts.append(layer_propagation(torch, np, dev, surs, args.profile, smi))
+    by_kernel, heads_dse = dse_runs(torch, np, dev, surs, args.profile, smi)
+    parts.append(by_kernel)
+    for part in parts:
+        for kernel, by_run in part.items():
+            launches.setdefault(kernel, {}).update(by_run)
+    chunk_shapes, tick_shapes = layer_kernel_shapes(torch, np, dev, surs,
+                                                    stim, smi)
+    checks["lif_chunk"]["layer_shapes"] = chunk_shapes
+    checks["network_tick"]["layer_shapes"] = tick_shapes
+    checks["mlp_surrogate_heads"]["dse_shape"] = heads_dse
+    line({"phase": "layer_and_dse_done",
+          "seconds": time.perf_counter() - t_layer})
 
     meta = {
         "crossbar_target": ("src/repro_torch/kernels/csrc/crossbar_step.cu",

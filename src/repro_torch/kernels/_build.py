@@ -110,6 +110,12 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def n_loaded() -> int:
+    """How many kernel libraries this process has loaded (a call that
+    raised it built or loaded one)."""
+    return len(_LIBS)
+
+
 def raise_on_error(lib: ctypes.CDLL, code: int, kernel: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:

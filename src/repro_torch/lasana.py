@@ -40,11 +40,20 @@ extraction, and the fit of every family per predictor (GBDT histograms,
 Adam and every prediction on the card; the MLP heads' predictions through
 ``mlp_surrogate``). Surrogates load from the reference's ``.npz``
 artifacts and save to them, and checkpoints cross between the two
-packages. Still to come with later slices: the layer runners
-(``simulate.py``) and the legacy bank shims (``persist.py``),
-exploration (``explore`` / ``CandidateSpec`` / ``DSEReport``), serving,
-and multi-device batches (``mesh=``). Everything runs on ``cuda`` unless
-``device=`` says otherwise.
+packages.
+
+:func:`explore` prices a batched design space of crossbar accelerators
+(:class:`CandidateSpec`) with a crossbar surrogate in one pass on the
+device and returns a :class:`DSEReport` (its Pareto frontier included)::
+
+    rep = lasana.explore(lasana.CandidateSpec.sample(4096, seed=0), xsur)
+    best = rep.candidates.take(rep.pareto())
+
+The layer runners of the paper's comparisons (golden, behavioral,
+LASANA-P / -O, annotation) are ``repro_torch.core.simulate``, the legacy
+bank shims ``repro_torch.core.persist``. Still to come with later
+slices: serving and multi-device batches (``mesh=``). Everything runs on
+``cuda`` unless ``device=`` says otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -63,6 +72,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.explore import CandidateSpec, DSEReport
 from repro_torch.core.network import (NetworkEngine, NetworkRun, NetworkSpec,
                                       StreamingRun)
 from repro_torch.core.surrogate import (FORMAT_VERSION, Manifest, Surrogate,
@@ -71,6 +81,8 @@ from repro_torch.kernels import ops
 from repro_torch.resilience.checkpoint import StreamCheckpoint
 
 __all__ = [
+    "CandidateSpec",
+    "DSEReport",
     "FORMAT_VERSION",
     "Manifest",
     "NetworkRun",
@@ -80,6 +92,7 @@ __all__ = [
     "SurrogateLibrary",
     "TrainConfig",
     "engine",
+    "explore",
     "load",
     "resume",
     "save",
@@ -321,3 +334,27 @@ def resume(checkpoint, spec: NetworkSpec, stimulus, *, surrogates=None,
                             checkpoint_every=checkpoint_every):
         acc.update(chunk)
     return acc.result()
+
+
+def explore(candidates: CandidateSpec, surrogates, *,
+            engine=None) -> DSEReport:
+    """Vectorized design-space exploration over crossbar surrogates.
+
+    Prices every candidate in ``candidates`` (a batched
+    :class:`CandidateSpec`: layer widths, tile size, V_dd, MoE shape,
+    circuit mix): tile counts / MoE utilization / FLOP fractions are exact
+    vectorized array math, and per-tile energy/latency comes from one
+    ``Surrogate.predict_heads`` pass over all candidates at once on the
+    engine's device. ``surrogates`` is a crossbar :class:`Surrogate` (or a
+    :class:`SurrogateLibrary` / ``{kind: Surrogate}`` dict carrying a
+    ``"crossbar"`` entry; a fitted ``PredictorBank`` is frozen).
+
+    ``lasana.explore`` shares one process-wide
+    :class:`repro_torch.core.explore.DSEEngine` on ``cuda`` (pass
+    ``engine=`` for an isolated one, e.g. ``DSEEngine(device="cpu")``);
+    re-sweeping with retrained weights of equal structure sets nothing up
+    again, and the returned :class:`DSEReport` carries the engine's
+    ``compile_count``. ``DSEReport.pareto()`` extracts the
+    energy/latency/analog-fraction frontier."""
+    from repro_torch.core.explore import evaluate_candidates
+    return evaluate_candidates(candidates, surrogates, engine=engine)

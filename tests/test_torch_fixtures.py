@@ -11,7 +11,9 @@ or only the crossbar and mixed-graph files (the LIF four stay as they
 are) with ``--regen-crossbar``, only the stream record with
 ``--regen-stream``, only the LM record with ``--regen-lm``, or only
 the wide-surrogate artifact and its record with ``--regen-wide``, or
-only the training record with ``--regen-train``.
+only the training record with ``--regen-train``, or only the layer
+record with ``--regen-layer``, or only the DSE record with
+``--regen-dse``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -73,6 +75,29 @@ over :data:`GBDT_BAND_REFITS` refits on the same rows with 1% of the
 training targets nudged by one ULP (nudge seeds 0, 1, ...): how far a
 fit moves when its inputs move by rounding, as a port's golden
 simulation moves them.
+
+The layer record (``--regen-layer``, ``layer_ref_record.npz``) runs the
+reference's layer runners (``repro.core.simulate``) on its own
+``make_stimulus("lif", 1000, 100, seed=123)`` and ``make_stimulus(
+"crossbar", 128, 30, seed=1)``, kept as they were drawn (``active`` as
+packed bits): for LIF golden, behavioral, LASANA-P, LASANA-O (golden
+states) and annotation (behavioral states and outputs) with
+``lif_packable`` and LASANA-P with ``lif_unpackable``; for crossbar rows
+golden, behavioral and LASANA-P with ``crossbar_packable``. A LIF run
+keeps its spikes as packed bits, its energy, latency and state summed per
+neuron and per tick, and the first :data:`LAYER_SUB` neurons' records
+whole (each neuron runs on its own, so a subset reruns alone); a crossbar
+run keeps every record whole.
+
+The DSE record (``--regen-dse``, ``dse_ref_record.npz``) is
+``DSEEngine().evaluate(CandidateSpec.sample(4096, seed=0),
+crossbar_unpackable)``: the engine's base rows (``base_x``, ``base_p``,
+``base_o``, n_samples 256), the candidates' ``v_dd`` and ``tile``, every
+``DSEReport`` array (``report/...``) and its Pareto indices; and
+``explore_arch`` of the four dense configs with the same surrogate
+(``arch/{arch}/...``, ``tiles_by_component`` as JSON) beside the 2,048
+rows ``tile_energy_latency`` prices (``tile_x``, ``tile_p``,
+``tile_o``: ``jax.random`` key 0, as it draws them).
 """
 
 from __future__ import annotations
@@ -145,6 +170,35 @@ PREDICTORS = ("M_O", "M_V", "M_ED", "M_ES", "M_L")
 FAMILIES = ("mean", "table", "linear", "gbdt", "mlp")
 GBDT_BAND_REFITS = 8
 
+# the layer record: the quickstart's layers through repro.core.simulate
+LAYER_RECORD = ARTIFACTS / "layer_ref_record.npz"
+LAYER_LIF = (1000, 100, 123)          # N, T, make_stimulus seed
+LAYER_XBAR = (128, 30, 1)
+LAYER_SUB = 64                        # neurons whose records are kept whole
+# run name -> (surrogate artifact or None, mode): golden / behavioral, or
+# run_lasana as LASANA-P ("p"), LASANA-O ("o") or annotation ("annotate")
+LAYER_LIF_RUNS = {"golden": (None, "golden"),
+                  "behavioral": (None, "behavioral"),
+                  "lasana_p": (PACKABLE, "p"), "lasana_o": (PACKABLE, "o"),
+                  "annotation": (PACKABLE, "annotate"),
+                  "lasana_p_unpackable": (UNPACKABLE, "p")}
+LAYER_XBAR_RUNS = {"golden": (None, "golden"),
+                   "behavioral": (None, "behavioral"),
+                   "lasana_p": (XBAR_PACKABLE, "p")}
+# the DSE record: lasana.explore at bench_dse.py's full candidate count
+DSE_RECORD = ARTIFACTS / "dse_ref_record.npz"
+DSE_CANDIDATES = 4096
+DSE_SAMPLES = 256                     # DSEEngine's default n_samples
+DSE_ARCHS = ("starcoder2-3b", "granite-3-8b", "deepseek-67b",
+             "mistral-large-123b")
+DSE_REPORT_FIELDS = ("n_tiles", "analog_params", "total_params",
+                     "analog_flop_fraction", "energy_per_token_j",
+                     "latency_critical_ns", "tile_energy_j",
+                     "tile_latency_ns")
+ARCH_FIELDS = ("n_matrices", "n_tiles", "analog_params", "total_params",
+               "analog_flop_fraction", "energy_per_token_j",
+               "latency_critical_ns", "tile_energy_j")
+
 STREAM_TICKS = 2000          # the stream phase's horizon
 STREAM_BLOCK = 250           # ticks per host block
 STREAM_CHUNK = 512           # ticks per chunk (three full + one of 464)
@@ -216,6 +270,35 @@ def tick_inputs(n: int, seed: int, n_in: int = 3, n_p: int = 4):
     return v, o, t_last, params, changed, x, known
 
 
+def layer_stimulus(rec, kind: str):
+    """The layer record's stimulus ``(active (T, N) bool, x, params)`` of
+    ``kind`` ("lif" | "xbar") as numpy."""
+    x = rec[f"{kind}/x"]
+    t_steps, n = x.shape[:2]
+    active = np.unpackbits(rec[f"{kind}/active"], axis=-1,
+                           count=n).astype(bool)
+    return active, x, rec[f"{kind}/params"].astype(np.float32)
+
+
+def layer_summary(run, kind: str, prefix: str) -> dict:
+    """A ``LayerRun``'s record entries: crossbar rows whole; LIF spikes as
+    packed bits, energy / latency / state sums per neuron and per tick
+    (float64) and the first :data:`LAYER_SUB` neurons' records whole."""
+    fields = {f: np.asarray(getattr(run, f), np.float32)
+              for f in ("outputs", "states", "energy", "latency")}
+    if kind == "xbar":
+        return {f"{prefix}/{f}": a for f, a in fields.items()}
+    out = {f"{prefix}/spikes": np.packbits(fields["outputs"] > 0.75,
+                                           axis=-1)}
+    for f in ("states", "energy", "latency"):
+        a = fields[f].astype(np.float64)
+        out[f"{prefix}/{f}_by_neuron"] = a.sum(axis=0)
+        out[f"{prefix}/{f}_by_tick"] = a.sum(axis=1)
+    for f, a in fields.items():
+        out[f"{prefix}/sub/{f}"] = a[:, :LAYER_SUB]
+    return out
+
+
 def jax_run_fields(run) -> dict:
     """A NetworkRun's record fields as numpy, spikes as uint8."""
     out = {f: np.asarray(getattr(run, f)) for f in RECORD_FIELDS}
@@ -226,14 +309,15 @@ def jax_run_fields(run) -> dict:
 RTOL = 1e-5
 
 
-def assert_close(got, want, name, rtol=RTOL):
+def assert_close(got, want, name, rtol=RTOL, atol_scale=1e-6):
     """Continuous records: rtol 1e-5 (the reference's own tolerance between
-    its fused and per-call paths), with an atol at 1e-6 of the field's
-    scale so values that cancel to ~0 compare on the field's magnitude."""
+    its fused and per-call paths), with an atol at ``atol_scale`` (1e-6)
+    of the field's scale so values that cancel to ~0 compare on the
+    field's magnitude."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = float(np.max(np.abs(want), initial=0.0))
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * scale,
-                               err_msg=name)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol_scale * scale, err_msg=name)
 
 
 def assert_runs_match(got, want):
@@ -617,6 +701,88 @@ def _regen_lm():
           f"{time.time() - t0:.1f} s")
 
 
+def _regen_layer():
+    """Write the layer record only (JAX on the CPU)."""
+    import time
+
+    from repro.core.simulate import (make_stimulus, run_behavioral,
+                                     run_golden, run_lasana)
+    from repro.core.surrogate import Surrogate
+
+    t0 = time.time()
+    record = {}
+    for kind, circuit, (n, t_steps, seed), runs in (
+            ("lif", "lif", LAYER_LIF, LAYER_LIF_RUNS),
+            ("xbar", "crossbar", LAYER_XBAR, LAYER_XBAR_RUNS)):
+        active, x, params = (np.asarray(a) for a in make_stimulus(
+            circuit, n, t_steps, seed=seed))
+        record[f"{kind}/active"] = np.packbits(active, axis=-1)
+        record[f"{kind}/x"] = x.astype(np.float32)
+        record[f"{kind}/params"] = (params.astype(np.int8) if kind == "xbar"
+                                    else params.astype(np.float32))
+        golden = run_golden(circuit, active, x, params)
+        beh = run_behavioral(circuit, active, x, params)
+        for name, (path, mode) in runs.items():
+            if mode == "golden":
+                run = golden
+            elif mode == "behavioral":
+                run = beh
+            else:
+                sur = Surrogate.load(str(path))
+                kw = {"p": {}, "o": {"oracle_states": golden.states},
+                      "annotate": {"oracle_states": beh.states,
+                                   "annotate_outputs": beh.outputs}}[mode]
+                run = run_lasana(sur, circuit, active, x, params, **kw)
+            record.update(layer_summary(run, kind, f"{kind}/{name}"))
+    np.savez_compressed(LAYER_RECORD, **record)
+    print(LAYER_RECORD.name, os.path.getsize(LAYER_RECORD), "bytes;",
+          f"{time.time() - t0:.0f} s")
+
+
+def _regen_dse():
+    """Write the DSE record only (JAX on the CPU)."""
+    import json
+    import time
+
+    import jax
+
+    from repro.configs import get_config
+    from repro.core.circuits import CrossbarRow
+    from repro.core.explore import CandidateSpec, DSEEngine, explore_arch
+    from repro.core.surrogate import Surrogate
+
+    t0 = time.time()
+    sur = Surrogate.load(str(XBAR_UNPACKABLE))
+    cands = CandidateSpec.sample(DSE_CANDIDATES, seed=0)
+    eng = DSEEngine(n_samples=DSE_SAMPLES)
+    rep = eng.evaluate(cands, sur)
+    record = {"base_x": np.asarray(eng._base_x, np.float32),
+              "base_p": np.asarray(eng._base_p).astype(np.int8),
+              "base_o": np.asarray(eng._base_o, np.float32),
+              "v_dd": cands.v_dd, "tile": cands.tile,
+              "pareto": rep.pareto()}
+    for f in DSE_REPORT_FIELDS:
+        record[f"report/{f}"] = getattr(rep, f)
+    # tile_energy_latency's rows (seed 0, 2,048 samples), as it draws them
+    circ = CrossbarRow()
+    kx, kp, ko = jax.random.split(jax.random.PRNGKey(0), 3)
+    record["tile_x"] = np.asarray(circ.sample_inputs(kx, (2048,)),
+                                  np.float32)
+    record["tile_p"] = np.asarray(circ.sample_params(kp, 2048)).astype(
+        np.int8)
+    record["tile_o"] = np.asarray(jax.random.uniform(
+        ko, (2048,), np.float32, -2, 2), np.float32)
+    for arch in DSE_ARCHS:
+        tr = explore_arch(get_config(arch), sur)
+        for f in ARCH_FIELDS:
+            record[f"arch/{arch}/{f}"] = np.asarray(getattr(tr, f))
+        record[f"arch/{arch}/tiles_by_component"] = np.array(
+            json.dumps(tr.tiles_by_component))
+    np.savez_compressed(DSE_RECORD, **record)
+    print(DSE_RECORD.name, os.path.getsize(DSE_RECORD), "bytes;",
+          f"{time.time() - t0:.0f} s")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--regen"]:
         _regen()
@@ -625,6 +791,8 @@ if __name__ == "__main__":
         _regen_lm()
         _regen_wide()
         _regen_train()
+        _regen_layer()
+        _regen_dse()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
     elif sys.argv[1:] == ["--regen-stream"]:
@@ -635,7 +803,12 @@ if __name__ == "__main__":
         _regen_wide()
     elif sys.argv[1:] == ["--regen-train"]:
         _regen_train()
+    elif sys.argv[1:] == ["--regen-layer"]:
+        _regen_layer()
+    elif sys.argv[1:] == ["--regen-dse"]:
+        _regen_dse()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
                  "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
-                 "--regen-wide | --regen-train")
+                 "--regen-wide | --regen-train | --regen-layer | "
+                 "--regen-dse")

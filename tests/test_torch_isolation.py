@@ -48,10 +48,12 @@ def test_no_jax_or_reference_imports_in_the_port():
     "kernels/ops.py", "convert.py",
     # the training slice
     "core/circuits.py", "core/events.py", "core/dataset.py",
-    "core/models.py", "core/predictors.py", "core/surrogate.py"])
+    "core/models.py", "core/predictors.py", "core/surrogate.py",
+    # the layer runners, the legacy bank shims and exploration
+    "core/simulate.py", "core/persist.py", "core/explore.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
-    """The modules of the streaming, LM serve and training slices, one by
-    one (``core/events.py`` keeps its own copy of the reference's pure
+    """The modules of the streaming, LM serve, training, layer-runner and
+    exploration slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
     (the reference imports ``repro.serve.buckets`` for the checkpoint's
@@ -101,6 +103,23 @@ def test_port_runs_with_jax_and_reference_unimportable():
             n_runs=12, n_steps=10, families=("mean", "linear")),
             device="cpu")
         assert set(trained.fit_info) == {"M_O", "M_V", "M_ED", "M_ES", "M_L"}
+        from repro_torch.core import simulate
+        stim = simulate.make_stimulus("lif", 6, 5, seed=0, device="cpu")
+        golden = simulate.run_golden("lif", *stim)
+        lz = simulate.run_lasana(sur, "lif", *stim,
+                                 oracle_states=golden.states)
+        assert lz.outputs.shape == golden.states.shape == (5, 6)
+        from repro_torch.core.explore import DSEEngine
+        rep = lasana.explore(lasana.CandidateSpec.sample(4, seed=0), trained,
+                             engine=DSEEngine(n_samples=8, device="cpu"))
+        assert rep.compile_count == 1 and len(rep.pareto()) >= 1
+        import tempfile, warnings
+        from repro_torch.core import persist
+        with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            persist.save_bank(trained, d + "/x.npz")
+            assert persist.load_bank(d + "/x.npz", device="cpu").circuit \
+                == "crossbar"
         import contextlib, io
         from repro_torch.launch import serve
         with contextlib.redirect_stdout(io.StringIO()):
