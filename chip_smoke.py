@@ -104,12 +104,29 @@ Phases, one output line each (JSON where it helps):
    with a hot swap that sets nothing up; and ``lif_chunk``,
    ``network_tick`` and ``mlp_surrogate_heads`` against their plain
    versions at these runs' shapes, timed beside their bounds;
-9. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+9. serve through ``repro_torch.serve.scheduler.Lane`` (continuous
+   batching over ``NetworkEngine.slot_programs``, every slot step enqueued
+   with host synchronisation forbidden): the SNN's 100 digits x 100 ticks
+   as 12 requests of 1-16 digits on one 32-slot lane at 16 ticks a chunk,
+   admitted as slots free (most join mid-stream and leave mid-chunk),
+   each digit's spikes against the JAX record (>= 99%, energy within 1%)
+   and each request against its solo ``simulate`` (outputs, spikes and
+   events bit for bit, energy / flush / latency at rtol 1e-5), timed
+   (events/s and requests/s against the solo runs, host time per step);
+   eight requests of 5-100 ticks and 1-4 digits on 16 slots; the
+   one-LIF-layer 784-128 spec (``network_tick_chunk``), the unpackable
+   surrogate (``mlp_surrogate_heads``), the mixed net and a behavioral
+   lane (handles flagged ``degraded``), each request against its solo
+   run; a second lane with M_ES weights x 1.001 that builds nothing;
+   ``surrogate.nan``, ``lane.step`` and ``chunk.stall`` fault plans; and
+   ``network_tick``, ``network_tick_chunk`` and ``mlp_surrogate_heads``
+   against their plain versions at a 32-slot lane's shapes;
+10. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time, its lower bound on
    this card and, where one exists, a library call's time
    (crossbar-width times of the head kernels beside the LIF ones);
-10. ``{"ok": true, "device": {...}}`` as the last line.
+11. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
 one more steady run under ``torch.profiler`` (for the stream phase: one
@@ -117,7 +134,8 @@ more steady stream of the SNN and of its hidden layer; for the LM phase:
 one more prefill and decode loop of the serve run; for the train phase:
 one more LIF training on a fifth of the testbench; for the layer phases:
 golden and LASANA-P at N = 200,000, LASANA-O at N = 20,000 and one more
-exploration sweep).
+exploration sweep; for the serve phase: one more served run of the SNN's
+12 requests).
 
 ``--digests`` only prints the digests of the head, tick and golden
 (``lif_step``, ``lif_chunk``, ``crossbar_target``) kernels' outputs on the
@@ -1511,18 +1529,20 @@ def check_lif_chunk(torch, np, dev, times):
     return out
 
 
-def check_network_tick_chunk(torch, np, dev, cases):
-    """``network_tick_chunk`` (T = 64, LIF rows) on each ``(label, pack,
-    layout, timed)`` case against its plain version (T plain ticks) and
-    against T ``network_tick`` launches: o, t_last and the event class
-    identical to the launches (and v, e, l too: the same device code)."""
+def check_network_tick_chunk(torch, np, dev, cases, ns=(N_MAIN, N_RAGGED),
+                             t_steps=T_CHUNK_CHECK):
+    """``network_tick_chunk`` (T = 64, LIF rows; or ``t_steps`` over rows
+    ``ns``, the first timed) on each ``(label, pack, layout, timed)`` case
+    against its plain version (T plain ticks) and against T
+    ``network_tick`` launches: o, t_last and the event class identical to
+    the launches (and v, e, l too: the same device code)."""
     from repro_torch.core.wrapper import LasanaState
     from repro_torch.kernels import tick_megakernel as mk
-    t_steps, clock, vdd = T_CHUNK_CHECK, 5.0, 1.5
+    clock, vdd = 5.0, 1.5
     ulp = float(np.spacing(np.float32(0.75)))
     out = {"max_abs_err": 0.0, "threshold_rows": 0}
     for label, pk, ly, timed in cases:
-        for n in (N_MAIN, N_RAGGED):
+        for n in ns:
             v, o, t_last, params, _, _, _ = tick_inputs(torch, np, dev, n,
                                                         n + 5, vdd)
             rng = np.random.default_rng(n + 6)
@@ -1580,7 +1600,7 @@ def check_network_tick_chunk(torch, np, dev, cases):
                         a, b, f"{tag} tick {k} {name}", mask=~flip))
                 state = LasanaState(*g[:3], params)
             out[f"{label}: equals_{t_steps}_network_tick_launches"] = True
-            if not timed or n != N_MAIN:
+            if not timed or n != ns[0]:
                 continue
             args = (pk, v, o, t_last, params, ch, x, ts)
             out["shape"] = (f"N={n}, T={t_steps}, LIF rows, A stack "
@@ -1592,7 +1612,7 @@ def check_network_tick_chunk(torch, np, dev, cases):
                 pk, "lif", LasanaState(v, o, t_last, params), ch, x, ts,
                 clock, layout=ly), torch, reps=5)
             out["ms_per_tick"] = out["ms"] / t_steps
-            out["network_tick_x64_ms"] = time_ms(lambda: seq_launch(
+            out[f"network_tick_x{t_steps}_ms"] = time_ms(lambda: seq_launch(
                 mk, pk, v, o, t_last, params, ch, x, ts, kw), torch)
             # the work this data needs, tick by tick from the launches
             h1, h2 = pk["a"]["w0"].shape[2], pk["a"]["w1"].shape[2]
@@ -3207,7 +3227,6 @@ def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
     each against its plain version, timed beside its bound."""
     from repro_torch.core.circuits import LIFNeuron
     from repro_torch.kernels import lif_scan
-    from repro_torch.kernels import tick_megakernel as mk
     circ = LIFNeuron()
     _, x, params = stim
     t_steps, n = x.shape[:2]
@@ -3237,9 +3256,22 @@ def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
             circ, state, x, params, True), torch, reps=1),
         "bound_ms": bound, "bound_by": by,
         "main_path": "simulate.run_golden('lif'), one launch a run"}}
-    pk, ly = mk.pack_heads(surs["lif"])
+    tick = tick_at_shapes(torch, np, dev, surs["lif"],
+                          (PROP_N, SCALING_NS[-1]),
+                          "simulate.run_lasana('lif'), one launch a tick")
+    line({"phase": "layer_kernel_shapes", "lif_chunk": chunk,
+          "network_tick": tick, "card": smi})
+    return chunk, tick
+
+
+def tick_at_shapes(torch, np, dev, sur, ns, main_path):
+    """``network_tick`` on LIF rows with ``sur``'s pack at each N of
+    ``ns`` against its plain version (spikes may differ only within
+    HALF_VDD_BAND ULPs of the threshold), timed beside its bound."""
+    from repro_torch.kernels import tick_megakernel as mk
+    pk, ly = mk.pack_heads(sur)
     tick = {}
-    for n_t in (PROP_N, SCALING_NS[-1]):
+    for n_t in ns:
         ins, t, clock, ckw = tick_case(torch, np, dev, "lif", n_t, n_t)
         v, o, t_last, params_t, ch, x_t, _ = ins
         kw = dict(circuit="lif", clock_ns=clock, layout=ly, out_eps=0.02,
@@ -3261,11 +3293,456 @@ def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
             compare(g, w, f"network_tick n={n_t} {name}", mask=~flip)
             for name, g, w in zip(("v", "e", "l"), (got[0], got[3], got[4]),
                                   (want_t[0], want_t[3], want_t[4])))
-        res["main_path"] = "simulate.run_lasana('lif'), one launch a tick"
+        res["main_path"] = main_path
         tick[f"n={n_t}"] = res
-    line({"phase": "layer_kernel_shapes", "lif_chunk": chunk,
-          "network_tick": tick, "card": smi})
-    return chunk, tick
+    return tick
+
+
+# --- the serve phase -------------------------------------------------------------
+
+SERVE_SLOTS = 32        # the served SNN's lane: 32 slots
+SERVE_CHUNK = 16        # ticks per scheduling round
+# the 100 digits cut into 12 requests of 1-16 digits, in order
+SERVE_SIZES = (16, 3, 9, 1, 12, 5, 14, 7, 2, 11, 4, 16)
+# (ticks, digits) of the heterogeneous requests on a 16-slot lane
+SERVE_HETERO = ((100, 4), (37, 2), (5, 1), (64, 3), (88, 1), (23, 4),
+                (50, 2), (71, 3))
+SERVE_UNPACKABLE = ((100, 8), (45, 5), (100, 7))      # the first 20 digits
+SERVE_MIXED = ((30, 16), (12, 10), (30, 20), (25, 18))   # 64 held digits
+SERVE_SWAP_SCALE = 1.001     # the hot swap's M_ES weights
+
+
+class _Queued:
+    """What a lane admits: a request's handle and host stimulus."""
+
+    def __init__(self, handle, stimulus):
+        self.handle = handle
+        self.stimulus = stimulus
+
+
+def split_requests(np, x_host, jobs):
+    """Host stimuli of (ticks, digits) jobs over consecutive digits of
+    ``x_host`` (T, B, fan_in), wrapping around B."""
+    out, lo = [], 0
+    b_all = x_host.shape[1]
+    for t, b in jobs:
+        idx = [(lo + j) % b_all for j in range(b)]
+        out.append(np.ascontiguousarray(x_host[:t, idx]))
+        lo += b
+    return out
+
+
+def no_sync_step(torch, step):
+    """``step`` run with host synchronisation forbidden: any synchronising
+    call inside a slot step raises."""
+    def run(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def serve_lane(torch, spec, sur, width, stims, kw=None, metrics=None):
+    """Serve host ``stims`` on a fresh lane of ``lasana.engine(spec,
+    record_hidden=False, **kw)``, every ``programs.step`` under sync debug
+    mode "error": admit requests in order as slots free, step until idle
+    (the reference's ``SimServer.run_until_idle`` loop). Returns (lane,
+    handles, host seconds per ``Lane.step``, join ticks, quarantined)."""
+    import dataclasses
+
+    import repro_torch.lasana as lasana
+    from repro_torch.serve import Bucket, Lane, RequestHandle
+    eng = lasana.engine(spec, record_hidden=False, **(kw or {}))
+    lane = Lane(eng, spec, Bucket("chip", width, SERVE_CHUNK), sur,
+                metrics=metrics)
+    lane.programs = dataclasses.replace(
+        lane.programs, step=no_sync_step(torch, lane.programs.step))
+    queue = [_Queued(RequestHandle(i, "chip"), x) for i, x in enumerate(stims)]
+    handles = [q.handle for q in queue]
+    walls, joins, quarantined = [], [], []
+    while queue or lane.active:
+        while queue and lane.admit(queue[0]):
+            joins.append(lane.g)
+            queue.pop(0)
+        t0 = time.perf_counter()
+        stats = lane.step()
+        walls.append(time.perf_counter() - t0)
+        quarantined += stats.get("quarantined", [])
+    return lane, handles, walls, joins, quarantined
+
+
+def request_parity(np, solo, served, name):
+    """A served request against its solo run: outputs, spikes and events
+    bit for bit; energy and flush at rtol 1e-5, latency at rtol 1e-5 with
+    atol 1e-6. Returns the largest relative energy difference."""
+    for f in ("outputs", "out_spikes", "events"):
+        a, b = getattr(solo, f), getattr(served, f)
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)):
+            fail(f"{name}: {f} differs from the solo run")
+    for f, atol in (("energy", 0.0), ("flush_energy", 0.0),
+                    ("latency", 1e-6)):
+        a = np.asarray(getattr(solo, f), np.float64)
+        b = np.asarray(getattr(served, f), np.float64)
+        if a.shape != b.shape or not np.allclose(b, a, rtol=1e-5, atol=atol):
+            fail(f"{name}: {f} differs from the solo run beyond rtol 1e-5")
+    a, b = solo.energy.astype(np.float64), served.energy.astype(np.float64)
+    return float(np.max(np.abs(b - a) / np.maximum(np.abs(a), 1e-30),
+                        initial=0.0))
+
+
+def solo_parity(torch, np, dev, spec, handles, stims, name, **kw):
+    """Every served request against ``lasana.simulate`` of its stimulus
+    alone on the card; the largest relative energy difference."""
+    import repro_torch.lasana as lasana
+    worst = 0.0
+    for i, (h, x) in enumerate(zip(handles, stims)):
+        solo = lasana.simulate(spec, torch.as_tensor(x, device=dev),
+                               record_hidden=False, **kw)
+        worst = max(worst, request_parity(np, solo, h.result(),
+                                          f"{name} request {i}"))
+    return worst
+
+
+def served_lane_line(torch, np, dev, name, spec, sur, width, stims, want,
+                     kw=None, smi=None):
+    """One lane's run with the launch counters reset just before it and
+    read just after it, each request held to its solo run. Returns (lane,
+    handles, counts, the line)."""
+    from repro_torch.kernels import ops
+    skw = dict(kw or {})
+    ops.reset_launches()
+    lane, handles, walls, joins, _ = serve_lane(torch, spec, sur, width,
+                                                stims, skw)
+    counts = dict(ops.LAUNCHES)
+    check_launches(f"serve {name}", counts,
+                   {k: v(len(walls)) for k, v in want.items()})
+    if sur is not None:
+        skw["surrogates"] = sur
+    worst = solo_parity(torch, np, dev, spec, handles, stims,
+                        f"serve {name}", **skw)
+    res = {"phase": "serve", "lane": name, "slots": width,
+           "chunk_ticks": SERVE_CHUNK, "requests": len(stims),
+           "steps": len(walls), "join_ticks": joins, "launches": counts,
+           "equal_to_solo": True, "energy_max_rel_diff_vs_solo": worst,
+           "degraded": [h.degraded for h in handles], "card": smi}
+    return lane, handles, counts, res
+
+
+def serve_snn(torch, np, dev, surs, profile, smi):
+    """The 784-128-10 SNN served: 100 digits x 100 ticks as 12 requests of
+    1-16 digits on one 32-slot lane at 16 ticks a chunk, admitted as slots
+    free. Each digit's spikes against the JAX record, the energy total
+    within 1%, each request against its solo run; then a steady run timed
+    beside the solo runs of the same requests. Returns (launch counts by
+    run, the engine, the requests' stimuli)."""
+    import repro_torch.lasana as lasana
+    from repro_torch.serve import ServerMetrics
+    spec, x_dev, _ = snn_workload(torch, np, dev)
+    x_host = x_dev.cpu().numpy()
+    stims = split_requests(np, x_host, [(T_STEPS, b) for b in SERVE_SIZES])
+    sur = surs["lif"]
+    lane, handles, counts, res = served_lane_line(
+        torch, np, dev, "snn_784_128_10", spec, sur, SERVE_SLOTS, stims,
+        {"network_tick": lambda steps: 2 * SERVE_CHUNK * steps}, smi=smi)
+    runs = [h.result() for h in handles]
+    rec = dict(np.load(ART / "snn_ref_record.npz"))
+    spikes = np.concatenate([(r.out_spikes > 0.75) for r in runs], axis=1)
+    agree = float(np.mean(spikes.astype(np.uint8)
+                          == rec["lasana/out_spikes"]))
+    e_served = float(sum(r.energy.sum() + r.flush_energy.sum()
+                         for r in runs))
+    e_ref = float(rec["lasana/energy"].sum()
+                  + rec["lasana/flush_energy"].sum())
+    e_diff = abs(e_served - e_ref) / abs(e_ref)
+    if agree < 0.99 or e_diff > 0.01 or not all(
+            np.isfinite(r.energy).all() for r in runs):
+        fail(f"serve snn: spike agreement {agree:.4f} (< 0.99) or energy "
+             f"difference {e_diff:.4%} (> 1%) against the JAX record")
+    if sum(g > 0 for g in res["join_ticks"]) <= len(stims) // 2:
+        fail(f"serve snn: joins at {res['join_ticks']}: most requests "
+             "should join mid-stream")
+    # steady: the same requests on a fresh lane of the warm engine, and
+    # the same requests run alone
+    metrics = ServerMetrics()
+    t0 = time.perf_counter()
+    _, steady, walls, _, _ = serve_lane(torch, spec, sur, SERVE_SLOTS, stims,
+                                        metrics=metrics)
+    served_s = time.perf_counter() - t0
+    events = sum(int(h.result().events.sum()) for h in steady)
+    x_solo = [torch.as_tensor(x, device=dev) for x in stims]
+    t0 = time.perf_counter()
+    solo_events = sum(int(lasana.simulate(spec, x, surrogates=sur,
+                                          record_hidden=False).events.sum())
+                      for x in x_solo)
+    solo_s = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    eng = lane.engine
+    res["drive_rows_differing_from_a_32_row_product"] = drive_rows_by_batch(
+        torch, eng._weights[0], x_dev[0, :SERVE_SLOTS])
+    res.update({"workload": "snn_784_128_10", "digits": N_IMAGES,
+                "ticks": T_STEPS, "spike_agreement_vs_ref": agree,
+                "energy_j": e_served, "energy_rel_diff_vs_ref": e_diff,
+                "steady_s": served_s, "events": events,
+                "events_per_s": events / served_s,
+                "requests_per_s": len(stims) / served_s,
+                "solo_s": solo_s, "solo_events_per_s": solo_events / solo_s,
+                "step_ms_median": 1e3 * statistics.median(walls),
+                "step_ms_mean": 1e3 * statistics.mean(walls),
+                "batch_occupancy": snap["batch_occupancy"],
+                "sync_debug_mode": "error"})
+    if profile:
+        res["profile"] = profile_run(torch, lambda: serve_lane(
+            torch, spec, sur, SERVE_SLOTS, stims))
+    line(res)
+    return {"serve/snn_784_128_10": counts}, lane.engine, stims
+
+
+def drive_rows_by_batch(torch, w, u):
+    """Rows of the drive product ``u[:m] @ w`` that differ from the same
+    rows of the whole ``u @ w``, by m (only the m where some row differs):
+    whether a lane's product rounds its rows as a smaller solo batch's."""
+    full = u @ w
+    out = {}
+    for m in range(1, u.shape[0]):
+        n = int((u[:m] @ w != full[:m]).any(1).sum())
+        if n:
+            out[m] = n
+    return out
+
+
+def m_es_scaled(sur, factor):
+    """A copy of ``sur`` with its M_ES MLP weight matrices scaled by
+    ``factor``: the same structure, other weights."""
+    from repro_torch.core.surrogate import Surrogate
+    params = {p: {k: a * factor if p == "M_ES" and k.startswith("w") else a
+                  for k, a in d.items()} for p, d in sur.params.items()}
+    return Surrogate(sur.manifest, params, sur.fit_info)
+
+
+def serve_hot_swap(torch, np, dev, surs, eng, stims, smi):
+    """A second lane of the served SNN's engine with the M_ES weights
+    scaled by 1.001: the slot step is built once for both lanes, and
+    neither the new lane nor its joins and flushes build anything."""
+    slot_keys = lambda: [k for k in eng._runners if k[0] == "slot"]
+    builds = eng.compile_count
+    swap = m_es_scaled(surs["lif"], SERVE_SWAP_SCALE)
+    lane, handles, _, _, _ = serve_lane(torch, eng.spec, swap, SERVE_SLOTS,
+                                        stims[:4])
+    if len(slot_keys()) != 1 or eng.compile_count != builds \
+            or lane.programs.compile_seconds != 0.0:
+        fail(f"serve hot swap: {len(slot_keys())} slot steps, "
+             f"{eng.compile_count - builds} runners built by the swap")
+    worst = solo_parity(torch, np, dev, eng.spec, handles, stims[:4],
+                        "serve hot swap", surrogates=swap)
+    line({"phase": "serve", "lane": "hot_swap",
+          "slot_steps_built": len(slot_keys()),
+          "runners_built_by_swap": eng.compile_count - builds,
+          "energy_max_rel_diff_vs_solo": worst, "equal_to_solo": True,
+          "card": smi})
+
+
+def serve_other_lanes(torch, np, dev, surs, smi):
+    """Heterogeneous lengths on a 16-slot lane, the one-LIF-layer 784-128
+    spec (``network_tick_chunk``), the unpackable surrogate
+    (``mlp_surrogate_heads``), the mixed crossbar -> LIF net with its
+    recurrent edge and a behavioral lane, each request against its solo
+    run. Returns launch counts by run."""
+    from repro_torch.convert import graph_spec_from_numpy
+    from repro_torch.core.surrogate import SurrogateLibrary
+    from repro_torch.data.mnist import make_digits
+    spec, x_dev, _ = snn_workload(torch, np, dev)
+    x_host = x_dev.cpu().numpy()
+    with np.load(ART / "snn_784_128_10.npz") as z:
+        w0 = z["w0"]
+    hidden = graph_spec_from_numpy(
+        [{"circuit": "lif", "weight": w0, "params": LIF_KNOBS}])
+    with np.load(ART / "mixed_144_24_10.npz") as z:
+        w1, w2 = z["w1"].astype(np.float32), z["w2"].astype(np.float32)
+    mixed = graph_spec_from_numpy(
+        [{"circuit": "crossbar", "weight": w1},
+         {"circuit": "lif", "weight": w2, "params": LIF_KNOBS}],
+        edges=[(1, 1, -0.4 * (1.0 - np.eye(10, dtype=np.float32)))])
+    imgs, _ = make_digits(MIXED_IMAGES, size=12, seed=777)
+    volts = (imgs * 1.6 - 0.8).astype(np.float32)
+    x_mixed = np.ascontiguousarray(np.broadcast_to(
+        volts, (MIXED_TICKS, *volts.shape)))
+    library = SurrogateLibrary({"crossbar": surs["crossbar"],
+                                "lif": surs["lif"]})
+    tick2 = lambda steps: 2 * SERVE_CHUNK * steps
+    lanes = (
+        ("hetero", spec, surs["lif"], 16,
+         split_requests(np, x_host, SERVE_HETERO), {"network_tick": tick2},
+         None),
+        ("hidden_784_128", hidden, surs["lif"], SERVE_SLOTS,
+         split_requests(np, x_host, [(T_STEPS, b) for b in SERVE_SIZES]),
+         {"network_tick_chunk": lambda steps: steps,
+          "network_tick": lambda steps: 0}, None),
+        ("lasana_unpackable", spec, surs["lif_unpackable"], 16,
+         split_requests(np, x_host, SERVE_UNPACKABLE),
+         {"mlp_surrogate_heads": lambda steps: (">=", SERVE_CHUNK * steps),
+          "network_tick": lambda steps: 0}, None),
+        ("mixed_144_24_10", mixed, library, SERVE_SLOTS,
+         split_requests(np, x_mixed, SERVE_MIXED), {"network_tick": tick2},
+         None),
+        ("behavioral", spec, None, 16,
+         split_requests(np, x_host, SERVE_HETERO[:3]), {},
+         dict(backend="behavioral")),
+    )
+    total = {}
+    for name, sp, sur, width, stims, want, kw in lanes:
+        _, handles, counts, res = served_lane_line(
+            torch, np, dev, name, sp, sur, width, stims, want, kw, smi)
+        if any(h.degraded != (name == "behavioral") for h in handles):
+            fail(f"serve {name}: handles' degraded flags {res['degraded']}")
+        line(res)
+        total[f"serve/{name}"] = counts
+    return total
+
+
+def serve_faults(torch, np, dev, surs, eng, stims, smi):
+    """Injected faults on the card: a ``surrogate.nan`` burst quarantines
+    exactly one request while its co-tenants equal their solo runs and
+    the victim, re-admitted alone, equals its own; a ``lane.step`` fire
+    raises before any launch and the next step proceeds; ``chunk.stall``
+    leaves a stream equal to the monolithic run."""
+    import repro_torch.lasana as lasana
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultInjected, FaultPlan, faults
+    spec, sur = eng.spec, surs["lif"]
+    reqs = stims[:4]
+    plan = FaultPlan(0, {"surrogate.nan": {"at": [2]}})
+    with faults.use_plan(plan):
+        lane, handles, _, _, quarantined = serve_lane(
+            torch, spec, sur, SERVE_SLOTS, reqs)
+    if plan.fired["surrogate.nan"] != 1 or len(quarantined) != 1:
+        fail(f"serve nan: {len(quarantined)} requests quarantined")
+    victim = quarantined[0]
+    spared = [(h, x) for h, x in zip(handles, reqs) if h is not victim.handle]
+    solo_parity(torch, np, dev, spec, [h for h, _ in spared],
+                [x for _, x in spared], "serve nan co-tenant", surrogates=sur)
+    victim.handle._reset_for_retry()
+    lane.admit(victim.q)
+    while lane.active:
+        lane.step()
+    solo_parity(torch, np, dev, spec, [victim.handle],
+                [reqs[victim.handle.id]], "serve nan victim",
+                surrogates=sur)
+    # lane.step: the first step raises before it launches anything
+    import dataclasses
+
+    from repro_torch.serve import Bucket, Lane, RequestHandle
+    plan = FaultPlan(0, {"lane.step": {"at": [0]}})
+    lane = Lane(eng, spec, Bucket("chip", SERVE_SLOTS, SERVE_CHUNK), sur)
+    lane.programs = dataclasses.replace(
+        lane.programs, step=no_sync_step(torch, lane.programs.step))
+    hs = [RequestHandle(i, "chip") for i in range(2)]
+    for h, x in zip(hs, reqs[:2]):
+        lane.admit(_Queued(h, x))
+    before = sum(ops.LAUNCHES.values())
+    with faults.use_plan(plan):
+        try:
+            lane.step()
+            fail("serve lane.step: the planned fault did not fire")
+        except FaultInjected:
+            pass
+        if sum(ops.LAUNCHES.values()) != before or lane.g != 0:
+            fail("serve lane.step: the faulted step launched or advanced")
+        while lane.active:
+            lane.step()
+    solo_parity(torch, np, dev, spec, hs, reqs[:2], "serve lane.step",
+                surrogates=sur)
+    # chunk.stall on the stream: stalls, never changes a record
+    x = torch.as_tensor(np.concatenate(reqs[:2], axis=1), device=dev)
+    mono = lasana.simulate(spec, x, surrogates=sur, record_hidden=False)
+    plan_s = FaultPlan(0, {"chunk.stall": {"rate": 1.0, "max_fires": 3}},
+                       stall_seconds=0.01)
+    with faults.use_plan(plan_s):
+        streamed = lasana.simulate_stream(spec, x, chunk_ticks=SERVE_CHUNK,
+                                          surrogates=sur, record_hidden=False)
+    same_record(np, streamed, mono, "serve chunk.stall stream")
+    if plan_s.fired["chunk.stall"] != 3:
+        fail(f"serve chunk.stall fired {plan_s.fired['chunk.stall']} times")
+    line({"phase": "serve", "lane": "faults",
+          "surrogate_nan": {"quarantined": [victim.handle.id],
+                            "co_tenants_equal_solo": True,
+                            "victim_readmitted_equal_solo": True},
+          "lane_step": {"raised_before_launch": True,
+                        "next_steps_equal_solo": True},
+          "chunk_stall": {"fired": plan_s.fired["chunk.stall"],
+                          "calls": plan_s.calls["chunk.stall"],
+                          "stream_equals_monolithic_bitwise": True},
+          "card": smi})
+
+
+def heads_at_serve_shapes(torch, np, dev, sur):
+    """``mlp_surrogate_heads`` with the unpackable artifact's stacked
+    groups, (M_O, M_V) and (M_ED, M_L), at a 32-slot lane's LIF rows (N
+    = 4,096 and 320) against the plain version, timed beside the bound."""
+    from repro_torch.kernels import mlp_surrogate
+    keys = ("x_mu", "x_sd", "y_mu", "y_sd", "w0", "b0", "w1", "b1", "w2",
+            "b2")
+    out = {"max_abs_err": 0.0}
+    for pnames in (("M_O", "M_V"), ("M_ED", "M_L")):
+        s = sur._stacked(pnames)
+        stacks = [s[k] for k in keys]
+        p, f, h1 = s["w0"].shape
+        h2 = s["w1"].shape[2]
+        for n in (SERVE_SLOTS * 128, SERVE_SLOTS * 10):
+            x = torch.as_tensor(np.random.default_rng(n + f).normal(
+                0, 1, (n, f)), dtype=torch.float32, device=dev)
+            args = (x, *stacks)
+            tag = f"{pnames} n={n}"
+            got = mlp_surrogate.mlp_surrogate_heads(*args)
+            want = mlp_surrogate.mlp_heads_plain(*args)
+            torch.cuda.synchronize()
+            err = compare(got, want, f"mlp_surrogate_heads serve {tag}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            bound, by = bound_ms(
+                (n * f + sum(a.numel() for a in stacks) + p * n) * 4,
+                n * p * mlp_head_flops(f, h1, h2))
+            out[tag] = {
+                "shape": f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}",
+                "max_abs_err": err,
+                "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate_heads(
+                    *args), torch),
+                "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
+                    *args), torch),
+                "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def serve_kernel_shapes(torch, np, dev, surs, smi):
+    """The three kernels a served lane launches, at a 32-slot lane's
+    shapes: ``network_tick`` on the SNN's LIF rows (N = 4,096 and 320),
+    ``network_tick_chunk`` on the hidden layer's (N = 4,096, T = 16; also
+    against 16 ``network_tick`` launches, bit for bit) and
+    ``mlp_surrogate_heads`` (the unpackable artifact's groups), each
+    against its plain version, timed beside its bound."""
+    from repro_torch.kernels import tick_megakernel as mk
+    tick = tick_at_shapes(torch, np, dev, surs["lif"],
+                          (SERVE_SLOTS * 128, SERVE_SLOTS * 10),
+                          "serve lanes of the SNN, one launch a layer a tick")
+    chunk = check_network_tick_chunk(
+        torch, np, dev, [("lif packable", *mk.pack_heads(surs["lif"]), True)],
+        ns=(SERVE_SLOTS * 128,), t_steps=SERVE_CHUNK)
+    heads = heads_at_serve_shapes(torch, np, dev, surs["lif_unpackable"])
+    line({"phase": "serve_kernel_shapes", "network_tick": tick,
+          "network_tick_chunk": chunk, "mlp_surrogate_heads": heads,
+          "card": smi})
+    return tick, chunk, heads
+
+
+def serve_runs(torch, np, dev, surs, profile, smi):
+    """The serve phase (``repro_torch.serve.scheduler.Lane`` on the card);
+    returns (launch counts by run, the kernels at the lanes' shapes)."""
+    total, eng, stims = serve_snn(torch, np, dev, surs, profile, smi)
+    serve_hot_swap(torch, np, dev, surs, eng, stims, smi)
+    total.update(serve_other_lanes(torch, np, dev, surs, smi))
+    serve_faults(torch, np, dev, surs, eng, stims, smi)
+    return total, serve_kernel_shapes(torch, np, dev, surs, smi)
 
 
 def nvidia_smi() -> str:
@@ -3398,6 +3875,20 @@ def main() -> int:
     checks["mlp_surrogate_heads"]["dse_shape"] = heads_dse
     line({"phase": "layer_and_dse_done",
           "seconds": time.perf_counter() - t_layer})
+
+    t_serve = time.perf_counter()
+    by_kernel, (tick_serve, chunk_serve, heads_serve) = serve_runs(
+        torch, np, dev, surs, args.profile, smi)
+    for run_name, counts in by_kernel.items():
+        add_counts(launches, run_name, counts)
+    for name, shapes in (("network_tick", tick_serve),
+                         ("network_tick_chunk", chunk_serve),
+                         ("mlp_surrogate_heads", heads_serve)):
+        checks[name]["serve_shapes"] = shapes
+        errs = [shapes["max_abs_err"]] if "max_abs_err" in shapes else [
+            r["max_abs_err"] for r in shapes.values()]
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], *errs)
+    line({"phase": "serve_done", "seconds": time.perf_counter() - t_serve})
 
     meta = {
         "crossbar_target": ("src/repro_torch/kernels/csrc/crossbar_step.cu",

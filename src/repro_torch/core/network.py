@@ -31,6 +31,15 @@ merged record (:class:`StreamingRun`) equals the monolithic run bit for
 bit. A graph of one LIF layer and no edges runs a whole chunk through one
 time-looped kernel: ``network_tick_chunk`` (lasana, standalone, packable
 heads) or ``lif_chunk`` (golden); monolithic runs take the same path.
+
+Continuous batching (:meth:`NetworkEngine.slot_programs`, driven by
+``repro_torch.serve.scheduler.Lane``) runs a ``b``-slot batch in which
+requests own disjoint slots: ``join`` resets a request's slots at a chunk
+boundary (``t_last`` at the join tick, so every tau equals a solo run's),
+``step`` advances all slots one chunk under a per-slot live mask (slot s
+is live at tick k iff ``k < end_ks[s]``, compared on the device) with
+energy, latency and events kept per slot, and ``flush`` charges a leaving
+request's trailing idle energy from its own slots.
 """
 
 from __future__ import annotations
@@ -242,6 +251,11 @@ def drive_to_circuit_inputs(drive, *, spike_amp: float = 1.5,
 def _count_events(changed):
     """Exact int32 count of a ``changed`` mask (stays on the device)."""
     return changed.sum(dtype=torch.int32)
+
+
+def _slot_events(changed, b: int):
+    """Per-slot int32 counts of a batch-major ``changed`` mask: (b,)."""
+    return changed.reshape(b, -1).sum(1, dtype=torch.int32)
 
 
 def _tile_params(p, b: int, n_out: int):
@@ -494,6 +508,19 @@ class StreamingRun:
             compile_seconds=self.compile_seconds)
 
 
+@dataclasses.dataclass(frozen=True)
+class SlotPrograms:
+    """The continuous-batching runners of one (batch width, chunk ticks,
+    surrogate structure) bucket — what the serving layer's scheduler
+    drives (see :meth:`NetworkEngine.slot_programs` for the calling
+    conventions and the parity contract)."""
+
+    step: Any                      # one chunk of every slot, live-masked
+    flush: Any                     # per-slot leave-time idle flush
+    join: Any                      # masked slot (re)initialisation
+    compile_seconds: float         # 0.0 when every runner was cached
+
+
 class PendingRun:
     """A run enqueued on the device: its records are device tensors until
     :meth:`result` waits for them and builds the :class:`NetworkRun`."""
@@ -610,7 +637,7 @@ class NetworkEngine:
             self._rec[e.dst].append((e.src, we, conn))
         self._runners: dict = {}
         self._lock = threading.Lock()
-        self.compile_count = 0        # distinct runners built
+        self.compile_count = 0        # tick-loop runners built
 
     def _normalize_surrogates(self, src) -> SurrogateLibrary:
         """Coerce surrogates into a validated library on the engine's device."""
@@ -782,6 +809,7 @@ class NetworkEngine:
 
     def _stream_gen(self, stimulus, chunk_ticks, static_banks, sur_iter,
                     checkpoint_every=None, resume_from=None):
+        from repro_torch.resilience import faults
         spec = self.spec
         chunks = _iter_chunks(stimulus, chunk_ticks, spec.layers[0].fan_in,
                               skip_ticks=(resume_from.k0
@@ -849,6 +877,7 @@ class NetworkEngine:
         inflight = None                # the latest chunk's copy event
         try:
             while cur is not None:
+                faults.stall("chunk.stall")
                 x_chunk = self._upload(cur)
                 if x_chunk.shape[1] != b:
                     raise ValueError(
@@ -915,11 +944,11 @@ class NetworkEngine:
             if inflight is not None:
                 inflight.synchronize()
 
-    def _upload(self, a):
-        """A host block (numpy or tensor) as a float32 tensor on the
+    def _upload(self, a, dtype=torch.float32):
+        """A host block (numpy or tensor) as a ``dtype`` tensor on the
         engine's device; a CPU block reaches the card through pinned
         memory and an asynchronous copy (no host synchronisation)."""
-        t = torch.as_tensor(a, dtype=torch.float32)
+        t = torch.as_tensor(a, dtype=dtype)
         if self.device.type != "cuda" or t.device == self.device:
             return t.to(self.device)
         if t.device.type == "cpu":
@@ -1018,12 +1047,14 @@ class NetworkEngine:
 
     # --- per-layer tick function ------------------------------------------------
 
-    def _lif_tick(self, i: int):
+    def _lif_tick(self, i: int, slot_records: bool = False):
         """tick(carry, drive, changed, t, bank, pack, layout) -> (carry',
         spikes (B, n), e, l, events): ``drive`` is the combined synaptic
         drive, ``t`` this tick's time (0-d device tensor), ``bank`` the
         layer's Surrogate (lasana only), ``pack``/``layout`` its
-        megakernel head pack or None."""
+        megakernel head pack or None. ``slot_records`` counts events per
+        batch slot, (B,) int32, instead of one scalar (rows are
+        batch-major)."""
         layer = self.spec.layers[i]
         amp = self.spec.spike_amp
         circ = self.circs[i]
@@ -1070,15 +1101,17 @@ class NetworkEngine:
                                           megakernel_layout=layout)
                 spikes = torch.where(changed, o, 0.0)
                 carry = ns
-            return carry, spikes.reshape(-1, n_out), e, l, \
-                _count_events(changed)
+            spikes = spikes.reshape(-1, n_out)
+            ev = (_slot_events(changed, spikes.shape[0]) if slot_records
+                  else _count_events(changed))
+            return carry, spikes, e, l, ev
 
         return tick
 
-    def _xbar_tick(self, i: int):
+    def _xbar_tick(self, i: int, slot_records: bool = False):
         """tick(carry, x_volts (B, fan_in), t, bank, pack, layout) ->
-        (carry', codes (B, n_out), e, l, events), arguments as in
-        :meth:`_lif_tick`.
+        (carry', codes (B, n_out), e, l, events), arguments and
+        ``slot_records`` as in :meth:`_lif_tick`.
 
         Rows are combinational with sample-and-hold inputs: a row segment
         has an input event iff any of its input lines is live (|x| > eps)
@@ -1135,7 +1168,9 @@ class NetworkEngine:
             code = torch.round(ops.div(v + v_sat, 2 * v_sat) * levels)
             v_adc = ops.div(code, levels) * 2 * v_sat - v_sat
             y = ops.div(row_sum(v_adc.reshape(-1, n_out, n_seg)), gain)
-            return carry, y, e, l, _count_events(changed)
+            ev = (_slot_events(changed, b_l) if slot_records
+                  else _count_events(changed))
+            return carry, y, e, l, ev
 
         return tick
 
@@ -1146,30 +1181,43 @@ class NetworkEngine:
         reference while their inputs are dead."""
         if self.backend != "lasana" or self.spec.layers[i].circuit != "lif":
             return torch.zeros((), device=self.device)
-        circ = self.circs[i]
-        lst = carry
+        return self._idle_energy(carry, i, t_end_ns, bank).sum()
+
+    def _idle_energy(self, lst, i: int, t_end_ns, bank):
+        """Each lasana circuit's merged E2 static energy from its
+        ``t_last`` to ``t_end_ns`` (a float, or a per-circuit tensor);
+        zero where that span is empty."""
         tau = t_end_ns - lst.t_last
         feats = torch.cat(
-            [lst.v.new_zeros((lst.v.shape[0], circ.n_inputs)),
+            [lst.v.new_zeros((lst.v.shape[0], self.circs[i].n_inputs)),
              lst.v[:, None], tau[:, None], lst.params], dim=1)
-        e = bank.predict("M_ES", feats)
-        return torch.where(tau > 0, e, 0.0).sum()
+        return torch.where(tau > 0, bank.predict("M_ES", feats), 0.0)
 
     # --- the graph runner ---------------------------------------------------------
 
-    def _make_cascade(self):
-        """``cascade(banks, carries, prev_ys, u_in, ts_k, packs) ->
+    def _make_cascade(self, slot_records: bool = False):
+        """``cascade(banks, carries, prev_ys, u_in, ts_k, packs, live) ->
         (new_carries, new_ys, e (L,), l (L,), events (L,) int32)``: one
         network tick. ``prev_ys`` are the layers' outputs of the previous
-        tick, which the one-tick-delayed edges deliver."""
+        tick, which the one-tick-delayed edges deliver.
+
+        ``slot_records=True`` is the continuous-batching variant behind
+        :meth:`slot_programs`: the records stay per batch slot — ``(L, B)``
+        instead of ``(L,)`` — and ``live`` (B,) bool freezes the slots
+        that are not live this tick: their LIF event detection is forced
+        off and their crossbar input volts are zeroed after the clamp, so
+        a dead or empty slot processes no event, charges no energy and
+        holds its carry."""
         spec = self.spec
         amp = spec.spike_amp
         kinds = spec.circuits
-        ticks = [self._lif_tick(i) if kinds[i] == "lif"
-                 else self._xbar_tick(i) for i in range(spec.n_layers)]
+        ticks = [self._lif_tick(i, slot_records) if kinds[i] == "lif"
+                 else self._xbar_tick(i, slot_records)
+                 for i in range(spec.n_layers)]
         act = lambda i: "tanh" if i is None else spec.layers[i].activation
 
-        def cascade(banks, carries, prev_ys, u_in, ts_k, packs):
+        def cascade(banks, carries, prev_ys, u_in, ts_k, packs, live=None):
+            bsz = u_in.shape[0]
             cur, src_kind, src = u_in, "input", None
             new_carries, new_ys, es, ls, evs = [], [], [], [], []
             for i in range(spec.n_layers):
@@ -1190,6 +1238,8 @@ class NetworkEngine:
                         pr = (torch.abs(ur)
                               > event_threshold(kinds[j], amp)).float()
                         incoming = incoming | ((pr @ conn) > 0.5)
+                    if live is not None:
+                        incoming = incoming & live[:, None]
                     carry, y, e, l, ev = ticks[i](
                         carries[i], drive, incoming.reshape(-1), ts_k[i],
                         bank, pk, ly)
@@ -1202,12 +1252,18 @@ class NetworkEngine:
                             kinds[j], "crossbar", prev_ys[j], spike_amp=amp,
                             activation=act(j)) @ we
                     xv = torch.clamp(xv, circ.input_lo, circ.input_hi)
+                    if live is not None:
+                        xv = torch.where(live[:, None], xv, 0.0)
                     carry, y, e, l, ev = ticks[i](carries[i], xv, ts_k[i],
                                                   bank, pk, ly)
                 new_carries.append(carry)
                 new_ys.append(y)
-                es.append(e.sum())
-                ls.append(l.max())
+                if slot_records:       # per-tenant attribution: per slot
+                    es.append(e.reshape(bsz, -1).sum(1))
+                    ls.append(l.reshape(bsz, -1).amax(1))
+                else:
+                    es.append(e.sum())
+                    ls.append(l.max())
                 evs.append(ev)
                 cur, src_kind, src = y, kinds[i], i
             return (new_carries, new_ys, torch.stack(es), torch.stack(ls),
@@ -1262,49 +1318,65 @@ class NetworkEngine:
         return (self.backend == "golden" and spec.n_layers == 1
                 and spec.circuits == ("lif",) and not spec.edges)
 
-    def _chunk_inputs(self, x):
+    def _chunk_inputs(self, x, live=None):
         """``(changed (T, N) bool, LIF inputs (T, N, 3))`` of a one-LIF-layer
         graph over a chunk ``x`` (T, B, fan_in). Event detection is one
         product over the chunk, exact in any order (sums of 0/1 terms);
         the synaptic drive, a float sum whose rounding follows the
         product's blocking, is computed tick by tick at the per-tick
-        path's shape, so every chunk size gives the same bits."""
+        path's shape, so every chunk size gives the same bits. ``live``
+        (T, B) bool, the slot programs' mask, turns off the events of the
+        slots that are not live."""
         amp = self.spec.spike_amp
         t_steps = x.shape[0]
         drive = torch.stack([ops.div(u @ self._weights[0], amp) for u in x])
         pre = (torch.abs(x) > event_threshold("input", amp)).float()
-        changed = ((pre @ self._conn[0]) > 0.5).reshape(t_steps, -1)
+        changed = (pre @ self._conn[0]) > 0.5
+        if live is not None:
+            changed = changed & live[:, :, None]
+        changed = changed.reshape(t_steps, -1)
         xin = drive_to_circuit_inputs(drive, spike_amp=amp)
         return changed, xin.reshape(t_steps, -1, 3)
 
-    def _chunk_records(self, carry, spikes, e_seq, l_seq, changed):
+    def _chunk_records(self, carry, spikes, e_seq, l_seq, changed,
+                       slots: bool = False):
         """A time-looped chunk's per-tick records, reduced as the per-tick
         path reduces each tick: the energy of tick k is the sum of a fresh
         (N,) tensor (a row of the chunk that sits at another alignment is
-        copied first: a CUDA reduction's order follows the alignment)."""
+        copied first: a CUDA reduction's order follows the alignment).
+        ``slots`` keeps them per batch slot, ``(T, 1, B)``, as the slot
+        cascade does."""
+        hidden = [spikes] if self.record_hidden else []
+        if slots:
+            t_steps, b = spikes.shape[:2]
+            per = lambda a: a.reshape(t_steps, b, -1)
+            return ([carry], [spikes[-1]], spikes, hidden,
+                    per(e_seq).sum(-1)[:, None], per(l_seq).amax(-1)[:, None],
+                    per(changed).sum(-1, dtype=torch.int32)[:, None])
         aligned = e_seq.device.type == "cpu" or e_seq.shape[1] % 4 == 0
         es = torch.stack([(r if aligned else r.clone()).sum() for r in e_seq])
-        out = (spikes, [spikes] if self.record_hidden else [], es[:, None],
-               l_seq.amax(1)[:, None],
+        out = (spikes, hidden, es[:, None], l_seq.amax(1)[:, None],
                changed.sum(1, dtype=torch.int32)[:, None])
         return [carry], [spikes[-1]], *out
 
-    def _chunk_fast_path(self, pack_layout, carries, x, ks):
+    def _chunk_fast_path(self, pack_layout, carries, x, ks, live=None):
         """The whole chunk as ONE ``network_tick_chunk`` launch; returns
-        what :meth:`_run_ticks` returns."""
+        what :meth:`_run_ticks` returns (per slot under a ``live``
+        mask)."""
         from repro_torch.kernels.tick_megakernel import megakernel_chunk
         layer = self.spec.layers[0]
         amp = self.spec.spike_amp
         clock = self.circs[0].clock_ns
         pack, layout = pack_layout
         t_steps, b = x.shape[0], x.shape[1]
-        changed, xin = self._chunk_inputs(x)
+        changed, xin = self._chunk_inputs(x, live)
         new_state, o_seq, e_seq, l_seq = megakernel_chunk(
             pack, layer.circuit, carries[0], changed, xin, (ks + 1.0) * clock,
             clock, spiking=True, vdd=amp, layout=layout)
         spikes = torch.where(changed, o_seq, 0.0
                              ).reshape(t_steps, b, layer.n_out)
-        return self._chunk_records(new_state, spikes, e_seq, l_seq, changed)
+        return self._chunk_records(new_state, spikes, e_seq, l_seq, changed,
+                                   slots=live is not None)
 
     def _golden_chunk(self, carries, x):
         """The whole golden chunk as ONE ``lif_chunk`` launch over the
@@ -1323,23 +1395,26 @@ class NetworkEngine:
         return self._chunk_records((new_state, params), spikes,
                                    obs["energy"], l_seq, changed)
 
-    def _run_ticks(self, cascade, banks, carries, prev_ys, x, ks):
+    def _run_ticks(self, cascade, banks, carries, prev_ys, x, ks, live=None):
         """Advance the graph over one block of ticks ``x`` (T, B, fan_in)
         with global tick indices ``ks`` (T,) f32. Returns ``(carries,
         prev_ys, out_seq (T, B, n_last), hidden, e (T, L), l (T, L),
         events (T, L))``. The megakernel head packs are built here, once
         per block; eligible one-LIF-layer graphs take a time-looped
-        kernel instead of the per-tick loop."""
+        kernel instead of the per-tick loop. ``live`` (T, B) bool is the
+        slot programs' mask (with a ``slot_records`` cascade): the records
+        are then ``(T, L, B)``."""
         packs = self._mk_pack(banks)
         if "lif" in packs and self._chunk_eligible(packs["lif"]):
-            return self._chunk_fast_path(packs["lif"], carries, x, ks)
+            return self._chunk_fast_path(packs["lif"], carries, x, ks, live)
         if self._golden_chunk_eligible():
             return self._golden_chunk(carries, x)
         ts = [(ks + 1.0) * c.clock_ns for c in self.circs]
         outs, hidden, es, ls, evs = [], [], [], [], []
         for k in range(x.shape[0]):
             carries, prev_ys, e, l, ev = cascade(
-                banks, carries, prev_ys, x[k], [t[k] for t in ts], packs)
+                banks, carries, prev_ys, x[k], [t[k] for t in ts], packs,
+                None if live is None else live[k])
             outs.append(prev_ys[-1])
             if self.record_hidden:
                 hidden.append(prev_ys)
@@ -1410,15 +1485,140 @@ class NetworkEngine:
         runner's flush, applied once at the true end of the stream."""
         return self._flush_all
 
+    # --- continuous-batching slot programs (the serving layer) ----------------
+
+    def _build_slot_step(self, b: int, chunk_ticks: int):
+        """The slot-masked chunk runner of continuous batching:
+        ``step(x, k0, end_ks, carries, prev_ys, banks)`` is the stream's
+        chunk runner with two serving extensions.
+
+          * ``end_ks`` (b,) f32 on the device — each slot's global end
+            tick: at tick ``k`` only slots with ``k < end_ks[slot]`` are
+            live, a comparison made on the device. Dead slots (request
+            finished mid-chunk, or seat empty) are frozen by the cascade's
+            ``live`` mask, so one runner serves every mix of request
+            lengths.
+          * per-slot records — energy and latency ``(T, L, b)`` and event
+            counts ``(T, L, b)`` int32, so that the scheduler can slice
+            each tenant's rows out of the shared batch.
+
+        ``k0`` is the chunk's first global tick (a Python number or a 0-d
+        tensor). Returns ``(primary, out_seq, hidden, e, l, events,
+        carries, prev_ys, banks)``; the caller's carries are read, never
+        written, and nothing synchronises with the host."""
+        cascade = self._make_cascade(slot_records=True)
+        base = torch.arange(chunk_ticks, dtype=torch.float32,
+                            device=self.device)
+
+        def step(x, k0, end_ks, carries, prev_ys, banks):
+            ks = base + k0                  # exact: integers below 2^24
+            live = ks[:, None] < end_ks[None, :]
+            carries, prev_ys, out_seq, hid, e, l, ev = self._run_ticks(
+                cascade, banks, carries, prev_ys, x, ks, live)
+            return (self._primary(out_seq), out_seq, hid, e, l, ev,
+                    carries, prev_ys, banks)
+
+        return step
+
+    def _build_slot_flush(self, b: int):
+        """The per-slot leave-time flush: ``flush(carries, t_ends (L, b),
+        banks) -> (L, b)`` is :meth:`_flush` with a per-layer per-slot end
+        time (f32, layer-native clocks) and per-slot energy sums. It reads
+        the carries and never writes them; a slot whose end time is not
+        past its ``t_last`` (tau <= 0, e.g. every slot of a request not
+        leaving) charges exactly zero."""
+        spec = self.spec
+        kinds = spec.circuits
+
+        def flush(carries, t_ends, banks):
+            rows = []
+            for i, layer in enumerate(spec.layers):
+                if self.backend != "lasana" or kinds[i] == "crossbar":
+                    rows.append(t_ends.new_zeros((b,)))
+                    continue
+                t_end = t_ends[i].repeat_interleave(layer.n_circuits(b) // b)
+                e = self._idle_energy(carries[i], i, t_end,
+                                      banks.get(kinds[i]))
+                rows.append(e.reshape(b, -1).sum(1))
+            return torch.stack(rows)
+
+        return flush
+
+    def _build_slot_join(self, b: int):
+        """The masked slot (re)initialisation: ``join(carries, prev_ys,
+        mask (b,) bool, g0) -> (carries, prev_ys)`` resets the masked slots
+        to a request start at global tick ``g0`` (a 0-d f32 tensor on the
+        device): carries back to :meth:`_init_carry`, published outputs
+        zeroed and — lasana — ``t_last = g0 * clock`` in each layer's own
+        clock. Time enters the surrogate features only through ``tau = t -
+        t_last``, so a request seated at ``g0`` sees the tau sequence of a
+        request started at tick 0. Unmasked slots pass through unchanged."""
+        spec = self.spec
+        inits = [self._init_carry(i, b) for i in range(spec.n_layers)]
+        n_per = [l.n_circuits(b) // b for l in spec.layers]
+
+        def join(carries, prev_ys, mask, g0):
+            new_carries, new_prev = [], []
+            for i, (init, old) in enumerate(zip(inits, carries)):
+                m = mask.repeat_interleave(n_per[i])
+                leaves = [torch.where(m.reshape(-1, *[1] * (o.dim() - 1)),
+                                      n, o) for n, o in zip(init, old)]
+                if isinstance(old, LasanaState):
+                    carry = LasanaState(*leaves)
+                    carry = carry._replace(t_last=torch.where(
+                        m, g0 * self.circs[i].clock_ns, carry.t_last))
+                else:
+                    carry = tuple(leaves)
+                new_carries.append(carry)
+                new_prev.append(torch.where(mask[:, None], 0.0, prev_ys[i]))
+            return new_carries, new_prev
+
+        return join
+
+    def slot_programs(self, b: int, chunk_ticks: int,
+                      surrogates=None) -> SlotPrograms:
+        """Build (or fetch) the continuous-batching runners of one bucket.
+
+        One :class:`SlotPrograms` per (``b``, ``chunk_ticks``, surrogate
+        structure). The scheduler owns the calling protocol: ``join``
+        seats joining requests, ``step`` advances all live slots one
+        chunk, ``flush`` charges leavers' trailing idle energy. The
+        runners are cached in the engine (only ``step`` counts toward
+        :attr:`compile_count`) and take surrogates as arguments, so
+        same-structure hot swaps and co-resident surrogate versions share
+        them. ``golden`` is refused: its stepping is far off serving
+        latencies; ``behavioral`` is the serving layer's fallback."""
+        if self.backend not in ("lasana", "behavioral"):
+            raise ValueError("slot_programs requires backend='lasana' or "
+                             f"'behavioral' (got {self.backend!r})")
+        if chunk_ticks <= 0:
+            raise ValueError(f"chunk_ticks must be positive: {chunk_ticks}")
+        banks = self._runtime_banks(surrogates)
+        step, cs_step = self._compiled(
+            self._program_key("slot", b, chunk_ticks, banks),
+            lambda: self._build_slot_step(b, chunk_ticks))
+        flush, cs_flush = self._compiled(
+            self._program_key("slotflush", b, None, banks),
+            lambda: self._build_slot_flush(b))
+        join, cs_join = self._compiled(
+            self._program_key("slotjoin", b, None, banks),
+            lambda: self._build_slot_join(b))
+        return SlotPrograms(step=step, flush=flush, join=join,
+                            compile_seconds=cs_step + cs_flush + cs_join)
+
     def _program_key(self, kind: str, b: int, t_steps, banks) -> tuple:
-        """Runner cache key: shapes, the ``fused`` flag, the resolved
-        fused-kernel switch and the surrogate structure — a retrained
-        surrogate of equal structure is a weight swap, not a rebuild."""
+        """Runner cache key: the kind (``"mono"``, ``"stream"``,
+        ``"flush"``, ``"slot"``, ``"slotflush"``, ``"slotjoin"``), shapes,
+        the ``fused`` flag, the resolved fused-kernel switch and the
+        surrogate structure — a retrained surrogate of equal structure is
+        a weight swap, not a rebuild."""
         return (kind, self.fused, ops.fused_kernel_enabled(self.fused_kernel),
                 b, t_steps, structure_key(banks))
 
     def _compiled(self, key, build):
-        """``(runner, build_seconds)``; builds once per key (0.0 on a hit)."""
+        """``(runner, build_seconds)``; builds once per key (0.0 on a hit).
+        Tick-loop runners (``mono``, ``stream``, ``slot``) count toward
+        :attr:`compile_count`; the flush and join helpers do not."""
         entry = self._runners.get(key)
         if entry is not None:
             return entry, 0.0
@@ -1429,7 +1629,8 @@ class NetworkEngine:
             t0 = time.time()
             runner = build()
             self._runners[key] = runner
-            self.compile_count += 1
+            if key[0] in ("mono", "stream", "slot"):
+                self.compile_count += 1
         return runner, time.time() - t0
 
 

@@ -50,6 +50,23 @@ def fused_kernel_enabled(override: bool | None = None) -> bool:
     return True
 
 
+def engine_cache_capacity(default: int = 8) -> int:
+    """Per-spec engine-LRU capacity (``REPRO_ENGINE_CACHE``), read at each
+    call: the environment variable when set and non-empty, else
+    ``default``, the caller's compiled-in capacity
+    (``lasana.ENGINE_CACHE_CAPACITY``)."""
+    env = os.environ.get("REPRO_ENGINE_CACHE")
+    return int(env) if env else int(default)
+
+
+def fault_plan_path():
+    """``REPRO_FAULT_PLAN``: the path of a JSON fault-injection plan, or
+    None (unset or empty: injection sites do nothing). The resilience
+    layer (``repro_torch.resilience.faults``) resolves its ambient plan
+    through this function, so the environment is read only here."""
+    return os.environ.get("REPRO_FAULT_PLAN") or None
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another. Raises when CUDA is asked for (explicitly or by default)

@@ -51,9 +51,11 @@ device and returns a :class:`DSEReport` (its Pareto frontier included)::
 
 The layer runners of the paper's comparisons (golden, behavioral,
 LASANA-P / -O, annotation) are ``repro_torch.core.simulate``, the legacy
-bank shims ``repro_torch.core.persist``. Still to come with later
-slices: serving and multi-device batches (``mesh=``). Everything runs on
-``cuda`` unless ``device=`` says otherwise.
+bank shims ``repro_torch.core.persist``, the continuous-batching lanes
+``repro_torch.serve`` (``Lane`` over :func:`engine`'s slot runners).
+Still to come with later slices: the server behind ``lasana.serve`` and
+multi-device batches (``mesh=``). Everything runs on ``cuda`` unless
+``device=`` says otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -184,7 +186,8 @@ def train(circuit: str, cfg: Optional[TrainConfig] = None, *,
 _ENGINE_ATTR = "_lasana_engine_cache"
 _ENGINE_LOCK = threading.Lock()
 
-# engine-variant entries kept per live spec
+# engine-variant entries kept per live spec (REPRO_ENGINE_CACHE, read
+# through ops.engine_cache_capacity at each call, overrides it)
 ENGINE_CACHE_CAPACITY = 8
 
 
@@ -227,7 +230,8 @@ def engine(spec: NetworkSpec, *, backend: str = "lasana",
             cache[key] = eng
         else:
             cache.move_to_end(key)
-        while len(cache) > max(int(ENGINE_CACHE_CAPACITY), 1):
+        capacity = ops.engine_cache_capacity(ENGINE_CACHE_CAPACITY)
+        while len(cache) > max(capacity, 1):
             cache.popitem(last=False)
     return eng
 

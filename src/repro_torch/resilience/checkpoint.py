@@ -20,13 +20,11 @@ for bit with nothing built.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import os
 from typing import List
 
 import numpy as np
-import torch
 
 from repro_torch.core.network import NetworkRun
 
@@ -37,38 +35,11 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def spec_content_key(spec) -> str:
-    """Stable sha1 hex digest of a :class:`NetworkSpec`'s structure and
-    values: per-layer circuit kind, crossbar knobs, weight and param
-    values, every edge, and the spike amplitude. The port's copy of the
-    reference's ``repro.serve.buckets.spec_content_key``: the same spec
-    gives the same digest in both packages."""
-    h = hashlib.sha1()
-    for layer in spec.layers:
-        h.update(repr((layer.circuit, layer.seg_width, layer.adc_bits,
-                       layer.activation,
-                       tuple(np.shape(layer.weight)))).encode())
-        h.update(np.ascontiguousarray(
-            _np32(layer.weight)).tobytes())
-        if layer.params is not None:
-            h.update(np.ascontiguousarray(_np32(layer.params)).tobytes())
-    for edge in spec.edges:
-        h.update(repr((edge.src, edge.dst,
-                       tuple(np.shape(edge.weight)))).encode())
-        h.update(np.ascontiguousarray(_np32(edge.weight)).tobytes())
-    h.update(np.float32(spec.spike_amp).tobytes())
-    return h.hexdigest()
-
-
-def _np32(a) -> np.ndarray:
-    """A weight as float32 numpy (the port's specs hold CPU tensors)."""
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, np.float32)
-
-
 def spec_key_of(spec) -> str:
-    """Content hash binding a checkpoint to its NetworkSpec."""
+    """Content hash binding a checkpoint to its NetworkSpec: the serving
+    layer's :func:`~repro_torch.serve.buckets.spec_content_key`, the same
+    digest the reference's checkpoints carry."""
+    from repro_torch.serve.buckets import spec_content_key
     return spec_content_key(spec)
 
 

@@ -333,6 +333,128 @@ def assert_runs_match(got, want):
         assert_close(getattr(got, f), getattr(want, f), f)
 
 
+# --- serving: request mixes, graphs of both packages, the lane loop ---------
+
+SERVE_CHUNK = 8                      # tests/test_serve.py's chunk ticks
+SERVE_JOBS = [(24, 2), (9, 1), (5, 1), (16, 2), (24, 1), (9, 1), (16, 1)]
+
+
+def serve_stimuli(jobs, seed: int, n_in: int = 12, rate: float = 0.2):
+    """One Bernoulli(``rate``) V_dd spike block (T, b, n_in) per (T, b) job,
+    from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    return [((rng.random((t, b, n_in)) < rate) * 1.5).astype(np.float32)
+            for t, b in jobs]
+
+
+def mixed_serve_net(jobs=((20, 2), (11, 1)), seed: int = 3):
+    """tests/test_serve.py's mixed graph from numpy: a 20-8 crossbar front
+    end feeding 6 LIF neurons with lateral inhibition; (description, DAC
+    volt blocks)."""
+    rng = np.random.default_rng(seed)
+    xw = rng.integers(-1, 2, (20, 8)).astype(np.float32)
+    lw = (rng.normal(0, 0.5, (8, 6)) * 2.2).astype(np.float32)
+    inhib = (-0.6 * (1 - np.eye(6))).astype(np.float32)
+    seqs = [(rng.integers(-1, 2, (t, b, 20)) * 0.8).astype(np.float32)
+            for t, b in jobs]
+    return {"layers": [{"circuit": "crossbar", "weight": xw},
+                       {"circuit": "lif", "weight": lw,
+                        "params": np.asarray(LIF_KNOBS, np.float32)}],
+            "edges": [(1, 1, inhib)]}, seqs
+
+
+def small_net_desc(seed: int = 0, n_layers: int = 2):
+    """:func:`small_net`'s weights as a graph description (the first
+    ``n_layers`` layers)."""
+    ws, knobs, _ = small_net(seed)
+    return {"layers": [{"circuit": "lif", "weight": w, "params": p}
+                       for w, p in list(zip(ws, knobs))[:n_layers]],
+            "edges": []}
+
+
+def jax_graph_spec(desc):
+    """The reference's NetworkSpec of a graph description."""
+    import jax.numpy as jnp
+    from repro.core.network import (crossbar_layer, graph_spec, lif_layer,
+                                    recurrent_edge)
+    layers = [crossbar_layer(jnp.asarray(d["weight"], jnp.float32))
+              if d["circuit"] == "crossbar" else
+              lif_layer(jnp.asarray(d["weight"]), jnp.asarray(d["params"]))
+              for d in desc["layers"]]
+    return graph_spec(layers, edges=[recurrent_edge(s, d, jnp.asarray(w))
+                                     for s, d, w in desc["edges"]])
+
+
+def port_graph_spec(desc):
+    """The port's NetworkSpec of a graph description."""
+    from repro_torch.convert import graph_spec_from_numpy
+    return graph_spec_from_numpy(desc["layers"], desc["edges"])
+
+
+def scaled_surrogate(sur, factor, jax_side=False):
+    """A copy of ``sur`` with every MLP weight matrix scaled by
+    ``factor`` (same structure: a weight swap), for the reference
+    (``jax_side``) or the port."""
+    import jax.numpy as jnp
+    import torch
+    params = {}
+    for p, d in sur.params.items():
+        params[p] = {}
+        for k, a in d.items():
+            a = np.asarray(a)
+            if sur.manifest.family_of(p) == "mlp" and k.startswith("w"):
+                a = (a * np.float32(factor)).astype(a.dtype)
+            params[p][k] = jnp.asarray(a) if jax_side else torch.as_tensor(a)
+    return type(sur)(sur.manifest, params, sur.fit_info)
+
+
+class Queued:
+    """What a lane admits: a request's handle and its host stimulus."""
+
+    def __init__(self, handle, stimulus):
+        self.handle = handle
+        self.stimulus = stimulus
+
+
+def drive_lane(lane, handle_cls, stims, on_chunk=None, max_rounds=200):
+    """Submit ``stims`` to ``lane`` in order, admitting as slots free, and
+    step until every request has left (the admit-then-step loop of the
+    reference's ``SimServer.run_until_idle``). Returns the handles;
+    ``on_chunk`` maps a request index to its callback."""
+    queue = [Queued(handle_cls(i, f"t{i % 3}", (on_chunk or {}).get(i)), x)
+             for i, x in enumerate(stims)]
+    handles = [q.handle for q in queue]
+    for _ in range(max_rounds):
+        while queue and lane.admit(queue[0]):
+            queue.pop(0)
+        if not lane.active and not queue:
+            return handles
+        lane.step()
+    raise RuntimeError(f"lane not idle after {max_rounds} rounds")
+
+
+def assert_request_parity(solo, served, *, hidden=False):
+    """tests/test_serve.py's solo-vs-served equivalence: discrete records
+    identical; energy and flush at rtol 1e-5, latency at rtol 1e-5 with
+    atol 1e-6."""
+    np.testing.assert_array_equal(np.asarray(solo.outputs),
+                                  np.asarray(served.outputs))
+    np.testing.assert_array_equal(np.asarray(solo.events),
+                                  np.asarray(served.events))
+    if solo.out_spikes is not None:
+        np.testing.assert_array_equal(np.asarray(solo.out_spikes),
+                                      np.asarray(served.out_spikes))
+    if hidden and solo.layer_spikes is not None:
+        for a, b in zip(solo.layer_spikes, served.layer_spikes):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_allclose(np.asarray(solo.energy), served.energy,
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(np.asarray(solo.latency), served.latency,
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(solo.flush_energy),
+                               served.flush_energy, rtol=1e-5, atol=0)
+
+
 @pytest.fixture(scope="session")
 def surrogate_pairs():
     """{"packable"|"unpackable": (JAX Surrogate, port Surrogate on CPU)},

@@ -50,10 +50,15 @@ def test_no_jax_or_reference_imports_in_the_port():
     "core/circuits.py", "core/events.py", "core/dataset.py",
     "core/models.py", "core/predictors.py", "core/surrogate.py",
     # the layer runners, the legacy bank shims and exploration
-    "core/simulate.py", "core/persist.py", "core/explore.py"])
+    "core/simulate.py", "core/persist.py", "core/explore.py",
+    # serving, the engine side: faults, the watchdog, buckets, metrics,
+    # the scheduler
+    "resilience/faults.py", "ft/__init__.py", "ft/watchdog.py",
+    "serve/__init__.py", "serve/buckets.py", "serve/metrics.py",
+    "serve/scheduler.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
-    """The modules of the streaming, LM serve, training, layer-runner and
-    exploration slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
+    """The modules of the streaming, LM serve, training, layer-runner,
+    exploration and serving slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
     (the reference imports ``repro.serve.buckets`` for the checkpoint's
@@ -127,6 +132,16 @@ def test_port_runs_with_jax_and_reference_unimportable():
                 ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "8", "--gen", "3"]))
         assert res["generated"].shape == (2, 3) and res["logits_finite"]
+        from repro_torch.serve import Bucket, Lane, RequestHandle
+        lane = Lane(lasana.engine(spec, record_hidden=False, device="cpu"),
+                    spec, Bucket("k", 2, 3), sur)
+        q = type("Q", (), {"handle": RequestHandle(0, "t"),
+                           "stimulus": x[:, 1:]})()
+        assert lane.admit(q)
+        while lane.active:
+            lane.step()
+        solo = lasana.simulate(spec, x[:, 1:], surrogates=sur, device="cpu")
+        assert np.array_equal(q.handle.result().events, solo.events)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

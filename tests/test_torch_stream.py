@@ -206,26 +206,13 @@ def test_stream_matches_reference_stream(banks, workload, path):
         assert want.flush_energy.sum() > 0          # the flush is exercised
 
 
-def _scaled(sur, factor, jax_side):
-    """A copy of ``sur`` with every MLP weight matrix scaled by
-    ``factor`` (same structure: a weight swap)."""
-    params = {}
-    for p, d in sur.params.items():
-        params[p] = {}
-        for k, a in d.items():
-            a = np.asarray(a)
-            if sur.manifest.family_of(p) == "mlp" and k.startswith("w"):
-                a = (a * np.float32(factor)).astype(a.dtype)
-            params[p][k] = jnp.asarray(a) if jax_side else torch.as_tensor(a)
-    return type(sur)(sur.manifest, params, sur.fit_info)
-
-
 def test_hot_swap_iterator_matches_reference(banks):
     """A surrogate iterator swaps the weights per chunk (None holds the
     last): the port follows the reference, builds nothing for the swap,
     and leaves the caller's surrogates unchanged."""
     jeng, teng, (jsur, tsur), x = _engines("lif", "megakernel", banks)
-    jb, tb = _scaled(jsur, 1.05, True), _scaled(tsur, 1.05, False)
+    jb = fx.scaled_surrogate(jsur, 1.05, jax_side=True)
+    tb = fx.scaled_surrogate(tsur, 1.05)
     before = {p: {k: a.clone() for k, a in d.items()}
               for p, d in tsur.params.items()}
     want = jeng.run_stream(jnp.asarray(x), chunk_ticks=7,
@@ -589,10 +576,13 @@ def test_stream_builds_at_most_two_chunk_runners_and_one_flush(banks):
     _, eng, (_, sur), x = _engines("lif", "megakernel", banks,
                                    record_hidden=False)
     eng.run_stream(x, chunk_ticks=7, surrogates=sur)
-    assert eng.compile_count == 3          # 7-tick, 2-tick, flush
+    # compile_count counts the tick-loop runners only (the 7-tick and the
+    # 2-tick one), as the reference's does; the flush is a runner apart
+    assert eng.compile_count == 2 and len(eng._runners) == 3
     eng.run_stream(x[:21], chunk_ticks=7, surrogates=sur)
     eng.run_stream(np.concatenate([x, x]), chunk_ticks=7, surrogates=sur)
-    assert eng.compile_count == 4          # + the 4-tick remainder (46 % 7)
+    assert eng.compile_count == 3          # + the 4-tick remainder (46 % 7)
+    assert len(eng._runners) == 4
 
 
 def test_stream_argument_errors_raise_at_call(banks):
@@ -621,11 +611,13 @@ def test_stream_generator_early_close_keeps_engine_usable(banks):
     first = next(gen)
     gen.close()
     assert first.energy.shape[0] == 5
-    builds = eng.compile_count
+    builds, runners = eng.compile_count, len(eng._runners)
     assert_identical(eng.run_stream(x, chunk_ticks=5, surrogates=sur),
                      eng.run(x, surrogates=sur))
-    # the 3-tick remainder, the flush and the monolithic runner
-    assert eng.compile_count == builds + 3
+    # the 3-tick remainder and the monolithic runner (the flush, built
+    # too, is not a tick loop and does not count)
+    assert eng.compile_count == builds + 2
+    assert len(eng._runners) == runners + 3
 
 
 def test_facade_stream_entry_points(banks):
