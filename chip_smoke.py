@@ -121,12 +121,30 @@ Phases, one output line each (JSON where it helps):
    ``surrogate.nan``, ``lane.step`` and ``chunk.stall`` fault plans; and
    ``network_tick``, ``network_tick_chunk`` and ``mlp_surrogate_heads``
    against their plain versions at a 32-slot lane's shapes;
-10. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+10. serve through the server (``repro_torch.lasana.serve``: the
+   ``SimServer`` driver thread, the artifact store, the JSON-lines
+   protocol): the same 12 requests of the SNN submitted by three client
+   threads as three tenants, the artifact registered by path (loaded once,
+   on the card) and the spec by name, each request against its solo run
+   and the spikes against the JAX record, the build count against one
+   lane's, then timed again on the warm server (requests/s, events/s,
+   p50 / p99 latency from submit to the last chunk, host ms per
+   ``SimServer.step`` and ``Lane.step``, occupancy) beside the ``Lane``
+   run and the solo runs of phase 9; a hot swap to ``lif`` version 2
+   while version-1 requests are in flight (builds nothing); ``lane.step``
+   retried, ``surrogate.nan`` degrading the spec to the behavioral
+   backend, ``chunk.stall`` past the watchdog's limit, a truncated artifact
+   and an expired deadline, each ending as the reference's server ends it;
+   and ``python -m repro_torch.serve`` as a subprocess fed the committed
+   wire record's script (``serve_wire_record.json``) on stdin, its
+   responses against the same script run in this process and against the
+   reference's recorded responses;
+11. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time, its lower bound on
    this card and, where one exists, a library call's time
    (crossbar-width times of the head kernels beside the LIF ones);
-11. ``{"ok": true, "device": {...}}`` as the last line.
+12. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
 one more steady run under ``torch.profiler`` (for the stream phase: one
@@ -3344,12 +3362,15 @@ def no_sync_step(torch, step):
     return run
 
 
-def serve_lane(torch, spec, sur, width, stims, kw=None, metrics=None):
+def serve_lane(torch, spec, sur, width, stims, kw=None, metrics=None,
+               done_at=None):
     """Serve host ``stims`` on a fresh lane of ``lasana.engine(spec,
     record_hidden=False, **kw)``, every ``programs.step`` under sync debug
     mode "error": admit requests in order as slots free, step until idle
     (the reference's ``SimServer.run_until_idle`` loop). Returns (lane,
-    handles, host seconds per ``Lane.step``, join ticks, quarantined)."""
+    handles, host seconds per ``Lane.step``, join ticks, quarantined);
+    ``done_at``, a dict, gets each request's ``perf_counter`` time at the
+    end of the step that finished it."""
     import dataclasses
 
     import repro_torch.lasana as lasana
@@ -3370,6 +3391,10 @@ def serve_lane(torch, spec, sur, width, stims, kw=None, metrics=None):
         stats = lane.step()
         walls.append(time.perf_counter() - t0)
         quarantined += stats.get("quarantined", [])
+        if done_at is not None:
+            for h in handles:
+                if h.done and h.id not in done_at:
+                    done_at[h.id] = t0 + walls[-1]
     return lane, handles, walls, joins, quarantined
 
 
@@ -3467,17 +3492,21 @@ def serve_snn(torch, np, dev, surs, profile, smi):
     # steady: the same requests on a fresh lane of the warm engine, and
     # the same requests run alone
     metrics = ServerMetrics()
+    done_at = {}
     t0 = time.perf_counter()
     _, steady, walls, _, _ = serve_lane(torch, spec, sur, SERVE_SLOTS, stims,
-                                        metrics=metrics)
+                                        metrics=metrics, done_at=done_at)
     served_s = time.perf_counter() - t0
     events = sum(int(h.result().events.sum()) for h in steady)
     x_solo = [torch.as_tensor(x, device=dev) for x in stims]
-    t0 = time.perf_counter()
-    solo_events = sum(int(lasana.simulate(spec, x, surrogates=sur,
-                                          record_hidden=False).events.sum())
-                      for x in x_solo)
-    solo_s = time.perf_counter() - t0
+    solo_walls, solo_events = [], 0
+    for x in x_solo:
+        t1 = time.perf_counter()
+        solo_events += int(lasana.simulate(spec, x, surrogates=sur,
+                                           record_hidden=False).events.sum())
+        solo_walls.append(time.perf_counter() - t1)
+    solo_s = sum(solo_walls)
+    lane_lat = [done_at[h.id] - t0 for h in steady]
     snap = metrics.snapshot()
     eng = lane.engine
     res["drive_rows_differing_from_a_32_row_product"] = drive_rows_by_batch(
@@ -3489,6 +3518,12 @@ def serve_snn(torch, np, dev, surs, profile, smi):
                 "events_per_s": events / served_s,
                 "requests_per_s": len(stims) / served_s,
                 "solo_s": solo_s, "solo_events_per_s": solo_events / solo_s,
+                "solo_requests_per_s": len(stims) / solo_s,
+                "latency_ms_p50": 1e3 * percentile(np, lane_lat, 50),
+                "latency_ms_p99": 1e3 * percentile(np, lane_lat, 99),
+                "solo_latency_ms_p50": 1e3 * percentile(np, solo_walls, 50),
+                "solo_latency_ms_p99": 1e3 * percentile(np, solo_walls, 99),
+                "step_ms_first": 1e3 * walls[0],
                 "step_ms_median": 1e3 * statistics.median(walls),
                 "step_ms_mean": 1e3 * statistics.mean(walls),
                 "batch_occupancy": snap["batch_occupancy"],
@@ -3497,7 +3532,12 @@ def serve_snn(torch, np, dev, surs, profile, smi):
         res["profile"] = profile_run(torch, lambda: serve_lane(
             torch, spec, sur, SERVE_SLOTS, stims))
     line(res)
-    return {"serve/snn_784_128_10": counts}, lane.engine, stims
+    return {"serve/snn_784_128_10": counts}, lane.engine, stims, res
+
+
+def percentile(np, values, q):
+    """The ``q``-th percentile of ``values`` (numpy's linear rule)."""
+    return float(np.percentile(np.asarray(values, np.float64), q))
 
 
 def drive_rows_by_batch(torch, w, u):
@@ -3738,11 +3778,575 @@ def serve_kernel_shapes(torch, np, dev, surs, smi):
 def serve_runs(torch, np, dev, surs, profile, smi):
     """The serve phase (``repro_torch.serve.scheduler.Lane`` on the card);
     returns (launch counts by run, the kernels at the lanes' shapes)."""
-    total, eng, stims = serve_snn(torch, np, dev, surs, profile, smi)
+    total, eng, stims, lane_res = serve_snn(torch, np, dev, surs, profile, smi)
     serve_hot_swap(torch, np, dev, surs, eng, stims, smi)
     total.update(serve_other_lanes(torch, np, dev, surs, smi))
     serve_faults(torch, np, dev, surs, eng, stims, smi)
-    return total, serve_kernel_shapes(torch, np, dev, surs, smi)
+    return total, serve_kernel_shapes(torch, np, dev, surs, smi), lane_res
+
+
+# --- the server phase -------------------------------------------------------------
+
+SERVER_TENANTS = 3        # client threads, one tenant each
+SERVER_TIMEOUT = 300.0    # seconds any one wait may take
+SERVER_HANG = 1.0         # hang_timeout_s of the watchdog case
+SERVER_STALL = 3.0        # seconds the stalled chunk sleeps past it
+WIRE_TIMEOUT = 600        # seconds the wire subprocess may take
+WIRE_RECORD = ART / "serve_wire_record.json"
+# stats() entries the driver thread's interleaving cannot move
+WIRE_COUNTERS = ("requests_submitted", "requests_completed",
+                 "requests_rejected", "requests_failed", "requests_retried",
+                 "requests_deadline_exceeded", "requests_degraded",
+                 "requests_in_flight", "numerical_faults", "lane_hangs",
+                 "ticks_live_total", "events_total", "queue_depth_by_bucket",
+                 "degraded_specs", "compile_count", "surrogates")
+
+
+def run_bounded(fn, timeout, name):
+    """``fn()`` on a daemon thread joined with ``timeout``; fail if it is
+    still running or raised."""
+    import threading
+    out = {}
+
+    def target():
+        try:
+            out["value"] = fn()
+        except Exception as err:          # reported below
+            out["error"] = err
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        fail(f"{name}: still running after {timeout} s")
+    if "error" in out:
+        fail(f"{name}: {type(out['error']).__name__}: {out['error']}")
+    return out.get("value")
+
+
+def submit_clients(srv, stims, sur_ref="lif"):
+    """Submit ``stims`` to ``srv`` from :data:`SERVER_TENANTS` client
+    threads (request i from thread i % 3, tenant "t<k>"), each then
+    waiting for its own results. Returns (handles in request order, submit
+    times, times of each request's last chunk)."""
+    import threading
+    n = len(stims)
+    handles, t_sub, t_done, errors = [None] * n, [0.0] * n, [0.0] * n, []
+
+    def client(k):
+        try:
+            for i in range(k, n, SERVER_TENANTS):
+                def on_chunk(rec, i=i):
+                    t_done[i] = time.perf_counter()
+                t_sub[i] = time.perf_counter()
+                handles[i] = srv.submit("snn", stims[i], surrogates=sur_ref,
+                                        tenant=f"t{k}", on_chunk=on_chunk)
+            for i in range(k, n, SERVER_TENANTS):
+                handles[i].result(timeout=SERVER_TIMEOUT)
+        except Exception as err:          # reported below
+            errors.append(err)
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(SERVER_TENANTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVER_TIMEOUT)
+    if any(t.is_alive() for t in threads) or errors:
+        fail(f"server clients: {errors or 'a client thread hung'}")
+    return handles, t_sub, t_done
+
+
+def time_steps(srv, srv_steps, lane_steps):
+    """Time each working ``SimServer.step`` of ``srv`` and each
+    ``Lane.step`` on the host, and count the kernel libraries loaded and
+    the runners built inside lane steps (none may be); returns the undo."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Lane
+    srv_step, lane_step = srv.step, Lane.step
+
+    def step():
+        t0 = time.perf_counter()
+        worked = srv_step()
+        if worked:
+            srv_steps.append(time.perf_counter() - t0)
+        return worked
+
+    def lane_timed(lane):
+        libs, builds = _build.n_loaded(), lane.engine.compile_count
+        t0 = time.perf_counter()
+        out = lane_step(lane)
+        lane_steps.append((time.perf_counter() - t0,
+                           _build.n_loaded() - libs,
+                           lane.engine.compile_count - builds))
+        return out
+    srv.step = step                       # the driver looks it up a round
+    Lane.step = lane_timed
+
+    def undo():
+        Lane.step = lane_step
+        del srv.step
+    return undo
+
+
+def spikes_vs_record(np, runs, key="lasana"):
+    """The served SNN's spikes against the JAX record: (agreement, energy
+    total, its relative difference)."""
+    rec = dict(np.load(ART / "snn_ref_record.npz"))
+    spikes = np.concatenate([(r.out_spikes > 0.75) for r in runs], axis=1)
+    agree = float(np.mean(spikes.astype(np.uint8) == rec[f"{key}/out_spikes"]))
+    e = float(sum(r.energy.sum() + r.flush_energy.sum() for r in runs))
+    e_ref = float(rec[f"{key}/energy"].sum() + rec[f"{key}/flush_energy"].sum())
+    return agree, e, abs(e - e_ref) / abs(e_ref)
+
+
+def server_snn(torch, np, dev, smi, lane_res):
+    """(a) The served SNN's 12 requests through ``lasana.serve`` on the
+    card, submitted by three client threads as three tenants, the
+    artifact registered by path (loaded once, on the card) and the spec by
+    name: each request against its solo run, the spikes against the JAX
+    record, the build count against one lane's; then the same requests
+    again on the warm server, timed beside the ``Lane``-only run and the
+    solo runs of the serve phase; then once more on an unthreaded server
+    (``run_until_idle`` on this thread, every slot step under sync debug
+    mode "error", as the ``Lane``-only run's): what the driver thread
+    costs. Returns (launch counts, spec, stimuli, the loaded
+    surrogate)."""
+    import dataclasses
+
+    import repro_torch.lasana as lasana
+    from repro_torch.convert import spec_from_numpy
+    from repro_torch.core.network import NetworkEngine
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Bucket, Lane, ServeConfig, SimServer
+    spec, x_dev, _ = snn_workload(torch, np, dev)
+    stims = split_requests(np, x_dev.cpu().numpy(),
+                           [(T_STEPS, b) for b in SERVE_SIZES])
+    srv_steps, lane_steps = [], []
+    ops.reset_launches()
+    srv = lasana.serve(slot_widths=(SERVE_SLOTS,), chunk_ticks=SERVE_CHUNK)
+    undo = time_steps(srv, srv_steps, lane_steps)
+    try:
+        srv.register_surrogate_path("lif", str(ART / "lif_packable.npz"))
+        srv.register_spec("snn", spec)
+        t0 = time.perf_counter()
+        handles, _, _ = submit_clients(srv, stims)
+        cold_s = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        cold = srv.stats()
+        cold_steps, cold_lane = list(srv_steps), list(lane_steps)
+        builds = srv.compile_count()
+        m = srv.metrics
+        occ0, chunks0, events0 = m.occupancy_sum, m.chunks_total, m.events_total
+        del srv_steps[:], lane_steps[:]
+        t0 = time.perf_counter()
+        steady, t_sub, t_done = submit_clients(srv, stims)
+        steady_s = time.perf_counter() - t0
+        occupancy = (m.occupancy_sum - occ0) / (m.chunks_total - chunks0)
+        events = m.events_total - events0
+        sur = srv.store.get("lif")
+    finally:
+        undo()
+        srv.close(timeout=60)
+    eng = lasana.engine(spec, record_hidden=False)     # the server's engine
+    slot_programs = eng.slot_programs
+
+    def checked(*args, **kw):
+        programs = slot_programs(*args, **kw)
+        return dataclasses.replace(programs,
+                                   step=no_sync_step(torch, programs.step))
+    eng.slot_programs = checked
+    local = SimServer(ServeConfig(slot_widths=(SERVE_SLOTS,),
+                                  chunk_ticks=SERVE_CHUNK))
+    local.register_surrogate("lif", sur)
+    local.register_spec("snn", spec)
+    local_steps, local_lane = [], []
+    undo = time_steps(local, local_steps, local_lane)
+    try:
+        unthreaded = [local.submit("snn", x, surrogates="lif",
+                                   tenant=f"t{i % SERVER_TENANTS}")
+                      for i, x in enumerate(stims)]
+        t0 = time.perf_counter()
+        local.run_until_idle()
+        local_s = time.perf_counter() - t0
+    finally:
+        undo()
+        del eng.slot_programs
+    check_launches("server snn", counts,
+                   {"network_tick": 2 * SERVE_CHUNK * cold["chunks_total"]})
+    if any(libs or built for _, libs, built in cold_lane + lane_steps):
+        fail("server snn: a lane step loaded a kernel library or built a "
+             "runner")
+    if sur.device != dev:
+        fail(f"server snn: the artifact loaded onto {sur.device}")
+    with np.load(ART / "snn_784_128_10.npz") as z:
+        probe_spec = spec_from_numpy([z["w0"], z["w1"]],
+                                     [np.array(LIF_KNOBS, np.float32)] * 2)
+    probe = NetworkEngine(probe_spec, record_hidden=False)
+    Lane(probe, probe_spec, Bucket("probe", SERVE_SLOTS, SERVE_CHUNK), sur)
+    if builds != probe.compile_count or cold["n_lanes"] != 1:
+        fail(f"server snn: compile_count {builds} against one lane's "
+             f"{probe.compile_count}, {cold['n_lanes']} lanes")
+    worst = solo_parity(torch, np, dev, spec, handles, stims, "server snn",
+                        surrogates=sur)
+    solo_parity(torch, np, dev, spec, steady, stims, "server snn steady",
+                surrogates=sur)
+    solo_parity(torch, np, dev, spec, unthreaded, stims,
+                "server snn unthreaded", surrogates=sur)
+    agree, e_served, e_diff = spikes_vs_record(np, [h.result()
+                                                    for h in handles])
+    if agree < 0.99 or e_diff > 0.01:
+        fail(f"server snn: spike agreement {agree:.4f} (< 0.99) or energy "
+             f"difference {e_diff:.4%} (> 1%) against the JAX record")
+    lat = [d - s for s, d in zip(t_sub, t_done)]
+    steps_ms = [1e3 * s for s in srv_steps]
+    lane_ms = [1e3 * s for s, _, _ in lane_steps]
+    res = {"phase": "server", "part": "snn_784_128_10",
+           "slots": SERVE_SLOTS, "chunk_ticks": SERVE_CHUNK,
+           "requests": len(stims), "tenants": SERVER_TENANTS,
+           "launches": counts, "equal_to_solo": True,
+           "energy_max_rel_diff_vs_solo": worst,
+           "spike_agreement_vs_ref": agree, "energy_j": e_served,
+           "energy_rel_diff_vs_ref": e_diff, "compile_count": builds,
+           "one_lane_builds": probe.compile_count,
+           "first_round": {
+               "wall_s": cold_s, "chunks": cold["chunks_total"],
+               "server_step_ms_first": 1e3 * cold_steps[0],
+               "lane_step_ms_first": 1e3 * cold_lane[0][0],
+               "lane_step_ms_mean": 1e3 * statistics.mean(
+                   s for s, _, _ in cold_lane)},
+           "steady": {
+               "wall_s": steady_s, "events": events,
+               "requests_per_s": len(stims) / steady_s,
+               "events_per_s": events / steady_s,
+               "latency_ms_p50": percentile(np, lat, 50) * 1e3,
+               "latency_ms_p99": percentile(np, lat, 99) * 1e3,
+               "server_step_ms_first": steps_ms[0],
+               "server_step_ms_mean": statistics.mean(steps_ms),
+               "server_steps": len(steps_ms),
+               "lane_step_ms_mean": statistics.mean(lane_ms),
+               "batch_occupancy": occupancy},
+           "unthreaded": {
+               "wall_s": local_s, "requests_per_s": len(stims) / local_s,
+               "events_per_s": events / local_s,
+               "server_step_ms_mean": 1e3 * statistics.mean(local_steps),
+               "server_steps": len(local_steps),
+               "lane_step_ms_mean": 1e3 * statistics.mean(
+                   s for s, _, _ in local_lane),
+               "sync_debug_mode": "error"},
+           "lane_only": {k: lane_res[k] for k in (
+               "steady_s", "requests_per_s", "events_per_s",
+               "latency_ms_p50", "latency_ms_p99", "step_ms_first",
+               "step_ms_mean", "batch_occupancy")},
+           "solo": {k: lane_res[k] for k in (
+               "solo_s", "solo_requests_per_s", "solo_events_per_s",
+               "solo_latency_ms_p50", "solo_latency_ms_p99")},
+           "card": smi}
+    line(res)
+    return {"server/snn_784_128_10": counts}, spec, stims, sur
+
+
+def server_hot_swap(torch, np, dev, spec, stims, sur, smi):
+    """(b) ``lif`` version 2 (M_ES weights x 1.001) registered while
+    version-1 requests are in flight: they keep version 1, new requests
+    resolve to version 2, each equal to its version's solo run, and the
+    swap builds no runner."""
+    import threading
+
+    import repro_torch.lasana as lasana
+    eng = lasana.engine(spec, record_hidden=False)
+    srv = lasana.serve(slot_widths=(SERVE_SLOTS,), chunk_ticks=SERVE_CHUNK)
+    try:
+        srv.register_surrogate("lif", sur)
+        srv.register_spec("snn", spec)
+        started = threading.Event()
+        v1 = [srv.submit("snn", x, surrogates="lif",
+                         on_chunk=lambda rec: started.set())
+              for x in stims[:4]]
+        if not started.wait(SERVER_TIMEOUT):
+            fail("server hot swap: no version-1 chunk arrived")
+        builds = eng.compile_count
+        v2_sur = m_es_scaled(sur, SERVE_SWAP_SCALE)
+        if srv.register_surrogate("lif", v2_sur) != 2:
+            fail("server hot swap: the swap did not mint version 2")
+        in_flight = sum(not h.done for h in v1)
+        v2 = [srv.submit("snn", x, surrogates="lif") for x in stims[4:8]]
+        for h in v1 + v2:
+            h.result(timeout=SERVER_TIMEOUT)
+        st = srv.stats()
+    finally:
+        srv.close(timeout=60)
+    if in_flight == 0:
+        fail("server hot swap: no version-1 request was in flight")
+    if any(h.surrogate_ref != ("lif", 1) for h in v1) or any(
+            h.surrogate_ref != ("lif", 2) for h in v2):
+        fail("server hot swap: requests resolved to the wrong versions")
+    if st["surrogates"] != {"lif": [1, 2]} or eng.compile_count != builds:
+        fail(f"server hot swap: surrogates {st['surrogates']}, "
+             f"{eng.compile_count - builds} runners built by the swap")
+    w1 = solo_parity(torch, np, dev, spec, v1, stims[:4],
+                     "server hot swap v1", surrogates=sur)
+    w2 = solo_parity(torch, np, dev, spec, v2, stims[4:8],
+                     "server hot swap v2", surrogates=v2_sur)
+    line({"phase": "server", "part": "hot_swap",
+          "v1_in_flight_at_swap": in_flight,
+          "runners_built_by_swap": eng.compile_count - builds,
+          "surrogates": st["surrogates"], "n_lanes": st["n_lanes"],
+          "energy_max_rel_diff_vs_solo": max(w1, w2), "equal_to_solo": True,
+          "card": smi})
+
+
+def server_faults(torch, np, dev, spec, stims, sur, smi):
+    """(c) One fault plan each, at the SNN's width, unthreaded
+    (``run_until_idle``): a ``lane.step`` retry, a ``surrogate.nan``
+    quarantine that degrades the spec to the behavioral backend, a
+    ``chunk.stall`` past the watchdog's limit, a truncated artifact
+    registered by path and an already-expired deadline."""
+    import repro_torch.lasana as lasana
+    from repro_torch.resilience import FaultPlan, faults
+    from repro_torch.serve import (ArtifactError, DeadlineExceeded,
+                                   ServeConfig, SimServer)
+
+    def server(**cfg):
+        srv = SimServer(ServeConfig(slot_widths=(SERVE_SLOTS,),
+                                    chunk_ticks=SERVE_CHUNK,
+                                    retry_backoff_ms=0.0, **cfg))
+        srv.register_surrogate("lif", sur)
+        return srv
+
+    def behavioral(h, x, name):
+        solo = lasana.simulate(spec, torch.as_tensor(x, device=dev),
+                               backend="behavioral", record_hidden=False)
+        request_parity(np, solo, h.result(timeout=5), name)
+
+    res = {"phase": "server", "part": "faults", "card": smi}
+    a, b, c = stims[1], stims[3], stims[5]          # 3, 1 and 5 digits
+    # lane.step: the retried request replays from scratch
+    srv = server(max_retries=1)
+    with faults.use_plan(FaultPlan(0, {"lane.step": {"at": [0]}})):
+        h = srv.submit(spec, a, surrogates="lif")
+        srv.run_until_idle()
+    st = srv.stats()
+    if st["requests_retried"] != 1 or h.attempts != 2:
+        fail(f"server lane.step: {st['requests_retried']} retried, "
+             f"{h.attempts} attempts")
+    solo_parity(torch, np, dev, spec, [h], [a], "server lane.step",
+                surrogates=sur)
+    res["lane_step"] = {"requests_retried": 1, "attempts": 2,
+                        "equal_to_solo": True}
+    # surrogate.nan: the victim is retried on the behavioral fallback
+    srv = server(max_retries=1, degrade_after=1)
+    with faults.use_plan(FaultPlan(0, {"surrogate.nan": {"at": [0]}})):
+        hs = [srv.submit(spec, x, surrogates="lif") for x in (a, b)]
+        srv.run_until_idle()
+        hc = srv.submit(spec, c, surrogates="lif")
+        srv.run_until_idle()
+    st = srv.stats()
+    victims = [i for i, h in enumerate(hs) if h.attempts == 2]
+    if len(victims) != 1 or not st["degraded_specs"] or not hc.degraded \
+            or st["numerical_faults"] != 1:
+        fail(f"server surrogate.nan: victims {victims}, degraded_specs "
+             f"{st['degraded_specs']}, later request degraded {hc.degraded}")
+    (v,) = victims
+    if not hs[v].degraded or hs[1 - v].degraded:
+        fail("server surrogate.nan: the retried victim should be degraded "
+             "and its co-tenant not")
+    behavioral(hs[v], (a, b)[v], "server surrogate.nan victim")
+    behavioral(hc, c, "server surrogate.nan later request")
+    solo_parity(torch, np, dev, spec, [hs[1 - v]], [(a, b)[1 - v]],
+                "server surrogate.nan co-tenant", surrogates=sur)
+    res["surrogate_nan"] = {"victim": v, "requests_degraded":
+                            st["requests_degraded"],
+                            "degraded_specs": st["degraded_specs"],
+                            "degraded_equal_to_behavioral_solo": True}
+    # chunk.stall past hang_timeout_s: the watchdog fails the lane's request
+    srv = server(hang_timeout_s=SERVER_HANG)
+    plan = FaultPlan(0, {"chunk.stall": {"at": [0], "max_fires": 1}},
+                     stall_seconds=SERVER_STALL)
+    t0 = time.perf_counter()
+    with faults.use_plan(plan):
+        h1 = srv.submit(spec, a, surrogates="lif")
+        srv.run_until_idle()
+        h2 = srv.submit(spec, b, surrogates="lif")
+        srv.run_until_idle()
+    stall_s = time.perf_counter() - t0
+    try:
+        h1.result(timeout=5)
+        fail("server chunk.stall: the stalled request completed")
+    except RuntimeError as err:
+        if "watchdog" not in str(err):
+            fail(f"server chunk.stall: {err}")
+    st = srv.stats()
+    if st["lane_hangs"] != 1 or st["requests_failed"] != 1:
+        fail(f"server chunk.stall: {st['lane_hangs']} hangs, "
+             f"{st['requests_failed']} failed")
+    solo_parity(torch, np, dev, spec, [h2], [b], "server chunk.stall next",
+                surrogates=sur)
+    res["chunk_stall"] = {"hang_timeout_s": SERVER_HANG,
+                          "stall_seconds": SERVER_STALL, "lane_hangs": 1,
+                          "next_request_equal_to_solo": True,
+                          "seconds": stall_s}
+    # a truncated copy of the artifact: only its requester fails
+    cut = ROOT / "build" / "chip_smoke" / "lif_truncated.npz"
+    cut.parent.mkdir(parents=True, exist_ok=True)
+    data = (ART / "lif_packable.npz").read_bytes()
+    cut.write_bytes(data[:len(data) // 2])
+    srv = server()
+    srv.register_surrogate_path("cut", str(cut))
+    try:
+        srv.submit(spec, a, surrogates="cut")
+        fail("server truncated artifact: the request was accepted")
+    except ArtifactError as err:
+        message = str(err)
+    h = srv.submit(spec, b, surrogates="lif")
+    srv.run_until_idle()
+    solo_parity(torch, np, dev, spec, [h], [b], "server truncated artifact",
+                surrogates=sur)
+    res["truncated_artifact"] = {"error": message[:160],
+                                 "other_request_equal_to_solo": True}
+    # an already-expired deadline: fails in the queue, takes no slot
+    srv = server()
+    h = srv.submit(spec, a, surrogates="lif", deadline_ms=1e-3)
+    time.sleep(0.01)
+    srv.run_until_idle()
+    st = srv.stats()
+    try:
+        h.result(timeout=5)
+        fail("server deadline: the expired request completed")
+    except DeadlineExceeded:
+        pass
+    if st["n_lanes"] != 0 or st["requests_deadline_exceeded"] != 1 \
+            or st["chunks_total"] != 0:
+        fail(f"server deadline: {st['n_lanes']} lanes, "
+             f"{st['chunks_total']} chunks")
+    res["deadline"] = {"requests_deadline_exceeded": 1, "n_lanes": 0}
+    line(res)
+
+
+def wire_ops(np, script):
+    """The wire record's script as protocol ops: the artifact's basename
+    becomes its path under ``ART``, the weights file's the SNN's weights as
+    nested lists (``tests/test_torch_fixtures.py:wire_ops``)."""
+    ops = []
+    for op in script:
+        op = dict(op)
+        if "path" in op:
+            op["path"] = str(ART / op["path"])
+        if isinstance(op.get("snn", {}).get("weights"), str):
+            with np.load(ART / op["snn"]["weights"]) as z:
+                ws = [z[f"w{i}"] for i in range(len(z.files))]
+            op["snn"] = dict(op["snn"], weights=[
+                np.asarray(w, np.float32).tolist() for w in ws])
+        ops.append(op)
+    return ops
+
+
+def wire_rows(resp):
+    return resp["results"] if "results" in resp else [resp]
+
+
+def compare_wire(np, got, want, name, energy_rtol, agree):
+    """Response by response: ``ok``, ``ticks`` (and ``id``, ``events``,
+    names and versions, ``degraded``) equal; ``energy_j`` within
+    ``energy_rtol``; output spike counts equal on at least ``agree`` of
+    them all; ``stats`` with the same keys and :data:`WIRE_COUNTERS`.
+    Returns (agreement, the largest relative energy difference)."""
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} responses, expected {len(want)}")
+    same = total = 0
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("ok", "id", "name", "version", "shutdown"):
+            if g.get(k) != w.get(k):
+                fail(f"{name}: response {i} {k} {g.get(k)} != {w.get(k)}")
+        if "stats" in w:
+            if set(g["stats"]) != set(w["stats"]) or any(
+                    g["stats"][k] != w["stats"][k] for k in WIRE_COUNTERS):
+                fail(f"{name}: stats differ")
+        if "ticks" not in w and "results" not in w:
+            continue
+        for a, b in zip(wire_rows(w), wire_rows(g)):
+            for k in ("ok", "id", "ticks", "events", "degraded"):
+                if a[k] != b[k]:
+                    fail(f"{name}: {a['id']} {k} {b[k]} != {a[k]}")
+            oa, ob = np.asarray(a["outputs"]), np.asarray(b["outputs"])
+            if oa.shape != ob.shape:
+                fail(f"{name}: {a['id']} outputs of shape {ob.shape}")
+            same += int((oa == ob).sum())
+            total += oa.size
+            d = abs(b["energy_j"] - a["energy_j"]) / abs(a["energy_j"])
+            worst = max(worst, d)
+            if d > energy_rtol:
+                fail(f"{name}: {a['id']} energy differs by {d:.3e}")
+    if same < agree * total:
+        fail(f"{name}: output spike counts agree on {same} of {total}")
+    return same / total, worst
+
+
+def server_wire(torch, np, dev, smi):
+    """(d) ``python -m repro_torch.serve --slot-widths 32 --chunk-ticks
+    16`` as a subprocess on the card, fed the wire record's script on
+    stdin: exits 0; every response equal to the same script run in this
+    process (discrete fields equal, energy rtol 1e-5) and to the committed
+    JAX record of the reference's responses (output spike counts >= 99%
+    equal, energy within 1%, ``ticks`` and ``ok`` equal)."""
+    import io
+    import os
+
+    import repro_torch.lasana as lasana
+    from repro_torch.kernels import ops
+    from repro_torch.serve import run_stdio
+    rec = json.loads(WIRE_RECORD.read_text())
+    text = "".join(json.dumps(o) + "\n" for o in wire_ops(np, rec["script"]))
+    widths = ",".join(str(w) for w in rec["slot_widths"])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve", "--slot-widths", widths,
+         "--chunk-ticks", str(rec["chunk_ticks"])], input=text,
+        capture_output=True, text=True, timeout=WIRE_TIMEOUT, env=env,
+        cwd=ROOT)
+    wire_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"server wire: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    wire = [json.loads(l) for l in proc.stdout.splitlines()]
+    ops.reset_launches()
+    out = io.StringIO()
+    srv = lasana.serve(slot_widths=tuple(rec["slot_widths"]),
+                       chunk_ticks=rec["chunk_ticks"])
+    try:
+        t0 = time.perf_counter()
+        run_bounded(lambda: run_stdio(srv, io.StringIO(text), out),
+                    SERVER_TIMEOUT, "server wire in process")
+        local_s = time.perf_counter() - t0
+    finally:
+        srv.close(timeout=60)
+    counts = dict(ops.LAUNCHES)
+    local = [json.loads(l) for l in out.getvalue().splitlines()]
+    _, local_diff = compare_wire(np, wire, local, "server wire vs in process",
+                                 1e-5, 1.0)
+    agree, ref_diff = compare_wire(np, wire, rec["responses"],
+                                   "server wire vs the JAX record", 0.01,
+                                   0.99)
+    line({"phase": "server", "part": "wire", "ops": len(wire),
+          "exit_code": proc.returncode, "subprocess_s": wire_s,
+          "in_process_s": local_s,
+          "energy_max_rel_diff_vs_in_process": local_diff,
+          "output_agreement_vs_ref": agree,
+          "energy_max_rel_diff_vs_ref": ref_diff,
+          "stderr_tail": proc.stderr.strip().splitlines()[-1:],
+          "launches_in_process": counts, "card": smi})
+    return {"server/wire_in_process": counts}
+
+
+def server_runs(torch, np, dev, smi, lane_res):
+    """The server phase (``repro_torch.serve.SimServer`` on the card);
+    returns launch counts by run."""
+    total, spec, stims, sur = server_snn(torch, np, dev, smi, lane_res)
+    server_hot_swap(torch, np, dev, spec, stims, sur, smi)
+    server_faults(torch, np, dev, spec, stims, sur, smi)
+    total.update(server_wire(torch, np, dev, smi))
+    return total
 
 
 def nvidia_smi() -> str:
@@ -3877,7 +4481,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t_layer})
 
     t_serve = time.perf_counter()
-    by_kernel, (tick_serve, chunk_serve, heads_serve) = serve_runs(
+    by_kernel, (tick_serve, chunk_serve, heads_serve), lane_res = serve_runs(
         torch, np, dev, surs, args.profile, smi)
     for run_name, counts in by_kernel.items():
         add_counts(launches, run_name, counts)
@@ -3889,6 +4493,13 @@ def main() -> int:
             r["max_abs_err"] for r in shapes.values()]
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], *errs)
     line({"phase": "serve_done", "seconds": time.perf_counter() - t_serve})
+
+    t_server = time.perf_counter()
+    for run_name, counts in server_runs(torch, np, dev, smi,
+                                        lane_res).items():
+        add_counts(launches, run_name, counts)
+    line({"phase": "server_done",
+          "seconds": time.perf_counter() - t_server})
 
     meta = {
         "crossbar_target": ("src/repro_torch/kernels/csrc/crossbar_step.cu",

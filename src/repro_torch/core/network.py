@@ -1603,8 +1603,37 @@ class NetworkEngine:
         join, cs_join = self._compiled(
             self._program_key("slotjoin", b, None, banks),
             lambda: self._build_slot_join(b))
+        # a lane's first step must build nothing: the kernel libraries its
+        # routes launch are built (or loaded) here, with the runners
+        cs_libs = 0.0
+        if self.device.type == "cuda":
+            from repro_torch.kernels import _build
+            t0, loaded = time.time(), _build.n_loaded()
+            for name in self._route_libraries(banks):
+                _build.library(name)
+            if _build.n_loaded() != loaded:
+                cs_libs = time.time() - t0
         return SlotPrograms(step=step, flush=flush, join=join,
-                            compile_seconds=cs_step + cs_flush + cs_join)
+                            compile_seconds=(cs_step + cs_flush + cs_join
+                                             + cs_libs))
+
+    def _route_libraries(self, banks) -> tuple:
+        """The kernel libraries (``csrc/`` sources) a tick of this engine
+        launches with ``banks`` on the card, sorted: ``network_tick``
+        where a kind's heads pack (one tick or chunk kernel), and
+        ``mlp_heads`` where a kind that does not pack has MLP heads (the
+        stacked-dispatch tick's ``mlp_surrogate_heads``). Empty off the
+        lasana kernel path."""
+        packs = self._mk_pack(banks)
+        libs = {"network_tick"} if packs else set()
+        if self.backend == "lasana" and self.fused \
+                and ops.fused_kernel_enabled(self.fused_kernel):
+            for kind in banks.kinds():
+                if kind not in packs and any(
+                        fam == "mlp"
+                        for _, fam in banks[kind].manifest.families):
+                    libs.add("mlp_heads")
+        return tuple(sorted(libs))
 
     def _program_key(self, kind: str, b: int, t_steps, banks) -> tuple:
         """Runner cache key: the kind (``"mono"``, ``"stream"``,

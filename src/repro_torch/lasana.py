@@ -49,13 +49,22 @@ device and returns a :class:`DSEReport` (its Pareto frontier included)::
     rep = lasana.explore(lasana.CandidateSpec.sample(4096, seed=0), xsur)
     best = rep.candidates.take(rep.pareto())
 
+:func:`serve` starts a persistent multi-tenant simulation server
+(``repro_torch.serve.SimServer``): surrogates registered by name and
+version, requests from many threads continuously batched onto lanes of
+:func:`engine`'s slot runners, each request's record what a solo
+:func:`simulate` gives; ``python -m repro_torch.serve`` speaks its
+JSON-lines protocol on stdin::
+
+    with lasana.serve(slot_widths=(32,), chunk_ticks=16) as srv:
+        srv.register_surrogate_path("lif", "artifacts/lif.npz")
+        run = srv.submit(spec, stimulus, surrogates="lif").result()
+
 The layer runners of the paper's comparisons (golden, behavioral,
-LASANA-P / -O, annotation) are ``repro_torch.core.simulate``, the legacy
-bank shims ``repro_torch.core.persist``, the continuous-batching lanes
-``repro_torch.serve`` (``Lane`` over :func:`engine`'s slot runners).
-Still to come with later slices: the server behind ``lasana.serve`` and
-multi-device batches (``mesh=``). Everything runs on ``cuda`` unless
-``device=`` says otherwise.
+LASANA-P / -O, annotation) are ``repro_torch.core.simulate`` and the
+legacy bank shims ``repro_torch.core.persist``. Still to come with a
+later slice: multi-device batches (``mesh=``). Everything runs on
+``cuda`` unless ``device=`` says otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -98,6 +107,7 @@ __all__ = [
     "load",
     "resume",
     "save",
+    "serve",
     "simulate",
     "simulate_stream",
     "stream",
@@ -362,3 +372,39 @@ def explore(candidates: CandidateSpec, surrogates, *,
     energy/latency/analog-fraction frontier."""
     from repro_torch.core.explore import evaluate_candidates
     return evaluate_candidates(candidates, surrogates, engine=engine)
+
+
+def serve(config=None, **overrides):
+    """Start a persistent multi-tenant simulation server (LASANA-as-a-
+    service; see docs/serving.md).
+
+    Returns a started :class:`repro_torch.serve.SimServer`: a long-lived
+    process-local service that owns a surrogate artifact store
+    (register/hot-swap by ``name@version``), quantizes heterogeneous
+    requests onto a bounded set of slot-runner shape buckets, and packs
+    concurrent requests along the batch axis of one runner (continuous
+    batching — requests join/leave at chunk boundaries, with per-slot
+    masks keeping every tenant's energy/latency/event records what a solo
+    :func:`simulate` of that request would produce). Its driver thread
+    owns every launch on the device.
+
+    ``config`` is a :class:`repro_torch.serve.ServeConfig`; keyword
+    overrides are applied on top (e.g. ``lasana.serve(chunk_ticks=16,
+    max_in_flight=8)``; ``device="cpu"`` runs the plain versions — the
+    default ``cuda`` raises here when there is no card). Use as a context
+    manager or call ``close()``::
+
+        with lasana.serve(chunk_ticks=8) as srv:       # no-run
+            srv.register_surrogate("lif", sur)
+            h = srv.submit(spec, stimulus, surrogates="lif")
+            run = h.result()                           # NetworkRun
+            print(srv.stats()["requests_completed"])
+    """
+    from repro_torch.serve import ServeConfig, SimServer
+    if config is None:
+        config = ServeConfig(**overrides)
+    elif overrides:
+        config = dataclasses.replace(config, **overrides)
+    srv = SimServer(config)
+    srv.start()
+    return srv

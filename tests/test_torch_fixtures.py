@@ -13,7 +13,7 @@ are) with ``--regen-crossbar``, only the stream record with
 the wide-surrogate artifact and its record with ``--regen-wide``, or
 only the training record with ``--regen-train``, or only the layer
 record with ``--regen-layer``, or only the DSE record with
-``--regen-dse``.
+``--regen-dse``, or only the wire record with ``--regen-serve``.
 
 Seeds: ``lif_packable`` is ``lasana.train("lif", TrainConfig(n_runs=600,
 n_steps=100, families=("linear", "mlp"), seed=0))``; ``lif_unpackable`` is
@@ -98,6 +98,15 @@ crossbar_unpackable)``: the engine's base rows (``base_x``, ``base_p``,
 (``arch/{arch}/...``, ``tiles_by_component`` as JSON) beside the 2,048
 rows ``tile_energy_latency`` prices (``tile_x``, ``tile_p``,
 ``tile_o``: ``jax.random`` key 0, as it draws them).
+
+The wire record (``--regen-serve``, ``serve_wire_record.json``) holds the
+op script :func:`wire_script` (register ``lif_packable.npz`` by path, the
+784-128-10 SNN as an ``snn`` spec, one ``simulate_batch`` of 8 requests of
+100 ticks x 1-8 rows of Bernoulli(0.2) spikes seeded 0-7, one
+``simulate`` pinned to ``lif@1``, ``stats``, ``shutdown``) with the
+artifact and the weights named by file, and the reference's responses to
+it: ``repro.serve.run_stdio`` over ``repro.lasana.serve(slot_widths=(32,),
+chunk_ticks=16)`` on the CPU.
 """
 
 from __future__ import annotations
@@ -334,6 +343,51 @@ def assert_runs_match(got, want):
 
 
 # --- serving: request mixes, graphs of both packages, the lane loop ---------
+
+WIRE_RECORD = ARTIFACTS / "serve_wire_record.json"
+WIRE_SLOT_WIDTHS = (32,)
+WIRE_CHUNK = 16
+
+
+def wire_script() -> list:
+    """The wire record's op script, its files named by basename (see
+    :func:`wire_ops`): the SNN served over the JSON-lines protocol."""
+    knobs = [float(k) for k in np.asarray(LIF_KNOBS, np.float32)]
+    spikes = lambda t, b, seed: {"t": t, "b": b, "rate": 0.2, "seed": seed}
+    return [
+        {"op": "register_surrogate", "name": "lif",
+         "path": PACKABLE.name},
+        {"op": "register_spec", "name": "snn",
+         "snn": {"weights": SNN_WEIGHTS.name, "params": [knobs, knobs]}},
+        {"op": "simulate_batch", "requests": [
+            {"id": f"b{i}", "spec": "snn", "surrogate": "lif",
+             "tenant": f"t{i % 3}",
+             "stimulus_spikes": spikes(T_STEPS, i + 1, i)}
+            for i in range(8)]},
+        {"op": "simulate", "id": "pinned", "spec": "snn",
+         "surrogate": "lif@1", "stimulus_spikes": spikes(T_STEPS, 4, 8)},
+        {"op": "stats"},
+        {"op": "shutdown"},
+    ]
+
+
+def wire_ops(script, art_dir=ARTIFACTS) -> list:
+    """``script`` as the protocol's ops: the artifact's basename becomes
+    its path under ``art_dir``, the weights file's the SNN's weights as
+    nested lists."""
+    ops = []
+    for op in script:
+        op = dict(op)
+        if "path" in op:
+            op["path"] = str(pathlib.Path(art_dir) / op["path"])
+        if isinstance(op.get("snn", {}).get("weights"), str):
+            with np.load(pathlib.Path(art_dir) / op["snn"]["weights"]) as z:
+                ws = [z[f"w{i}"] for i in range(len(z.files))]
+            op["snn"] = dict(op["snn"], weights=[
+                np.asarray(w, np.float32).tolist() for w in ws])
+        ops.append(op)
+    return ops
+
 
 SERVE_CHUNK = 8                      # tests/test_serve.py's chunk ticks
 SERVE_JOBS = [(24, 2), (9, 1), (5, 1), (16, 2), (24, 1), (9, 1), (16, 1)]
@@ -861,6 +915,32 @@ def _regen_layer():
           f"{time.time() - t0:.0f} s")
 
 
+def _regen_serve():
+    """Write the wire record only (the reference's server on the CPU)."""
+    import io
+    import json
+    import time
+
+    import repro.lasana as lasana
+    from repro.serve import run_stdio
+
+    t0 = time.time()
+    script = wire_script()
+    fin = io.StringIO("".join(json.dumps(o) + "\n"
+                              for o in wire_ops(script)))
+    fout = io.StringIO()
+    with lasana.serve(slot_widths=WIRE_SLOT_WIDTHS,
+                      chunk_ticks=WIRE_CHUNK) as srv:
+        run_stdio(srv, fin, fout)
+    record = {"slot_widths": list(WIRE_SLOT_WIDTHS),
+              "chunk_ticks": WIRE_CHUNK, "script": script,
+              "responses": [json.loads(l)
+                            for l in fout.getvalue().splitlines()]}
+    WIRE_RECORD.write_text(json.dumps(record, indent=1) + "\n")
+    print(WIRE_RECORD.name, os.path.getsize(WIRE_RECORD), "bytes;",
+          f"{time.time() - t0:.0f} s")
+
+
 def _regen_dse():
     """Write the DSE record only (JAX on the CPU)."""
     import json
@@ -915,6 +995,7 @@ if __name__ == "__main__":
         _regen_train()
         _regen_layer()
         _regen_dse()
+        _regen_serve()
     elif sys.argv[1:] == ["--regen-crossbar"]:
         _regen_crossbar()
     elif sys.argv[1:] == ["--regen-stream"]:
@@ -929,8 +1010,10 @@ if __name__ == "__main__":
         _regen_layer()
     elif sys.argv[1:] == ["--regen-dse"]:
         _regen_dse()
+    elif sys.argv[1:] == ["--regen-serve"]:
+        _regen_serve()
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
                  "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
                  "--regen-wide | --regen-train | --regen-layer | "
-                 "--regen-dse")
+                 "--regen-dse | --regen-serve")

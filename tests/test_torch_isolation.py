@@ -55,7 +55,10 @@ def test_no_jax_or_reference_imports_in_the_port():
     # the scheduler
     "resilience/faults.py", "ft/__init__.py", "ft/watchdog.py",
     "serve/__init__.py", "serve/buckets.py", "serve/metrics.py",
-    "serve/scheduler.py"])
+    "serve/scheduler.py",
+    # serving, the server: the store, the server, the protocol, the driver
+    "serve/store.py", "serve/server.py", "serve/protocol.py",
+    "serve/__main__.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
     """The modules of the streaming, LM serve, training, layer-runner,
     exploration and serving slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
@@ -142,6 +145,18 @@ def test_port_runs_with_jax_and_reference_unimportable():
             lane.step()
         solo = lasana.simulate(spec, x[:, 1:], surrogates=sur, device="cpu")
         assert np.array_equal(q.handle.result().events, solo.events)
+        from repro_torch.serve import run_stdio
+        with lasana.serve(slot_widths=(2,), chunk_ticks=3,
+                          device="cpu") as srv:
+            srv.register_surrogate_path("lif", sys.argv[1])
+            h = srv.submit(spec, x[:, 1:], surrogates="lif")
+            assert np.array_equal(h.result(timeout=120).events, solo.events)
+            import json
+            out = io.StringIO()
+            run_stdio(srv, io.StringIO(json.dumps({"op": "stats"}) + "\\n"),
+                      out)
+            assert json.loads(out.getvalue())["stats"]["surrogates"] == {
+                "lif": [1]}
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
