@@ -40,7 +40,10 @@ Phases, one output line each (JSON where it helps):
    1 on repeated K/V and causality; each timed shape beside one library
    call (``scaled_dot_product_attention``, never called by the port); and
    its fp32-core route on the reference test's fp32 shapes (2e-5) and at
-   D = 8, counted apart;
+   D = 8, counted apart; and at the other zoo configs' serve prefills
+   (deepseek-moe-16b q 128 x 512 x 128, pixtral-12b 256 x 1,536 x 128 G =
+   4, whisper-base 64 x 512 x 64), each timed beside the plain version
+   and SDPA;
 4. drive the main paths through ``repro_torch.lasana.simulate``, each run
    with the kernel launch counters reset before it and read after it, a
    second (steady) run enqueued with host synchronisation forbidden, and
@@ -74,7 +77,25 @@ Phases, one output line each (JSON where it helps):
    ``flash_attention`` launches), two decode steps against ``forward``,
    then ``repro_torch.launch.serve`` with ``Model.init``'s weights at
    batch 8 x 512 + 64 (first and steady prefill / decode times, tokens/s,
-   peak device bytes, finite logits);
+   peak device bytes, finite logits); then the other six configs at full
+   width, one after another, each freed before the next: (a) its
+   committed JAX record at the record's depth (deepseek-moe-16b 2 layers,
+   deepseek-v3-671b its 3 dense MLA layers, mamba2-1.3b 4, recurrentgemma-
+   2b 3, whisper-base all 6 + 6 on 1,500 frames, pixtral-12b 2 on 1,024
+   patches + 512 tokens; parity weights, prefill and 8 teacher-forced
+   decode steps, the same limits as StarCoder2-3B's over the record's
+   vocab columns, the argmax over the full row), (c)
+   ``repro_torch.launch.serve`` with ``Model.init``'s weights at batch 8
+   x 512 + 64 (pixtral 1,536, recurrentgemma 2,048) at full depth (V3: 3
+   dense MLA layers + 1 MoE layer of 256 experts, ``--layers 4``), (b)
+   decode against forward over prompt + 2 at that depth on weights of the
+   parity distribution drawn on the card (the MoE configs at capacity
+   factor 4, no assignment dropped), and (d) V3's full-width MoE layer:
+   router logits against the CPU's, top-8 ids and the capacity drop set
+   against the same selection on the CPU, the output at ample capacity
+   against the dense mixture; ``flash_attention`` launched exactly by the
+   causal self-attention layers of deepseek-moe-16b, pixtral-12b and
+   whisper-base's decoder;
 7. train at the reference's scale (``TrainConfig()``: 1,000 runs x 125
    steps, all five families): LIF on the committed JAX record's own
    testbench (``train_lif_ref_record.npz``) through ``simulate_golden``
@@ -100,7 +121,7 @@ Phases, one output line each (JSON where it helps):
    speedups); Table III's propagation (N = 20,000: LASANA-O against
    LASANA-P against golden); ``lasana.explore`` over 4,096 candidates x
    256 samples against ``dse_ref_record.npz`` (tile table, pricing within
-   rtol 1e-5, the Pareto set, ``explore_arch`` of the four dense configs)
+   rtol 1e-5, the Pareto set, ``explore_arch`` of all ten configs)
    with a hot swap that sets nothing up; and ``lif_chunk``,
    ``network_tick`` and ``mlp_surrogate_heads`` against their plain
    versions at these runs' shapes, timed beside their bounds;
@@ -279,6 +300,44 @@ LM_ARGMAX_GAP = 0.1          # argmax must agree where top-2 gap > 0.1 std
 LM_DECODE_VS_FORWARD = 0.05
 SERVE_ARGS = ("--arch", LM_ARCH, "--batch", "8", "--prompt-len", "512",
               "--gen", "64")
+# the LM phase's other six configs, one after another after StarCoder2-3B:
+# each one's JAX record at its depth (tests/test_torch_fixtures.py
+# ZOO_RECORDS), decode against forward and launch.serve at the serve depth
+ZOO_ARCHS = ("whisper-base", "mamba2-1.3b", "recurrentgemma-2b",
+             "deepseek-moe-16b", "pixtral-12b", "deepseek-v3-671b")
+ZOO_SERVE_LAYERS = {"deepseek-v3-671b": 4}   # 3 dense MLA + 1 MoE layer
+ZOO_SERVE_PROMPT = {"pixtral-12b": 1536, "recurrentgemma-2b": 2048}
+ZOO_SERVE_BATCH, ZOO_SERVE_PROMPT_LEN, ZOO_SERVE_GEN = 8, 512, 64
+# configs whose every (decoder) layer's attention is the kernel's function
+# (causal self-attention, no window shorter than S, D in HEAD_DIMS); the
+# others' attention is plain: MLA's qk 192 / v 128, recurrentgemma's D 256
+ZOO_FLASH = {"deepseek-moe-16b": (16, 1, 128), "pixtral-12b": (32, 4, 128),
+             "whisper-base": (8, 1, 64)}          # heads, G, D
+# DeepSeek-V3's full-width MoE layer on the card (phase 6d): routing and
+# the capacity drop set at the config's factor over 8 x 512 tokens, and
+# the output against the dense mixture at ample capacity over 512 tokens
+V3_MOE_TOKENS = (8, 512)
+V3_MOE_AMPLE_TOKENS = (1, 512)
+V3_ROUTER_RTOL = 1e-5        # fp32 router logits, card vs CPU
+MOE_DENSE_REL = 1e-2         # relative L2, dispatch vs dense mixture, bf16
+# decode against forward, per config where LM_DECODE_VS_FORWARD is not the
+# limit: Mamba-2's full-sequence path sums its causal conv in bf16 and its
+# one-token path in fp32 (the reference's arithmetic), a gap that grows
+# with depth in the reference itself (tools/lm_decode_gap.py on the CPU:
+# 0.0118 at 4 layers, 0.0318 at 16 of the full width, the port within 1%
+# of it); the 48-layer model measured 0.0598 on the H100 (NVIDIA H100 80GB
+# HBM3, 700 W). The reference's own test allows 0.15
+# (tests/test_arch_smoke.py:74)
+ZOO_DECODE_VS_FORWARD = {"mamba2-1.3b": 0.15}
+# The MoE configs are held to it with their routers zeroed and every
+# expert's capacity the whole batch (factor E / K): with their own routers
+# the two runs route a row's last token apart at some layer (every row of
+# deepseek-moe's 27 MoE layers did on the H100: a bf16 rounding apart flips
+# a top-k choice of smaller margin, a different function; the line reports
+# that gap too); tied scores route every token to the lowest-index experts
+# in both. V3 at batch 2: its one MoE layer's (E, C, d) buffers at C = 8 x
+# 514 would not fit beside its weights
+ZOO_DVF_BATCH = {"deepseek-v3-671b": 2}
 FLASH_BH, FLASH_G, FLASH_S, FLASH_D = 96, 12, 512, 128   # 4 x 24 heads
 FLASH_SERVE_BH = 192             # the serve run's prefill: 8 x 24 heads
 FLASH_LONG_S = 4096              # StarCoder2's sliding window
@@ -1759,21 +1818,23 @@ def flash_err(got, want, tol, name, res=None):
     return float(err.max())
 
 
-def flash_timing(torch, flash_attn, q, k, v, g):
-    """Kernel, plain and SDPA times and the bound of one bf16 shape; K/V
-    repeated to the query heads for SDPA beforehand (yardstick only: the
-    port never calls it)."""
+def flash_timing(torch, flash_attn, q, k, v, g, heads=24, plain=False):
+    """Kernel, plain and SDPA times and the bound of one bf16 shape of
+    ``heads`` query heads a batch row; K/V repeated to the query heads for
+    SDPA beforehand (yardstick only: the port never calls it). The plain
+    version is timed up to S = 512, or at any S with ``plain``."""
     bh, s, d = q.shape
     out = {"shape": f"q ({bh}, {s}, {d}), k/v ({bh // g}, {s}, {d}), bf16, "
                     f"G = {g}"}
     out["ms"] = time_ms(lambda: flash_attn.flash_attention(q, k, v,
                                                            groups=g), torch)
-    if s <= FLASH_S:
+    if s <= FLASH_S or plain:
         out["plain_ms"] = time_ms(
             lambda: flash_attn.attention_plain(q, k, v, g), torch)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     k_rep, v_rep = (t.repeat_interleave(g, dim=0) for t in (k, v))
-    q4, k4, v4 = (t.view(bh // 24, 24, s, d) for t in (q, k_rep, v_rep))
+    q4, k4, v4 = (t.view(bh // heads, heads, s, d)
+                  for t in (q, k_rep, v_rep))
     out["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
                                 torch)
     flops = 2 * d * s * (s + 1) * bh
@@ -1864,6 +1925,21 @@ def check_flash_attention(torch, np, dev):
                      "repeated to 24 heads"
     out["serve_shape"] = flash_timing(torch, flash_attn, sq, sk, sv, g)
     out["s4096"] = flash_timing(torch, flash_attn, lq, lk, lv, g)
+    # the other zoo configs' serve prefills (phase 6): against the plain
+    # version and timed beside it and SDPA
+    zoo = {}
+    for i, (arch, (h, zg, zd)) in enumerate(ZOO_FLASH.items()):
+        zs = ZOO_SERVE_PROMPT.get(arch, ZOO_SERVE_PROMPT_LEN)
+        zq, zk, zv = flash_inputs(torch, dev, ZOO_SERVE_BATCH * h, zg, zs,
+                                  zd, torch.bfloat16, 10 + i)
+        err = flash_err(flash_attn.flash_attention(zq, zk, zv, groups=zg),
+                        flash_attn.attention_plain(zq, zk, zv, zg),
+                        FLASH_TOL["bf16"], f"bf16 {arch} serve shape", res)
+        zoo[arch] = {"max_abs_err": err, **flash_timing(
+            torch, flash_attn, zq, zk, zv, zg, heads=h, plain=True)}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del zq, zk, zv
+    out["zoo_serve_shapes"] = zoo
     return out
 
 
@@ -2797,6 +2873,352 @@ def lm_runs(torch, np, dev, surs, profile):
     return total
 
 
+# --- phase 6, continued: the rest of the LM zoo ------------------------------
+
+def zoo_record_config(cfg, depth: int):
+    """A zoo record's cut of a full config (tests/test_torch_fixtures.py
+    ``zoo_record_config``): its first ``depth`` layers, no MTP head, and no
+    MoE stack when the dense layers fill the depth."""
+    import dataclasses
+    kw = {"n_layers": depth, "mtp_depth": 0}
+    if cfg.moe is not None and cfg.moe.first_dense >= depth:
+        kw["moe"] = None
+    return dataclasses.replace(cfg, **kw)
+
+
+def zoo_inputs(torch, np, cfg, batch: int, seed: int, dev) -> dict:
+    """A prefill's frames / patches, drawn as tests/test_torch_fixtures.py
+    ``zoo_inputs`` draws them (numpy ``seed``), in bf16 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.encdec is not None:
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encdec.encoder_seq, cfg.d_model), np.float32)
+    if cfg.n_frontend_tokens:
+        out["patches"] = np.float32(0.02) * rng.standard_normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_model), np.float32)
+    return {k: torch.as_tensor(v, device=dev).to(torch.bfloat16)
+            for k, v in out.items()}
+
+
+def zoo_row_errors(np, got, rec, name, step=None):
+    """A zoo record's rows: per-row relative L2 over the record's columns,
+    and whether the full row's argmax agrees where the record's top-2 gap
+    exceeds LM_ARGMAX_GAP of its std."""
+    cols = rec["columns"]
+    g = np.asarray(got, np.float64)
+    pick = (lambda a: a) if step is None else (lambda a: a[step])
+    w = pick(rec[f"{name}_logits"]).astype(np.float64)
+    rel = np.linalg.norm(g[:, cols] - w, axis=-1) / np.linalg.norm(w, axis=-1)
+    decided = pick(rec[f"{name}_gap"]) > LM_ARGMAX_GAP * pick(
+        rec[f"{name}_std"])
+    same = np.argmax(g, -1) == pick(rec[f"{name}_argmax"])
+    return rel, bool(np.all(same | ~decided)), int(decided.sum())
+
+
+def flash_layers(arch, cfg) -> int:
+    return cfg.n_layers if arch in ZOO_FLASH else 0
+
+
+def ample_cf(cfg) -> str:
+    """A capacity factor that gives every expert room for every token."""
+    return repr(cfg.moe.n_experts / cfg.moe.top_k)
+
+
+def zoo_record(torch, np, dev, arch, total):
+    """(a): the JAX record at its depth with the parity weights, prefill
+    and 8 teacher-forced decode steps at the config's capacity factor."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    rec_path = ART / (arch.replace("-", "_").replace(".", "") +
+                      "_ref_record.npz")
+    rec = dict(np.load(rec_path))
+    cut = zoo_record_config(get_config(arch), int(rec["n_layers"]))
+    t0 = time.perf_counter()
+    params = lm_params_from_numpy(cut, lm_numpy_params(cut, 0), dev)
+    t_weights = time.perf_counter() - t0
+    model = Model(cut)
+    tokens = torch.as_tensor(rec["tokens"], device=dev)
+    fed = torch.as_tensor(rec["decode_tokens"], device=dev)
+    b, s = tokens.shape
+    extra = zoo_inputs(torch, np, cut, b, int(rec["input_seed"]), dev)
+    ops.reset_launches()
+    logits, cache = model.prefill(params, {"tokens": tokens, **extra},
+                                  max_seq=s + LM_DECODE_STEPS)
+    counts = dict(ops.LAUNCHES)
+    check_launches(f"{arch} record prefill", counts, {
+        "flash_attention": flash_layers(arch, cut),
+        "flash_attention_simt": 0})
+    add_counts(total, f"zoo/{arch}/record_prefill", counts)
+    rel, ok, decided = zoo_row_errors(np, logits[:, 0].float().cpu(), rec,
+                                      "prefill")
+    errs = {"prefill": rel.tolist()}
+    bad = [] if ok and rel.max() <= LM_REL_L2 else ["prefill"]
+    for i in range(LM_DECODE_STEPS):
+        logits, cache = model.decode(params, cache, fed[:, i:i + 1])
+        rel, ok, _ = zoo_row_errors(np, logits[:, 0].float().cpu(), rec,
+                                    "decode", i)
+        errs[f"decode_{i}"] = rel.tolist()
+        if not ok or rel.max() > LM_REL_L2:
+            bad.append(f"decode_{i}")
+    line({"phase": "zoo_record", "arch": arch, "layers": cut.n_layers,
+          "width": cut.d_model, "tokens": [b, s], "inputs": sorted(extra),
+          "columns": int(rec["columns"].size), "vocab": cut.vocab,
+          "weights_host_s": t_weights, "rel_l2_by_row": errs,
+          "max_rel_l2": max(max(v) for v in errs.values()),
+          "argmax_decided_rows_prefill": decided, "limit": LM_REL_L2,
+          "launches": counts})
+    if bad:
+        fail(f"{arch} record: {bad} beyond relative L2 {LM_REL_L2} or "
+             "argmax differs on a decided row")
+    del params, cache, logits, model
+    torch.cuda.empty_cache()
+
+
+def zoo_decode_vs_forward(torch, np, dev, arch, model, params, total):
+    """(b): a prefill of B x P tokens and two decode steps against the
+    forward over all P + 2. The MoE configs run it at a capacity that holds
+    the whole batch (no assignment dropped, counted) twice: with their own
+    routers (reported, not held: the two runs route apart) and with the
+    routers zeroed (held; restored after)."""
+    import os
+
+    from repro_torch.data.lm_data import SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import params as prm
+    from repro_torch.models.layers import unembed
+    cfg = model.cfg
+    p = ZOO_SERVE_PROMPT.get(arch, ZOO_SERVE_PROMPT_LEN)
+    b = ZOO_DVF_BATCH.get(arch, ZOO_SERVE_BATCH)
+    toks = torch.as_tensor(SyntheticCorpus(cfg.vocab, seed=1).batch(
+        0, b, p + 2), device=dev)
+    extra = zoo_inputs(torch, np, cfg, b, 2, dev)
+    drops = []
+
+    def gap():
+        _, cache = model.prefill(params, {"tokens": toks[:, :p], **extra},
+                                 max_seq=p + 4)
+        for i in range(2):
+            logits, cache = model.decode(params, cache,
+                                         toks[:, p + i:p + i + 1])
+        del cache
+        ops.reset_launches()
+        h, _ = model.forward(params, {"tokens": toks, **extra})
+        counts = dict(ops.LAUNCHES)
+        want = unembed(params["embed"], h[:, -1:], cfg)
+        finite = bool(logits.isfinite().all() and want.isfinite().all())
+        return float((logits - want).abs().max() / want.abs().max()), \
+            finite, counts
+
+    def counted_dispatch(ids, n_experts, cap):
+        dest, ok = real_dispatch(ids, n_experts, cap)
+        drops.append(int((~ok).sum()))
+        return dest, ok
+    own = None
+    if cfg.moe is None:
+        dec_fwd, finite, counts = gap()
+    else:
+        env = os.environ.get("REPRO_MOE_CF")
+        real_dispatch = moe._dispatch_indices
+        routers = [t for path, t in prm.leaves(params)
+                   if path.endswith("/router")]
+        saved = [t.clone() for t in routers]
+        os.environ["REPRO_MOE_CF"] = ample_cf(cfg)
+        moe._dispatch_indices = counted_dispatch
+        try:
+            own = gap()[0]
+            for t in routers:
+                t.zero_()
+            dec_fwd, finite, counts = gap()
+        finally:
+            for t, keep in zip(routers, saved):
+                t.copy_(keep)
+            moe._dispatch_indices = real_dispatch
+            if env is None:
+                os.environ.pop("REPRO_MOE_CF", None)
+            else:
+                os.environ["REPRO_MOE_CF"] = env
+    if any(drops):
+        fail(f"{arch} decode vs forward: capacity factor {ample_cf(cfg)} "
+             f"dropped {sum(drops)} assignments")
+    check_launches(f"{arch} forward", counts, {
+        "flash_attention": flash_layers(arch, cfg),
+        "flash_attention_simt": 0})
+    add_counts(total, f"zoo/{arch}/forward", counts)
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "forward_tokens": [b, p + 2],
+            "decode_vs_forward": dec_fwd,
+            "limit": ZOO_DECODE_VS_FORWARD.get(arch, LM_DECODE_VS_FORWARD),
+            "routers": None if cfg.moe is None else "zeroed (tied scores)",
+            "own_routers_decode_vs_forward": own,
+            "capacity_factor": None if cfg.moe is None else ample_cf(cfg),
+            "moe_dispatches": len(drops), "finite": finite}
+
+
+def v3_moe_layer(torch, np, dev, cfg, params):
+    """(d): DeepSeek-V3's full-width MoE layer (256 experts, top-8,
+    sigmoid routing, 1 shared) on the card: the fp32 router logits against
+    the same product on the CPU; the top-8 ids and the capacity drop set
+    at the config's factor against the same selection and dispatch run on
+    the CPU on the card's scores (equal); and the output at ample capacity
+    against the dense mixture of the selected experts' FFNs."""
+    import os
+
+    from repro_torch.models import moe
+    p = {k: v[0] for k, v in params["moe_layers"]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((*V3_MOE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    m = cfg.moe
+    x_flat = x.reshape(1, -1, cfg.d_model)
+    logits = torch.einsum("gtd,de->gte", x_flat.float(), p["router"])
+    cpu_logits = torch.einsum("gtd,de->gte", x_flat.float().cpu(),
+                              p["router"].cpu())
+    router_err = float((logits.cpu() - cpu_logits).abs().max()
+                       / cpu_logits.abs().max())
+    scores = torch.sigmoid(logits) + p["router_bias"]
+    _, ids = moe.top_k(scores, m.top_k)
+    _, cpu_ids = moe.top_k(scores.cpu(), m.top_k)
+    w, ids_fn, _ = moe._routing(p, x_flat, cfg)
+    tokens = x_flat.shape[1]
+    cap = moe.capacity(tokens, cfg)
+    dest, ok = moe._dispatch_indices(ids[0].reshape(-1), m.n_experts, cap)
+    cdest, cok = moe._dispatch_indices(cpu_ids[0].reshape(-1), m.n_experts,
+                                       cap)
+    same_ids = bool(torch.equal(ids.cpu(), cpu_ids)
+                    and torch.equal(ids_fn, ids))
+    same_drops = bool(torch.equal(dest.cpu(), cdest)
+                      and torch.equal(ok.cpu(), cok))
+    dropped = int((~ok).sum())
+    # ample capacity: the dispatch against the dense mixture
+    xs = x.reshape(-1, cfg.d_model)[:V3_MOE_AMPLE_TOKENS[1]].reshape(
+        *V3_MOE_AMPLE_TOKENS, cfg.d_model)
+    env = os.environ.get("REPRO_MOE_CF")
+    os.environ["REPRO_MOE_CF"] = ample_cf(cfg)
+    try:
+        y, _ = moe.moe_ffn(p, xs, cfg)
+        xs_flat = xs.reshape(1, -1, cfg.d_model)
+        w2, ids2, _ = moe._routing(p, xs_flat, cfg)
+        dropped_ample = int((~moe._dispatch_indices(
+            ids2[0].reshape(-1), m.n_experts, moe.capacity(
+                xs_flat.shape[1], cfg))[1]).sum())
+    finally:
+        if env is None:
+            os.environ.pop("REPRO_MOE_CF", None)
+        else:
+            os.environ["REPRO_MOE_CF"] = env
+    t = xs_flat[0]
+    contrib = torch.zeros((t.shape[0], m.top_k, cfg.d_model),
+                          dtype=t.dtype, device=dev)
+    for e in range(m.n_experts):
+        rows, slots = torch.nonzero(ids2[0] == e, as_tuple=True)
+        if rows.numel():
+            xe = t[rows]
+            h = torch.nn.functional.silu((xe @ p["w_gate"][e]).float()).to(
+                t.dtype) * (xe @ p["w_up"][e])
+            contrib[rows, slots] = (h @ p["w_down"][e]) * w2[0, rows, slots,
+                                                             None].to(t.dtype)
+    dense = contrib[:, 0]
+    for j in range(1, m.top_k):
+        dense = dense + contrib[:, j]
+    sh = torch.nn.functional.silu((t @ p["shared_gate"]).float()).to(
+        t.dtype) * (t @ p["shared_up"])
+    dense = dense + sh @ p["shared_down"]
+    rel = float((y.reshape(dense.shape).double() - dense.double()).norm()
+                / dense.double().norm())
+    res = {"phase": "zoo_v3_moe_layer", "experts": m.n_experts,
+           "top_k": m.top_k, "width": cfg.d_model,
+           "d_ff_expert": m.d_ff_expert, "tokens": tokens,
+           "capacity": cap, "dropped_assignments": dropped,
+           "router_rel_err_vs_cpu": router_err,
+           "router_limit": V3_ROUTER_RTOL, "ids_equal_cpu": same_ids,
+           "drop_set_equal_cpu": same_drops,
+           "ample_tokens": xs_flat.shape[1],
+           "ample_dropped": dropped_ample,
+           "dense_mixture_rel_l2": rel, "dense_limit": MOE_DENSE_REL}
+    line(res)
+    if not (same_ids and same_drops and dropped_ample == 0
+            and router_err <= V3_ROUTER_RTOL and rel <= MOE_DENSE_REL):
+        fail(f"deepseek-v3 MoE layer: {res}")
+
+
+def zoo_runs(torch, np, dev, surs, profile):
+    """The six configs beyond StarCoder2-3B, one after another, each freed
+    before the next: (a) the JAX record; (c) ``repro_torch.launch.serve``
+    with ``Model.init``'s weights at batch 8 x P + 64, at full width and
+    the serve depth; (b) decode against forward at that depth on weights
+    of the parity distribution drawn on the card; (d) DeepSeek-V3's MoE
+    layer."""
+    from repro_torch.convert import lm_parity_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import params as prm
+    total = {}
+    for arch in ZOO_ARCHS:
+        t_arch = time.perf_counter()
+        zoo_record(torch, np, dev, arch, total)
+        p = ZOO_SERVE_PROMPT.get(arch, ZOO_SERVE_PROMPT_LEN)
+        argv = ["--arch", arch, "--batch", str(ZOO_SERVE_BATCH),
+                "--prompt-len", str(p), "--gen", str(ZOO_SERVE_GEN)]
+        if arch in ZOO_SERVE_LAYERS:
+            argv += ["--layers", str(ZOO_SERVE_LAYERS[arch])]
+        args = serve.parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = serve.serve(args)
+        counts = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        model, params, prompts, max_seq = serve.setup(args)
+        cfg = model.cfg
+        check_launches(f"{arch} serve", counts, {
+            "flash_attention": flash_layers(arch, cfg),
+            "flash_attention_simt": 0})
+        add_counts(total, f"zoo/{arch}/serve", counts)
+        out = {"phase": "zoo_serve", "arch": arch, "args": " ".join(argv),
+               "layers": cfg.n_layers, "width": cfg.d_model,
+               "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "tokens_per_s": res["tokens_per_s"],
+               "logits_finite": res["logits_finite"],
+               "generated_shape": list(res["generated"].shape),
+               "peak_device_bytes": peak,
+               "flash_attention_launches": counts["flash_attention"],
+               "launches": counts, "card": nvidia_smi()}
+        del res
+        steady = serve.generate(model, params, prompts,
+                                gen=ZOO_SERVE_GEN, max_seq=max_seq)
+        out["steady"] = {k: steady[k] for k in ("prefill_s", "decode_s",
+                                                "tokens_per_s",
+                                                "logits_finite")}
+        if profile:
+            out["profile"] = profile_run(torch, lambda: serve.generate(
+                model, params, prompts, gen=ZOO_SERVE_GEN, max_seq=max_seq))
+        line(out)
+        if not (out["logits_finite"] and steady["logits_finite"]):
+            fail(f"{arch} serve: non-finite logits")
+        del params, prompts, steady
+        torch.cuda.empty_cache()
+        # (b) and (d) on well-conditioned weights drawn on the card (the
+        # parity weights' distribution, convert.lm_parity_specs)
+        params = prm.materialize(torch.Generator(device=dev).manual_seed(0),
+                                 lm_parity_specs(cfg), dev)
+        dvf = zoo_decode_vs_forward(torch, np, dev, arch, model, params,
+                                    total)
+        line({"phase": "zoo_decode_vs_forward", "arch": arch,
+              "weights": "lm_parity_specs, seed 0", **dvf})
+        if not dvf["finite"] or not dvf["decode_vs_forward"] < dvf["limit"]:
+            fail(f"{arch} decode vs forward: {dvf}")
+        if arch == "deepseek-v3-671b":
+            v3_moe_layer(torch, np, dev, cfg, params)
+        del model, params
+        torch.cuda.empty_cache()
+        line({"phase": "zoo_done", "arch": arch,
+              "seconds": time.perf_counter() - t_arch})
+    return total
+
+
 # --- phase 8: the layer runners and design-space exploration -----------------
 
 LAYER_SUB = 64                 # neurons whose LIF records the JAX record keeps
@@ -2832,7 +3254,9 @@ DSE_CANDIDATES = 4096          # benchmarks/bench_dse.py N_CANDIDATES_FULL
 DSE_RTOL = 1e-5
 DSE_TIE = 1e-5                 # a Pareto difference needs a tie this close
 DSE_ARCHS = ("starcoder2-3b", "granite-3-8b", "deepseek-67b",
-             "mistral-large-123b")
+             "mistral-large-123b", "deepseek-v3-671b", "deepseek-moe-16b",
+             "whisper-base", "pixtral-12b", "mamba2-1.3b",
+             "recurrentgemma-2b")
 
 
 def layer_run(torch, sim, sur, circuit, stim, mode, golden=None, beh=None):
@@ -4452,7 +4876,7 @@ def main() -> int:
 
     launches = {}
     for runs in (snn_runs, wide_runs, xbar_runs, mixed_runs, stream_runs,
-                 lm_runs):
+                 lm_runs, zoo_runs):
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)

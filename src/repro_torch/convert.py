@@ -7,6 +7,7 @@ hands them here. Nothing is reinterpreted — layouts are the reference's.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import zlib
@@ -85,56 +86,106 @@ def state_from_numpy(v, o, t_last, params, device=None) -> LasanaState:
 
 # --- LM zoo -------------------------------------------------------------------
 
-def _lm_std(cfg, name: str):
-    """Std of a parity weight: 1/sqrt(its contracted size); None = ones."""
-    d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
-    std = {"wq": d, "wk": d, "wv": d, "wo": h * dh, "up": d, "gate": d,
-           "down": cfg.d_ff, "lm_head": d}
-    if name in std:
-        return 1.0 / math.sqrt(std[name])
-    if name == "embedding":
+_SLICED_AXES = ("layers", "experts")
+
+
+def _lead(spec) -> int:
+    """How many leading axes of ``spec`` enumerate independent slices (a
+    layer stack, an expert bank), each drawn on its own generator."""
+    n = 0
+    while n < len(spec.shape) - 1 and spec.logical[n] in _SLICED_AXES:
+        n += 1
+    return n
+
+
+def _lm_std(name: str, spec) -> float:
+    """Std of a parity weight: 0.02 for the embedding, else 1/sqrt(its
+    contracted size) — the first axis past the stack / expert axes, both
+    (heads x head dim) for an output projection ``wo``."""
+    if spec.init == "embed":
         return 0.02
-    if name in ("ln1", "ln2", "final_norm"):
-        return None
-    raise NotImplementedError(f"no parity weights for {name!r} yet")
+    shape = spec.shape[_lead(spec):]
+    fan = shape[0] * shape[1] if name == "wo" else shape[0]
+    return 1.0 / math.sqrt(fan)
+
+
+def _lm_uniform(init: str, out: np.ndarray, rng) -> None:
+    """The recurrent initializers' draws in float32 numpy, the
+    reference's formulas (``repro/models/params.py:56-75``) on a uniform
+    draw in [0, 1)."""
+    u = rng.random(dtype=np.float32, out=out)
+    f32 = np.float32
+    if init == "lambda_lru":
+        u *= f32(0.999 - 0.9)
+        u += f32(0.9)
+        out[...] = np.log(np.expm1(-np.log(u) * f32(8.0)) + f32(1e-8))
+    elif init == "dt_bias":
+        lo, hi = f32(math.log(1e-3)), f32(math.log(1e-1))
+        dt = np.exp(u * (hi - lo) + lo)
+        out[...] = dt + np.log(-np.expm1(-dt))
+    elif init == "a_log":
+        out[...] = np.log(u * f32(15.0) + f32(1.0))
+    else:
+        raise ValueError(f"no parity draw for initializer {init!r}")
 
 
 def lm_numpy_params(cfg, seed: int = 0) -> dict:
     """Well-conditioned float32 weights for ``Model(cfg)``, in the JAX
-    ``Model``'s tree (stacked layers), drawn with numpy from ``seed``.
+    ``Model``'s tree (stacked layers, a list for the Griffin interleave),
+    drawn with numpy from ``seed``.
 
-    Each leaf, and each layer of a stacked leaf, has its own generator,
-    ``np.random.default_rng([seed, crc32(path), layer])``, so the draws
-    run in parallel threads (numpy fills without the GIL) with the same
-    result, and a model cut to fewer layers gets the first layers of the
-    full one. Std is 1/sqrt(contracted size) (d for wq / wk / wv / up /
-    gate / lm_head, H * Dh for wo, d_ff for down), 0.02 for the
-    embedding, ones for norms. Both packages round these to bf16 with
-    round-to-nearest-even."""
+    Each leaf, and each layer (and expert) of a stacked leaf, has its own
+    generator, ``np.random.default_rng([seed, crc32(path), layer,
+    expert])``, so the draws run in parallel threads (numpy fills without
+    the GIL) with the same result, and a model cut to fewer layers gets
+    the first layers of the full one. A matrix is normal with std
+    1/sqrt(contracted size) (d for wq / wk / wv / up / gate / lm_head,
+    H * Dh for wo, d_ff for down, and so on), the embedding 0.02; zeros
+    and ones stay the spec's; A_log, dt_bias and Lambda are the
+    reference's uniform draws. Both packages round these to each leaf's
+    dtype (bf16 with round-to-nearest-even, or fp32 as it is)."""
     jobs = []
 
     def alloc(path, spec):
-        std = _lm_std(cfg, path.rsplit("/", 1)[-1])
-        if std is None:
-            return np.ones(spec.shape, np.float32)
+        if spec.init in ("zeros", "ones"):
+            return getattr(np, spec.init)(spec.shape, np.float32)
         out = np.empty(spec.shape, np.float32)
         key = zlib.crc32(path.encode())
-        if spec.logical[0] == "layers":
-            jobs.extend((out[i], [seed, key, i], std) for i in range(len(out)))
-        else:
-            jobs.append((out, [seed, key], std))
+        lead = _lead(spec)
+        std = None if spec.init in ("lambda_lru", "dt_bias", "a_log") \
+            else _lm_std(path.rsplit("/", 1)[-1], spec)
+        for idx in np.ndindex(*spec.shape[:lead]):
+            jobs.append((out[idx], [seed, key, *idx], spec.init, std))
         return out
 
     def draw(job):
-        out, entropy, std = job
-        np.random.default_rng(entropy).standard_normal(dtype=np.float32,
-                                                       out=out)
+        out, entropy, init, std = job
+        rng = np.random.default_rng(entropy)
+        if std is None:
+            _lm_uniform(init, out, rng)
+            return
+        rng.standard_normal(dtype=np.float32, out=out)
         out *= np.float32(std)
 
     tree = prm.map_with_path(alloc, Model(cfg).param_specs())
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
         list(pool.map(draw, jobs))
     return tree
+
+
+def lm_parity_specs(cfg) -> dict:
+    """``Model(cfg).param_specs()`` with each normal leaf's scale set so
+    that :func:`~repro_torch.models.params.materialize` draws it with
+    :func:`lm_numpy_params`' std: the parity weights' distribution (not
+    their values), drawn by ``torch`` on any device — a model too large
+    for host draws gets well-conditioned weights on the card."""
+    def one(path, spec):
+        if spec.init != "normal":
+            return spec
+        fan = max(prm._fan_in(spec.shape), 1)
+        return dataclasses.replace(spec, scale=_lm_std(
+            path.rsplit("/", 1)[-1], spec) * math.sqrt(fan))
+    return prm.map_with_path(one, Model(cfg).param_specs())
 
 
 def _host_tensor(a) -> torch.Tensor:
@@ -148,9 +199,10 @@ def _host_tensor(a) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, arrays: dict, device=None) -> dict:
     """The port's parameter tree of ``Model(cfg)`` from the JAX ``Model``'s
-    (numpy leaves, stacked layers; bf16 or float32). Each leaf becomes its
-    spec's dtype on ``device`` (float32 rounds to bf16 to nearest even),
-    one layer at a time for a stacked leaf."""
+    (numpy leaves, stacked layers, a list for the Griffin interleave; bf16
+    or float32). Each leaf becomes its spec's dtype on ``device`` (float32
+    rounds to bf16 to nearest even; the fp32 leaves — the router, A_log,
+    Lambda, ... — stay fp32), one layer at a time for a stacked leaf."""
     dev = ops.resolve_device(device)
     flat = dict(prm.leaves(arrays))
 

@@ -237,10 +237,11 @@ def explore_arch(cfg: ModelConfig, bank) -> TileReport:
     """Map one zoo architecture onto 32x32 crossbar macros.
 
     ``bank`` is a trained crossbar predictor in any accepted form (see
-    :func:`_crossbar_surrogate`), priced on its own device. The configs
-    the port's ``Model`` does not run yet (MoE, SSM, RG-LRU, MLA, encoder,
-    VLM) raise its ``NotImplementedError`` (ROADMAP A12). For
-    thousand-point candidate sweeps use :func:`evaluate_candidates`."""
+    :func:`_crossbar_surrogate`), priced on its own device; every config
+    of the zoo walks its ``Model(cfg).param_specs()`` (the Griffin
+    interleave's list of layers and the ``encoder`` / ``mtp`` subtrees
+    included). For thousand-point candidate sweeps use
+    :func:`evaluate_candidates`."""
     bank = _crossbar_surrogate(bank)
     return _arch_report(cfg, *tile_energy_latency(bank))
 

@@ -4,7 +4,7 @@ port's prompts equal the reference's token for token.
 
 The stream is a seeded Zipf-ish Markov token process, reproducible from
 (seed, step) alone. ``make_train_batch`` and the ``Prefetcher`` wait for
-the training slice (ROADMAP A12).
+the LM training slice (ROADMAP §A item 6, training).
 """
 
 from __future__ import annotations

@@ -59,6 +59,12 @@ def engine_cache_capacity(default: int = 8) -> int:
     return int(env) if env else int(default)
 
 
+def moe_capacity_factor(default: float) -> float:
+    """Expert capacity-factor override (``REPRO_MOE_CF``), read at each
+    call; ``default`` is the model config's compiled-in factor."""
+    return float(os.environ.get("REPRO_MOE_CF", default))
+
+
 def fault_plan_path():
     """``REPRO_FAULT_PLAN``: the path of a JSON fault-injection plan, or
     None (unset or empty: injection sites do nothing). The resilience

@@ -1,22 +1,27 @@
-"""Batched serving: one prefill and a greedy decode loop over the zoo's
-dense GQA decoders.
+"""Batched serving: one prefill and a greedy decode loop over the zoo.
 
 ``python -m repro_torch.launch.serve --arch starcoder2-3b --reduced
 --batch 4 --prompt-len 64 --gen 32 --device cpu``
 
 Draws the model's weights from ``--seed`` (``Model.init``), runs a batch
 of synthetic prompts (``SyntheticCorpus``) through one prefill, whose
-causal attention is the port's ``flash_attention`` kernel on the card,
-and ``--gen - 1`` greedy decode steps, and reports tokens/s plus
-per-phase wall time. It runs on ``cuda`` unless ``--device`` says
-otherwise, and raises where there is no card. The reference's mesh
-options (``--model-parallel`` > 1, ``--kv-seq``) raise: they need the
-sharding work (ROADMAP A9, A12).
+causal self-attention is the port's ``flash_attention`` kernel on the card
+wherever it computes the same function (``models/attention.py``), and
+``--gen - 1`` greedy decode steps, and reports tokens/s plus per-phase
+wall time. An encoder-decoder gets ``frames`` and a VLM ``patches``,
+zeros as the reference's ``launch/serve.py`` gives them. ``--layers N``
+cuts the config to its first N layers and drops the multi-token-
+prediction head, which serving never runs, so that a model too large for
+one card serves at its full width. It runs on ``cuda`` unless ``--device`` says otherwise, and
+raises where there is no card. The reference's mesh options
+(``--model-parallel`` > 1, ``--kv-seq``) raise: they need the sharding
+work (ROADMAP §A item 4, old A9).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -32,13 +37,15 @@ def setup(args):
     if args.model_parallel != 1:
         raise NotImplementedError(
             "--model-parallel > 1 needs a device mesh, which the port does "
-            "not have yet (ROADMAP A9, A12)")
+            "not have yet (ROADMAP A9)")
     if args.kv_seq:
         raise NotImplementedError(
             "--kv-seq (sequence-sharded KV caches) needs a device mesh, "
-            "which the port does not have yet (ROADMAP A9, A12)")
+            "which the port does not have yet (ROADMAP A9)")
     dev = ops.resolve_device(getattr(args, "device", None))
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers, mtp_depth=0)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                         dev)
@@ -48,16 +55,38 @@ def setup(args):
     return model, params, prompts, args.prompt_len + args.gen
 
 
-def generate(model, params, prompts, *, gen: int, max_seq: int) -> dict:
-    """One prefill and ``gen - 1`` greedy decode steps. Tokens stay on the
-    device until the end (one host copy); each phase is timed on the host
-    clock up to a device synchronisation."""
+def frontend_inputs(cfg, batch: int, device) -> dict:
+    """The inputs beside the tokens that a config's prefill reads, as the
+    reference's ``launch/serve.py`` makes them: zero ``frames`` (B, encoder_seq, d) for
+    an encoder-decoder, zero ``patches`` (B, n_frontend_tokens, d) for a
+    VLM, in bf16."""
+    out = {}
+    if cfg.encdec is not None:
+        out["frames"] = torch.zeros((batch, cfg.encdec.encoder_seq,
+                                     cfg.d_model), dtype=torch.bfloat16,
+                                    device=device)
+    if cfg.n_frontend_tokens:
+        out["patches"] = torch.zeros((batch, cfg.n_frontend_tokens,
+                                      cfg.d_model), dtype=torch.bfloat16,
+                                     device=device)
+    return out
+
+
+def generate(model, params, prompts, *, gen: int, max_seq: int,
+             inputs=None) -> dict:
+    """One prefill and ``gen - 1`` greedy decode steps. ``inputs`` are the
+    prefill's other inputs (``frames``, ``patches``; by default
+    :func:`frontend_inputs`). Tokens stay on the device until the end (one
+    host copy); each phase is timed on the host clock up to a device
+    synchronisation."""
     dev = prompts.device
+    if inputs is None:
+        inputs = frontend_inputs(model.cfg, prompts.shape[0], dev)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts},
+    logits, cache = model.prefill(params, {"tokens": prompts, **inputs},
                                   max_seq=max_seq)
     sync()
     t_prefill = time.perf_counter() - t0
@@ -99,6 +128,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to its first N layers, without "
+                    "the MTP head (default: all)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--kv-seq", action="store_true",
                     help="sequence-sharded KV caches (not ported: raises)")

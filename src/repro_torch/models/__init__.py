@@ -1,1 +1,2 @@
-"""The LM-architecture zoo of the port: dense GQA decoders (ROADMAP A12)."""
+"""The LM-architecture zoo of the port: all ten configs' parameter trees
+and serve paths (forward, prefill, decode)."""

@@ -51,6 +51,19 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, device=None):
+    """(seq, d) fp32 sinusoidal position table: sin on even columns, cos on
+    odd ones. Built on the CPU in fp32, the reference's arithmetic step for
+    step, then moved to ``device``."""
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    step = -torch.log(torch.tensor(10000.0)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32) * step)
+    pe = torch.zeros((seq, d), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(device)
+
+
 # --- embedding -----------------------------------------------------------------
 
 def embed_specs(cfg: ModelConfig) -> dict:

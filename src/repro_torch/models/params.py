@@ -6,7 +6,7 @@ for leaf. :func:`materialize` draws real tensors from an explicit
 ``torch.Generator`` on a given device; :func:`param_count` and
 :func:`param_bytes` read the specs without allocating anything. The
 reference's ``abstract`` and ``shardings`` wait for the sharding work
-(ROADMAP A12).
+(ROADMAP §A item 6, ``sharding.py``).
 
 Each element gets the reference's distribution, not its bits:
 ``jax.random`` cannot be replayed in ``torch``. Tests that compare the
@@ -27,7 +27,7 @@ import torch
 class ParamSpec:
     shape: tuple[int, ...]
     logical: tuple[str | None, ...]
-    init: str = "normal"              # normal | zeros | ones | embed
+    init: str = "normal"   # normal | zeros | ones | embed | lambda_lru | dt_bias | a_log
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
 
@@ -83,6 +83,36 @@ def _fan_in(shape: tuple[int, ...]) -> int:
     return int(np.prod(shape[:-1][-2:][-1:])) or shape[-2]
 
 
+def _draw(generator: torch.Generator, spec: ParamSpec, shape,
+          device: torch.device) -> torch.Tensor:
+    """One fp32 draw of ``spec``'s initializer at ``shape`` (a slice of the
+    leaf). The three recurrent initializers are the reference's
+    (``repro/models/params.py:56-75``): Griffin's Lambda from a in [0.9,
+    0.999), Mamba-2's dt bias as the inverse softplus of a log-uniform dt
+    in [1e-3, 1e-1), and its A_log as the log of uniform [1, 16)."""
+    def uniform(lo, hi):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        return u * (hi - lo) + lo
+    if spec.init == "lambda_lru":
+        u = uniform(0.9, 0.999)
+        return torch.log(torch.expm1(-torch.log(u) * 8.0) + 1e-8)
+    if spec.init == "dt_bias":
+        dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1)))
+        return dt + torch.log(-torch.expm1(-dt))
+    if spec.init == "a_log":
+        return torch.log(uniform(1.0, 16.0))
+    if spec.init not in ("normal", "embed"):
+        raise ValueError(f"unknown initializer {spec.init!r}")
+    std = spec.scale if spec.init == "embed" else \
+        spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device) * std
+
+
+_SLICED_AXES = ("layers", "experts")
+
+
 def _init_one(generator: torch.Generator, spec: ParamSpec,
               device: torch.device) -> torch.Tensor:
     shape, dtype = spec.shape, spec.dtype
@@ -90,20 +120,16 @@ def _init_one(generator: torch.Generator, spec: ParamSpec,
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    if spec.init not in ("normal", "embed"):
-        raise NotImplementedError(
-            f"init {spec.init!r} belongs to a family the port does not run "
-            "yet (ROADMAP A12)")
-    std = spec.scale / math.sqrt(max(_fan_in(shape), 1))
-    if spec.init == "embed":
-        std = spec.scale
     out = torch.empty(shape, dtype=dtype, device=device)
-    # one layer at a time: a stacked leaf's fp32 draw never exists whole
-    # ((30, 3072, 12288) is 4.5 GB in fp32)
-    for part in (out if spec.logical[0] == "layers" else (out,)):
-        draw = torch.randn(part.shape, generator=generator,
-                           dtype=torch.float32, device=device)
-        part.copy_(draw * std)
+    # one layer (and one expert) at a time: a stacked leaf's fp32 draw never
+    # exists whole ((30, 3072, 12288) is 4.5 GB in fp32, one layer of
+    # DeepSeek-V3's w_gate 15 GB)
+    lead = 0
+    while lead < len(shape) - 1 and spec.logical[lead] in _SLICED_AXES:
+        lead += 1
+    parts = out.reshape(-1, *shape[lead:]) if lead else out[None]
+    for part in parts:
+        part.copy_(_draw(generator, spec, part.shape, device))
     return out
 
 

@@ -9,10 +9,9 @@ reference engine's ``_base_*`` arrays set on the port's engine) at C = 64
 candidates x 32 samples; tile energies, latencies and energies per token
 agree within rtol 1e-5 and the Pareto masks are identical. ``explore_arch``
 walks the port's ``Model(cfg).param_specs()`` in the reference's key
-order for the four dense configs; the rest raise naming ROADMAP A12. The
-committed DSE record (``dse_ref_record.npz``) is checked at the chip
-phase's shapes and its first candidates and the four full dense configs
-are priced again in the port.
+order for all ten configs. The committed DSE record
+(``dse_ref_record.npz``) is checked at the chip phase's shapes and its
+first candidates and the ten full configs are priced again in the port.
 """
 
 from __future__ import annotations
@@ -31,9 +30,7 @@ from repro_torch.core.explore import _CANDIDATE_FIELDS  # noqa: E402
 from test_torch_fixtures import assert_close  # noqa: E402
 
 C, N_SAMPLES = 64, 32
-DENSE = fx.DSE_ARCHS
-NOT_PORTED = ("deepseek-moe-16b", "deepseek-v3-671b", "mamba2-1.3b",
-              "recurrentgemma-2b", "whisper-base", "pixtral-12b")
+ARCHS = fx.DSE_ARCHS
 FIELDS = [name for name, _, _ in _CANDIDATE_FIELDS]
 
 
@@ -341,11 +338,13 @@ def test_explore_needs_a_card_unless_asked_for_the_cpu():
 
 # --- explore_arch ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_explore_arch_matches_reference(arch):
-    """Reduced dense configs: the tile walk in the reference's key order
-    (tile counts and components identical), priced on the reference's
-    rows (rtol 1e-5); the port's own draws price the same tiles."""
+    """All ten reduced configs: the tile walk in the reference's key order
+    (tile counts and components identical — the Griffin interleave's list
+    of layers, the expert banks and the ``encoder`` / ``mtp`` subtrees
+    included), priced on the reference's rows (rtol 1e-5); the port's own
+    draws price the same tiles."""
     from repro.configs import reduced_config as ref_reduced
     from repro.core.explore import explore_arch as ref_explore
     from repro_torch import configs
@@ -367,21 +366,13 @@ def test_explore_arch_matches_reference(arch):
     assert own.summary().startswith(cfg.name)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_explore_arch_raises_where_the_model_is_not_ported(arch):
-    from repro_torch import configs
-    from repro_torch.core.explore import _arch_report
-    with pytest.raises(NotImplementedError, match="A12"):
-        _arch_report(configs.reduced_config(arch), 1e-12, 0.5)
-
-
 # --- the committed DSE record --------------------------------------------------------
 
 def test_dse_record_loads_at_the_chip_shapes():
     """The JAX record of ``explore(CandidateSpec.sample(4096, seed=0),
     crossbar_unpackable)`` at n_samples 256: the port draws the same
     candidates, its tile table equals the record's, its Pareto mask over
-    the record's objectives is the record's, and the four dense configs'
+    the record's objectives is the record's, and the ten configs'
     ``explore_arch`` reports are there."""
     from repro_torch.core.explore import CandidateSpec, _tile_table
     rec = _record()
@@ -401,14 +392,14 @@ def test_dse_record_loads_at_the_chip_shapes():
         f: rec[f"report/{f}"] for f in fx.DSE_REPORT_FIELDS})
     np.testing.assert_array_equal(rep.pareto(), rec["pareto"])
     assert 0 < rec["pareto"].size < fx.DSE_CANDIDATES
-    for arch in DENSE:
+    for arch in ARCHS:
         comps = json.loads(str(rec[f"arch/{arch}/tiles_by_component"]))
         assert sum(comps.values()) == int(rec[f"arch/{arch}/n_tiles"])
 
 
 def test_dse_record_reprices_in_the_port():
-    """The record's first 64 candidates on its base rows, and the four
-    full-size dense configs on its tile rows, priced in the port."""
+    """The record's first 64 candidates on its base rows, and the ten
+    full-size configs on its tile rows, priced in the port."""
     from repro_torch import configs
     from repro_torch.core.explore import (CandidateSpec, DSEEngine,
                                           _arch_report, _price_rows)
@@ -424,7 +415,7 @@ def test_dse_record_reprices_in_the_port():
               "latency_critical_ns"):
         assert_close(getattr(got, f), rec[f"report/{f}"][:64], f)
     e_tile, l_tile = _price_rows(sur, *_tile_rows())
-    for arch in DENSE:
+    for arch in ARCHS:
         rep = _arch_report(configs.get_config(arch), e_tile, l_tile)
         assert rep.tiles_by_component == json.loads(
             str(rec[f"arch/{arch}/tiles_by_component"]))

@@ -94,7 +94,7 @@ The DSE record (``--regen-dse``, ``dse_ref_record.npz``) is
 crossbar_unpackable)``: the engine's base rows (``base_x``, ``base_p``,
 ``base_o``, n_samples 256), the candidates' ``v_dd`` and ``tile``, every
 ``DSEReport`` array (``report/...``) and its Pareto indices; and
-``explore_arch`` of the four dense configs with the same surrogate
+``explore_arch`` of all ten configs with the same surrogate
 (``arch/{arch}/...``, ``tiles_by_component`` as JSON) beside the 2,048
 rows ``tile_energy_latency`` prices (``tile_x``, ``tile_p``,
 ``tile_o``: ``jax.random`` key 0, as it draws them).
@@ -175,6 +175,21 @@ LM_PROMPT = (4, 512)         # batch, prompt length
 LM_DECODE_STEPS = 8
 LM_DECODE_ROWS = 2           # rows whose decode logits the record keeps
 TRAIN_RECORD = ARTIFACTS / "train_lif_ref_record.npz"
+# the zoo records: the six other families at full width, depth cut;
+# arch -> (record depth, batch, prompt tokens). deepseek-v3-671b keeps its
+# three dense MLA layers (one MoE layer at full width is 11.3 B parameters,
+# 45 GB of fp32 draws); whisper-base is whole (6 + 6 layers, 1,500
+# frames); pixtral's 1,536 positions are 1,024 patches and 512 tokens;
+# recurrentgemma's 2,048 fill its ring buffer, which wraps while decoding
+ZOO_RECORDS = {"deepseek-moe-16b": (2, 2, 512),
+               "deepseek-v3-671b": (3, 2, 256),
+               "mamba2-1.3b": (4, 2, 512),
+               "recurrentgemma-2b": (3, 2, 2048),
+               "whisper-base": (6, 2, 256),
+               "pixtral-12b": (2, 2, 1536)}
+ZOO_COLUMNS = 16384          # vocab columns a record keeps of a wider row
+ZOO_FULL_ROWS = 65536        # rows up to this vocab are kept whole
+ZOO_INPUT_SEED = 1           # numpy seed of the frames / patches
 PREDICTORS = ("M_O", "M_V", "M_ED", "M_ES", "M_L")
 FAMILIES = ("mean", "table", "linear", "gbdt", "mlp")
 GBDT_BAND_REFITS = 8
@@ -199,7 +214,9 @@ DSE_RECORD = ARTIFACTS / "dse_ref_record.npz"
 DSE_CANDIDATES = 4096
 DSE_SAMPLES = 256                     # DSEEngine's default n_samples
 DSE_ARCHS = ("starcoder2-3b", "granite-3-8b", "deepseek-67b",
-             "mistral-large-123b")
+             "mistral-large-123b", "deepseek-v3-671b", "deepseek-moe-16b",
+             "whisper-base", "pixtral-12b", "mamba2-1.3b",
+             "recurrentgemma-2b")
 DSE_REPORT_FIELDS = ("n_tiles", "analog_params", "total_params",
                      "analog_flop_fraction", "energy_per_token_j",
                      "latency_critical_ns", "tile_energy_j",
@@ -507,6 +524,160 @@ def assert_request_parity(solo, served, *, hidden=False):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(solo.flush_energy),
                                served.flush_energy, rtol=1e-5, atol=0)
+
+
+def zoo_record_path(arch: str) -> pathlib.Path:
+    return ARTIFACTS / (arch.replace("-", "_").replace(".", "") +
+                        "_ref_record.npz")
+
+
+def zoo_record_config(cfg, arch: str):
+    """The record's cut of a full config (either package's dataclass): its
+    first layers, no multi-token-prediction head (prefill and decode never
+    run it), and for deepseek-v3-671b no MoE stack (the three dense MLA
+    layers alone)."""
+    import dataclasses
+    depth = ZOO_RECORDS[arch][0]
+    kw = {"n_layers": depth, "mtp_depth": 0}
+    if cfg.moe is not None and cfg.moe.first_dense >= depth:
+        kw["moe"] = None
+    return dataclasses.replace(cfg, **kw)
+
+
+def zoo_inputs(cfg, batch: int, seed: int = ZOO_INPUT_SEED) -> dict:
+    """A prefill's inputs beside the tokens, float32 numpy drawn from
+    ``seed``: an encoder-decoder's ``frames`` (B, encoder_seq, d) standard
+    normal, a VLM's ``patches`` (B, n_frontend_tokens, d) at the
+    embedding's std 0.02. Each package rounds them to bf16."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.encdec is not None:
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encdec.encoder_seq, cfg.d_model), np.float32)
+    if cfg.n_frontend_tokens:
+        out["patches"] = np.float32(0.02) * rng.standard_normal(
+            (batch, cfg.n_frontend_tokens, cfg.d_model), np.float32)
+    return out
+
+
+def zoo_columns(vocab: int, seed: int = 0) -> np.ndarray:
+    """The vocab columns a zoo record keeps: all of a row up to
+    ZOO_FULL_ROWS wide, else ZOO_COLUMNS of them, seeded and sorted."""
+    if vocab <= ZOO_FULL_ROWS:
+        return np.arange(vocab, dtype=np.int32)
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(vocab, ZOO_COLUMNS, replace=False)).astype(
+        np.int32)
+
+
+def row_stats(logits) -> dict:
+    """Full-row statistics of (..., V) logits that a column subset loses:
+    the argmax, the top-2 gap and the std."""
+    a = np.asarray(logits, np.float32)
+    top2 = np.sort(a, axis=-1)[..., -2:]
+    return {"argmax": np.argmax(a, -1).astype(np.int32),
+            "gap": (top2[..., 1] - top2[..., 0]).astype(np.float32),
+            "std": a.std(axis=-1).astype(np.float32)}
+
+
+def jax_lm_params(jcfg, arrays):
+    """The JAX ``Model``'s parameter tree from numpy float32 arrays, each
+    leaf cast to its spec's dtype (bf16 to nearest even, the fp32 leaves
+    as they are)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.model import Model as JaxModel
+    from repro.models.params import ParamSpec as JaxSpec
+    return jax.tree.map(lambda s, a: jnp.asarray(a).astype(s.dtype),
+                        JaxModel(jcfg).param_specs(), arrays,
+                        is_leaf=lambda x: isinstance(x, JaxSpec))
+
+
+ZOO_MODEL_REL_L2 = 1.5e-2
+ZOO_MOE = ("deepseek-moe-16b", "deepseek-v3-671b")
+
+
+def rel_l2(got, want) -> float:
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    n = np.linalg.norm(w)
+    return float(np.linalg.norm(g - w) / n) if n else float(np.abs(g).max())
+
+
+def assert_model_matches_reference(arch: str):
+    """The reduced config of ``arch`` through both packages' ``Model`` in
+    bf16 (tests/test_torch_zoo.py's docstring says what and why): a
+    prefill of 16 tokens, 4 decode steps, the forward over 20, logits and
+    every cache leaf within ZOO_MODEL_REL_L2, ``kpos`` and ``pos`` equal.
+    The MoE configs' routers are zeroed."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro import configs as jconfigs
+    from repro.models.model import Model as JaxModel
+    from repro_torch import configs
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models import params as prm
+    from repro_torch.models.model import Model
+
+    def host(t):
+        return t.float().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t, np.float32)
+
+    cfg, jcfg = configs.reduced_config(arch), jconfigs.reduced_config(arch)
+    arr = lm_numpy_params(cfg, 0)
+    if arch in ZOO_MOE:
+        for path, a in prm.leaves(arr):
+            if path.endswith("/router"):
+                a[...] = 0.0
+    params = lm_params_from_numpy(cfg, arr, "cpu")
+    jparams = jax_lm_params(jcfg, arr)
+    model, jmodel = Model(cfg), JaxModel(jcfg)
+    b, s, max_seq = 2, 16, 24
+    toks = np.random.default_rng(11).integers(0, cfg.vocab, (b, s + 4)) \
+        .astype(np.int32)
+    extra = zoo_inputs(cfg, b)
+    tb = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in extra.items()}
+    jb = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in extra.items()}
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(
+        toks[:, :s]), **tb}, max_seq=max_seq)
+    jlogits, jcache = jax.jit(lambda p, bt: jmodel.prefill(
+        p, bt, max_seq=max_seq))(jparams, {"tokens": toks[:, :s], **jb})
+    assert logits.dtype == torch.float32 and logits.shape == jlogits.shape
+    errs = {"prefill": rel_l2(host(logits), host(jlogits))}
+
+    def caches_match(tag):
+        got = dict(prm.leaves(cache["stacks"]))
+        want = dict(prm.leaves(jcache["stacks"]))
+        assert sorted(got) == sorted(want)
+        for path, t in got.items():
+            w = np.asarray(want[path])
+            assert tuple(t.shape) == w.shape, path
+            assert str(t.dtype).split(".")[-1] == w.dtype.name, path
+            if path.endswith("kpos"):
+                assert np.array_equal(t.numpy(), w), path
+            else:
+                errs[f"{tag}/{path}"] = rel_l2(host(t), host(w))
+        assert cache["pos"] == int(jcache["pos"])
+
+    caches_match("prefill")
+    dec = jax.jit(jmodel.decode)
+    for i in range(4):
+        tok = toks[:, s + i:s + i + 1]
+        logits, cache = model.decode(params, cache, torch.from_numpy(tok))
+        jlogits, jcache = dec(jparams, jcache, tok)
+        errs[f"decode_{i}"] = rel_l2(host(logits), host(jlogits))
+        caches_match(f"decode_{i}")
+    h, aux = model.forward(params, {"tokens": torch.from_numpy(toks), **tb})
+    jh, jaux = jax.jit(jmodel.forward)(jparams, {"tokens": toks, **jb})
+    assert h.dtype == torch.bfloat16 and h.shape == jh.shape
+    errs["forward"] = rel_l2(host(h), host(jh))
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-2,
+                               atol=1e-6)
+    bad = {k: v for k, v in errs.items() if not v < ZOO_MODEL_REL_L2}
+    assert not bad, bad
 
 
 @pytest.fixture(scope="session")
@@ -877,6 +1048,88 @@ def _regen_lm():
           f"{time.time() - t0:.1f} s")
 
 
+def _regen_zoo(arch: str):
+    """Write one zoo record (JAX on the CPU): the reference ``Model`` of
+    ``arch`` at full width cut to its record depth (:func:`zoo_record_config`)
+    with ``lm_numpy_params(cut, 0)``, each leaf rounded to its dtype and
+    freed from float32 one at a time."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from repro.configs import get_config
+    from repro.models.model import Model
+    from repro.models.params import ParamSpec as JaxSpec
+    from repro_torch import configs
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.data.lm_data import SyntheticCorpus
+
+    t0 = time.time()
+    cut = zoo_record_config(configs.get_config(arch), arch)
+    jcut = zoo_record_config(get_config(arch), arch)
+    arrays = lm_numpy_params(cut, 0)
+    t_draw = time.time() - t0
+
+    def to_jax(spec, holder, key):
+        a = holder[key]
+        holder[key] = None
+        if np.dtype(spec.dtype) == np.dtype(ml_dtypes.bfloat16):
+            a = a.astype(ml_dtypes.bfloat16)
+        return jnp.asarray(a)
+
+    def walk(specs, holder):
+        keys = range(len(specs)) if isinstance(specs, list) else specs
+        for k in keys:
+            if isinstance(specs[k], JaxSpec):
+                holder[k] = to_jax(specs[k], holder, k)
+            else:
+                walk(specs[k], holder[k])
+    model = Model(jcut)
+    walk(model.param_specs(), arrays)
+    params = arrays
+    _, b, s = ZOO_RECORDS[arch]
+    tokens = SyntheticCorpus(cut.vocab, seed=0).batch(0, b, s)
+    batch = {"tokens": tokens}
+    for k, v in zoo_inputs(cut, b).items():
+        batch[k] = jnp.asarray(v).astype(jnp.bfloat16)
+    max_seq = s + LM_DECODE_STEPS
+    logits, cache = jax.jit(lambda p, bt: model.prefill(
+        p, bt, max_seq=max_seq))(params, batch)
+    prefill = np.asarray(logits[:, 0], np.float32)
+    t_prefill = time.time() - t0 - t_draw
+    decode = jax.jit(model.decode)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    fed, dec_logits = [], []
+    for _ in range(LM_DECODE_STEPS):
+        fed.append(np.asarray(tok)[:, 0])
+        logits, cache = decode(params, cache, tok)
+        dec_logits.append(np.asarray(logits[:, 0], np.float32))
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    dec = np.stack(dec_logits)
+    for a in (prefill, dec):
+        # bf16 values fit float16 exactly down to its subnormals (6e-8)
+        err = np.abs(a.astype(np.float16).astype(np.float32) - a)
+        assert float(err.max()) <= 2.0 ** -25 and np.abs(a).max() < 6e4
+    cols = zoo_columns(cut.vocab)
+    record = {"tokens": tokens.astype(np.int32), "columns": cols,
+              "prefill_logits": prefill[:, cols].astype(np.float16),
+              "decode_tokens": np.stack(fed, 1).astype(np.int32),
+              "decode_logits": dec[..., cols].astype(np.float16),
+              "n_layers": np.int32(cut.n_layers), "seed": np.int32(0),
+              "input_seed": np.int32(ZOO_INPUT_SEED),
+              "vocab": np.int32(cut.vocab)}
+    for name, a in (("prefill", prefill), ("decode", dec)):
+        for k, v in row_stats(a).items():
+            record[f"{name}_{k}"] = v
+    path = zoo_record_path(arch)
+    np.savez_compressed(path, **record)
+    print(path.name, os.path.getsize(path), "bytes;",
+          f"weights {t_draw:.1f} s, prefill {t_prefill:.1f} s, total "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
 def _regen_layer():
     """Write the layer record only (JAX on the CPU)."""
     import time
@@ -991,6 +1244,8 @@ if __name__ == "__main__":
         _regen_crossbar()
         _regen_stream()
         _regen_lm()
+        for arch in ZOO_RECORDS:
+            _regen_zoo(arch)
         _regen_wide()
         _regen_train()
         _regen_layer()
@@ -1002,6 +1257,9 @@ if __name__ == "__main__":
         _regen_stream()
     elif sys.argv[1:] == ["--regen-lm"]:
         _regen_lm()
+    elif sys.argv[1:2] == ["--regen-zoo"] and len(sys.argv) <= 3:
+        for arch in sys.argv[2:] or ZOO_RECORDS:
+            _regen_zoo(arch)
     elif sys.argv[1:] == ["--regen-wide"]:
         _regen_wide()
     elif sys.argv[1:] == ["--regen-train"]:
@@ -1015,5 +1273,5 @@ if __name__ == "__main__":
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
                  "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
-                 "--regen-wide | --regen-train | --regen-layer | "
-                 "--regen-dse | --regen-serve")
+                 "--regen-zoo [ARCH] | --regen-wide | --regen-train | "
+                 "--regen-layer | --regen-dse | --regen-serve")

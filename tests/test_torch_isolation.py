@@ -44,6 +44,11 @@ def test_no_jax_or_reference_imports_in_the_port():
     "configs/__init__.py", "configs/base.py", "configs/shapes.py",
     "configs/starcoder2_3b.py", "models/params.py", "models/layers.py",
     "models/attention.py", "models/transformer.py", "models/model.py",
+    # the rest of the LM zoo
+    "models/moe.py", "models/ssm.py", "models/rglru.py",
+    "configs/deepseek_v3_671b.py", "configs/deepseek_moe_16b.py",
+    "configs/mamba2_13b.py", "configs/recurrentgemma_2b.py",
+    "configs/whisper_base.py", "configs/pixtral_12b.py",
     "data/lm_data.py", "launch/serve.py", "kernels/flash_attn.py",
     "kernels/ops.py", "convert.py",
     # the training slice
@@ -60,8 +65,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     "serve/store.py", "serve/server.py", "serve/protocol.py",
     "serve/__main__.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
-    """The modules of the streaming, LM serve, training, layer-runner,
-    exploration and serving slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
+    """The modules of the streaming, LM serve (the whole zoo), training,
+    layer-runner, exploration and serving slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
     (the reference imports ``repro.serve.buckets`` for the checkpoint's
@@ -135,6 +140,13 @@ def test_port_runs_with_jax_and_reference_unimportable():
                 ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "8", "--gen", "3"]))
         assert res["generated"].shape == (2, 3) and res["logits_finite"]
+        for arch in ("deepseek-v3-671b", "mamba2-1.3b", "recurrentgemma-2b",
+                     "whisper-base", "pixtral-12b"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = serve.serve(serve.parser().parse_args(
+                    ["--arch", arch, "--reduced", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "8", "--gen", "2"]))
+            assert res["logits_finite"], arch
         from repro_torch.serve import Bucket, Lane, RequestHandle
         lane = Lane(lasana.engine(spec, record_hidden=False, device="cpu"),
                     spec, Bucket("k", 2, 3), sur)

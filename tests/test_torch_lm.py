@@ -32,7 +32,6 @@ from repro.models.model import Model as JaxModel  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import lm_numpy_params, lm_params_from_numpy  # noqa: E402
 from repro_torch.data.lm_data import SyntheticCorpus  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, layers, transformer  # noqa: E402
 from repro_torch.models import params as prm  # noqa: E402
@@ -297,9 +296,10 @@ def test_decode_matches_full_forward(arch, weights):
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_configs_and_param_specs_match_reference(arch):
     """All ten full configs: the same dataclass fields, param_count and
-    describe(); the dense GQA ones' ``param_specs`` leaf for leaf (path,
-    shape, logical axes, init, scale; dtype bf16) without allocating; the
-    others raise until ROADMAP A12 ports them."""
+    describe(); ``param_specs`` leaf for leaf (path — the Griffin
+    interleave's list of layers and the ``encoder`` / ``mtp`` subtrees
+    included — shape, logical axes, init, scale, dtype) without
+    allocating; the decode-cache specs leaf for leaf."""
     import dataclasses
     cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
@@ -309,26 +309,26 @@ def test_configs_and_param_specs_match_reference(arch):
     assert cfg.describe() == jcfg.describe()
     assert repr(dataclasses.asdict(configs.reduced_config(arch))) == \
         repr(dataclasses.asdict(jconfigs.reduced_config(arch)))
-    if arch not in DENSE:
-        with pytest.raises(NotImplementedError, match="A12"):
-            Model(cfg)
-        return
     specs = Model(cfg).param_specs()
     jspecs = JaxModel(jcfg).param_specs()
-    jleaves = {p: (s.shape, s.logical, s.init, s.scale, s.dtype.__name__)
+    jleaves = {p: (s.shape, s.logical, s.init, s.scale,
+                   jnp.dtype(s.dtype).name)
                for p, s in prm.leaves(jspecs)}
-    got = {p: (s.shape, s.logical, s.init, s.scale, str(s.dtype))
+    got = {p: (s.shape, s.logical, s.init, s.scale,
+               str(s.dtype).split(".")[-1])
            for p, s in prm.leaves(specs)}
     assert sorted(got) == sorted(jleaves)
-    for path, (shape, logical, init, scale, dtype) in got.items():
-        assert jleaves[path][:4] == (shape, logical, init, scale), path
-        assert dtype == "torch.bfloat16" and jleaves[path][4] == "bfloat16"
+    for path, leaf in got.items():
+        assert jleaves[path] == leaf, path
     assert prm.param_count(specs) == jprm.param_count(jspecs)
     assert prm.param_bytes(specs) == jprm.param_bytes(jspecs)
-    one = Model(cfg).cache_specs(4, 576)["stacks"]["layers"]
-    jone = JaxModel(jcfg).cache_specs(4, 576)["stacks"]["layers"]
-    assert {k: s.shape for k, s in one.items()} == \
-        {k: s.shape for k, s in jone.items()}
+    model, jmodel = Model(cfg), JaxModel(jcfg)
+    one = {p: (s.shape, str(s.dtype).split(".")[-1])
+           for p, s in prm.leaves(model.cache_specs(4, 576))}
+    jone = {p: (tuple(s.shape), jnp.dtype(s.dtype).name)
+            for p, s in prm.leaves(jmodel.cache_specs(4, 576))}
+    assert one == jone
+    assert model.cache_logical() == jmodel.cache_logical()
 
 
 # --- the synthetic corpus -------------------------------------------------------
@@ -423,15 +423,3 @@ def test_serve_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.serve(_args())
-
-
-def test_unported_kinds_raise():
-    cfg = configs.reduced_config("starcoder2-3b")
-    with pytest.raises(NotImplementedError, match="A12"):
-        transformer.layer_specs(cfg, "attn_moe")
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.gqa_full({}, torch.zeros(1, 2, 64), torch.zeros(1, 2), cfg,
-                           window=4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        attention.attn_specs(cfg, cross=True)
-    assert ops.LAUNCHES["flash_attention"] == 0
