@@ -67,7 +67,12 @@ Phases, one output line each (JSON where it helps):
    each equal to its monolithic run bit for bit, the hidden layer also
    held against its committed JAX record; a killed stream resumed from a
    saved checkpoint; a surrogate hot swap per chunk; peak device memory
-   against the monolithic run and a 1,024-tick stream;
+   against the monolithic run and a 1,024-tick stream; then batch
+   parallelism (``mesh=``): the SNN's 100 digits on a one-shard mesh
+   (equal to the unsharded run bit for bit) and on a 2-shard mesh of this
+   card (identical spikes, outputs and events, energy, latency and flush
+   within rtol 1e-5, the JAX record's limits), the sharded stream, and
+   ``make_distributed_step`` at N = 12,800 against ``lasana_step``;
 6. the LM zoo's serve path, StarCoder2-3B (30 layers, d 3072, 24 heads
    over 2 KV heads) at full width: numpy-seeded parity weights
    (``convert.lm_numpy_params``), the committed JAX record's 4 x 512
@@ -95,7 +100,18 @@ Phases, one output line each (JSON where it helps):
    against the same selection on the CPU, the output at ample capacity
    against the dense mixture; ``flash_attention`` launched exactly by the
    causal self-attention layers of deepseek-moe-16b, pixtral-12b and
-   whisper-base's decoder;
+   whisper-base's decoder; then LM training: StarCoder2-3B at full width
+   cut to 2 layers, fp32 with TF32 off, against the committed JAX record
+   of the reference's ``make_train_step`` (``starcoder2_3b_train_ref_
+   record.npz``: 3 steps' loss and grad norm within 1e-4, every leaf's
+   step-0 gradient norm within 1e-3 and > 0, every leaf's update norm
+   within 1e-2), ``repro_torch.launch.train`` at full width and depth in
+   bf16 (batch 8 x 128, 20 steps, the final ~30 GB checkpoint on the
+   disk with the most room: finite losses falling, steady step seconds,
+   tokens/s, peak device bytes, the idle share of two traced steps, no
+   ``flash_attention`` launch), and at 4 layers a crash at step 6 and a
+   resume from the step-4 checkpoint against the uninterrupted run
+   (losses within 1e-2);
 7. train at the reference's scale (``TrainConfig()``: 1,000 runs x 125
    steps, all five families): LIF on the committed JAX record's own
    testbench (``train_lif_ref_record.npz``) through ``simulate_golden``
@@ -2873,6 +2889,382 @@ def lm_runs(torch, np, dev, surs, profile):
     return total
 
 
+# --- batch parallelism: the mesh phase ----------------------------------------
+
+MESH_SHARDS = 2              # shards of the 2-shard mesh, both on the card
+MESH_STREAM_CHUNK = 32       # ticks per chunk of the sharded stream
+MESH_TICK_N = N_MAIN         # circuits of the sharded Algorithm-1 tick
+
+
+def mesh_runs(torch, np, dev, surs, profile):
+    """The 784-128-10 SNN's 100 digits through ``lasana.simulate`` on a
+    one-shard mesh (equal to the unsharded run bit for bit) and on a
+    2-shard mesh of this card (identical spikes, outputs and events,
+    energy / latency / flush within rtol 1e-5, and the JAX record's
+    limits), the sharded stream, and ``make_distributed_step`` at N =
+    12,800 against ``lasana_step``."""
+    import repro_torch.lasana as lasana
+    from repro_torch.core.distributed import make_distributed_step
+    from repro_torch.core.wrapper import LasanaState, lasana_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    spec, x, labels = snn_workload(torch, np, dev)
+    rec = dict(np.load(ART / "snn_ref_record.npz"))
+    kw = dict(surrogates=surs["lif"])
+    base = lasana.simulate(spec, x, **kw)
+    total = {}
+    one = make_mesh((1,), ("data",))
+    two = make_mesh((MESH_SHARDS,), ("data",), [dev] * MESH_SHARDS)
+    ops.reset_launches()
+    run1 = lasana.simulate(spec, x, mesh=one, **kw)
+    counts1 = dict(ops.LAUNCHES)
+    check_launches("mesh 1 shard", counts1, {"network_tick": 2 * T_STEPS})
+    add_counts(total, "mesh/one_shard", counts1)
+    same_record(np, run1, base, "mesh 1 shard")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run2 = lasana.simulate(spec, x, mesh=two, **kw)
+    wall2 = time.perf_counter() - t0
+    counts2 = dict(ops.LAUNCHES)
+    check_launches("mesh 2 shards", counts2,
+                   {"network_tick": MESH_SHARDS * 2 * T_STEPS})
+    add_counts(total, "mesh/two_shards", counts2)
+    rel = mesh_record_diff(np, run2, base, "mesh 2 shards")
+    spikes = (run2.out_spikes > 0.75).astype(np.uint8)
+    agree = float(np.mean(spikes == rec["lasana/out_spikes"]))
+    e_port, e_diff = energy_diff(np, run2, rec, "lasana")
+    if agree < 0.99 or e_diff > 0.01:
+        fail(f"mesh 2 shards: spike agreement {agree:.4f} (< 0.99) or "
+             f"energy difference {e_diff:.4%} (> 1%) against the reference")
+    # the sharded stream, against the monolithic run
+    ops.reset_launches()
+    streamed = lasana.simulate_stream(spec, x, chunk_ticks=MESH_STREAM_CHUNK,
+                                      mesh=two, record_hidden=True, **kw)
+    counts3 = dict(ops.LAUNCHES)
+    check_launches("mesh stream", counts3,
+                   {"network_tick": MESH_SHARDS * 2 * T_STEPS})
+    add_counts(total, "mesh/stream", counts3)
+    rel_stream = mesh_record_diff(np, streamed, base, "mesh stream")
+    # one Algorithm-1 tick on the mesh, against the local step
+    v, o, t_last, params, changed, xin, _ = tick_inputs(
+        torch, np, dev, MESH_TICK_N, 7, 1.5)
+    state = LasanaState(v=v, o=o, t_last=t_last, params=params)
+    step = make_distributed_step(two, clock_ns=5.0, spiking=True)
+    t = torch.tensor([30.0], device=dev)
+    ops.reset_launches()
+    st_d, e_tot, n_out = step(surs["lif"], state, changed, xin, t)
+    counts4 = dict(ops.LAUNCHES)
+    check_launches("distributed step", counts4, {"network_tick": MESH_SHARDS})
+    add_counts(total, "mesh/distributed_step", counts4)
+    st_l, e_l, _, o_l = lasana_step(surs["lif"], state, changed, xin, t[0],
+                                    5.0, spiking=True)
+    v_err = float((st_d.v - st_l.v).abs().max())
+    same_rest = all(torch.equal(getattr(st_d, f), getattr(st_l, f))
+                    for f in ("o", "t_last", "params"))
+    e_rel = abs(float(e_tot) - float(e_l.sum())) / abs(float(e_l.sum()))
+    spikes_ok = int(n_out) == int((o_l > 0.75).sum())
+    line({"phase": "mesh", "workload": "snn_784_128_10",
+          "shards": MESH_SHARDS, "one_shard_bitwise": True,
+          "two_shards_rel_energy_latency_flush": rel,
+          "two_shards_wall_s": wall2,
+          "accuracy": float(np.mean(np.argmax(run2.outputs, -1) == labels)),
+          "spike_agreement_vs_ref": agree, "energy_j": e_port,
+          "energy_rel_diff_vs_ref": e_diff,
+          "stream_chunk": MESH_STREAM_CHUNK, "stream_rel": rel_stream,
+          "distributed_step": {"n": MESH_TICK_N, "v_max_abs_err": v_err,
+                               "o_t_last_params_equal": same_rest,
+                               "energy_rel": e_rel,
+                               "spikes": int(n_out),
+                               "spikes_exact": spikes_ok},
+          "launches": {"one_shard": counts1, "two_shards": counts2,
+                       "stream": counts3, "distributed_step": counts4}})
+    if not (same_rest and spikes_ok and e_rel <= RTOL
+            and v_err <= 1e-5 * float(st_l.v.abs().max())):
+        fail(f"distributed step: v err {v_err:.3e}, o/t_last/params equal "
+             f"{same_rest}, energy rel {e_rel:.3e}, spikes exact {spikes_ok}")
+    return total
+
+
+def mesh_record_diff(np, got, want, name) -> dict:
+    """Discrete fields identical, else fail; the continuous ones within
+    rtol 1e-5 (atol 1e-6 of the field's scale). Returns each continuous
+    field's largest relative difference."""
+    for f in ("outputs", "out_spikes", "events"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            fail(f"{name}: {f} differs from the unsharded run")
+    if want.layer_spikes is not None:
+        for i, (g, w) in enumerate(zip(got.layer_spikes, want.layer_spikes)):
+            if not np.array_equal(g, w):
+                fail(f"{name}: layer {i} spikes differ")
+    out = {}
+    for f in ("energy", "latency", "flush_energy"):
+        g = np.asarray(getattr(got, f), np.float64)
+        w = np.asarray(getattr(want, f), np.float64)
+        scale = float(np.max(np.abs(w), initial=0.0))
+        err = np.abs(g - w)
+        if (err > RTOL * np.abs(w) + 1e-6 * scale).any():
+            fail(f"{name}: {f} beyond rtol {RTOL}")
+        out[f] = float(np.max(err / np.maximum(np.abs(w), 1e-30),
+                              initial=0.0))
+    return out
+
+
+# --- LM training: the JAX record, the launcher at full depth --------------------
+
+LM_TRAIN_REL = 1e-4           # loss and grad_norm against the JAX record
+LM_TRAIN_GRAD_REL = 1e-3      # each leaf's gradient norm at step 0
+LM_TRAIN_UPDATE_REL = 1e-2    # each leaf's update norm after the 3 steps
+LM_TRAIN_STEPS = 20           # steps of the full-depth launcher run
+LM_TRAIN_TAIL = 5             # steps averaged at each end of the run
+LM_RESUME_LAYERS = 4          # the crash-and-resume run's depth
+LM_RESUME_REL = 1e-2          # resumed losses vs the uninterrupted run's
+LM_PROFILE_STEPS = 2          # steady steps traced for the idle share
+# beyond the launcher's defaults: the parity weights' distribution (from
+# Model.init's the clipped updates sit below Adam's eps and a bf16 model
+# does not move; ROADMAP caveat 4) and a 2-step warmup, with which the
+# 20 steps fall (the defaults' 20-step warmup moved the means by 0.03)
+LM_TRAIN_ARGS = ("--init", "parity", "--warmup", "2")
+# the record's AdamW (tests/test_torch_fixtures.py LM_TRAIN_OPT)
+LM_TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)
+
+
+def lm_train_record(torch, np, dev):
+    """StarCoder2-3B at full width, cut to the record's 2 layers, fp32
+    with TF32 off: the step-0 gradient of every leaf (its L2 norm, > 0)
+    and 3 AdamW steps on the launcher's batches against the JAX record
+    (``starcoder2_3b_train_ref_record.npz``, the reference's
+    ``make_train_step``). A leaf whose norm is 0 or off — attention's
+    ``wq`` / ``wk`` / ``wv`` through a kernel without a backward — fails."""
+    import dataclasses
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.data.lm_data import (SyntheticCorpus, make_train_batch,
+                                          to_device)
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as prm
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import step as step_mod
+    rec = dict(np.load(ART / "starcoder2_3b_train_ref_record.npz"))
+    n = int(rec["n_layers"])
+    b, s = (int(v) for v in rec["batch"])
+    steps = len(rec["loss"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(lm_config(), n_layers=n, dtype="float32")
+    t0 = time.perf_counter()
+    params = lm_params_from_numpy(cfg, lm_numpy_params(cfg, 0), dev)
+    t_weights = time.perf_counter() - t0
+    before = {p: t.clone() for p, t in prm.leaves(params)}
+    model = Model(cfg)
+    corpus = SyntheticCorpus(cfg.vocab, seed=0)
+    batches = [make_train_batch(corpus, i, global_batch=b, seq=s)
+               for i in range(steps)]
+    ops.reset_launches()
+    _, _, grads = step_mod.loss_and_grads(model, params,
+                                          to_device(batches[0], dev))
+    gnorm = {p: float(g.double().norm()) for p, g in prm.leaves(grads)}
+    del grads
+    opt = AdamW(AdamWConfig(**LM_TRAIN_OPT))
+    train = step_mod.make_train_step(model, opt)
+    state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+             "params": params, "opt": opt.init(params)}
+    mets = []
+    for batch in batches:
+        state, m = train(state, batch)
+        mets.append({k: float(v) for k, v in m.items()})
+    counts = dict(ops.LAUNCHES)
+    check_launches("lm train record", counts, {"flash_attention": 0,
+                                               "flash_attention_simt": 0})
+    upd = {p: float((t.double() - before[p].double()).norm())
+           for p, t in prm.leaves(state["params"])}
+    rel = lambda g, w: abs(g - w) / abs(w)
+    errs = {k: [rel(m[k], float(w)) for m, w in zip(mets, rec[k])]
+            for k in ("loss", "grad_norm", "lr")}
+    grad_errs = {p: rel(v, float(rec[f"grad_norm/{p}"]))
+                 for p, v in gnorm.items()}
+    upd_errs = {p: rel(v, float(rec[f"update_norm/{p}"]))
+                for p, v in upd.items()}
+    zero = sorted(p for p, v in gnorm.items() if not v > 0)
+    line({"phase": "lm_train_record", "arch": cfg.name, "layers": n,
+          "width": cfg.d_model, "dtype": "float32", "tf32": False,
+          "batch": [b, s], "steps": steps, "weights_host_s": t_weights,
+          "loss": [m["loss"] for m in mets], "rel": errs,
+          "grad_norm_rel_max": max(grad_errs.values()),
+          "update_norm_rel_max": max(upd_errs.values()),
+          "zero_grad_leaves": zero, "leaves": len(gnorm),
+          "limits": {"loss_grad_norm": LM_TRAIN_REL,
+                     "leaf_grad_norm": LM_TRAIN_GRAD_REL,
+                     "leaf_update_norm": LM_TRAIN_UPDATE_REL},
+          "launches": counts})
+    bad = [k for k in ("loss", "grad_norm", "lr")
+           if max(errs[k]) > LM_TRAIN_REL]
+    bad += [p for p, e in grad_errs.items() if e > LM_TRAIN_GRAD_REL]
+    bad += [f"update {p}" for p, e in upd_errs.items()
+            if e > LM_TRAIN_UPDATE_REL]
+    if zero or bad:
+        fail(f"lm train record: zero-gradient leaves {zero}, beyond the "
+             f"limits {bad}")
+    del params, state, before, model, train, opt
+    torch.cuda.empty_cache()
+
+
+def train_args(ckpt_dir, *extra):
+    from repro_torch.launch import train as launcher
+    return launcher.parse_args(["--arch", LM_ARCH, "--ckpt-dir",
+                                str(ckpt_dir), "--log-every", "1",
+                                *extra])
+
+
+def ckpt_root(torch, np, need_bytes):
+    """The directory with the most free disk of the temporary directory
+    and the checkout's ``build/``; fails with the numbers where even that
+    holds less than ``need_bytes``."""
+    import shutil
+    import tempfile
+    cands = [pathlib.Path(tempfile.gettempdir()), ROOT / "build"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = {str(c): shutil.disk_usage(c).free for c in cands}
+    best = max(cands, key=lambda c: free[str(c)])
+    line({"phase": "lm_train_disk", "free_bytes": free,
+          "need_bytes": need_bytes, "chosen": str(best)})
+    if free[str(best)] < need_bytes:
+        fail(f"lm train: {free[str(best)]} bytes free at {best}, the final "
+             f"checkpoint needs {need_bytes}")
+    return pathlib.Path(tempfile.mkdtemp(prefix="lm_train_", dir=best))
+
+
+def lm_train_runs(torch, np, dev, surs, profile):
+    """The training record, then ``repro_torch.launch.train`` at full
+    depth and the crash and resume at 4 layers, in a temporary directory
+    on the disk with the most room (removed after)."""
+    import shutil
+    from repro_torch.models import params as prm
+    from repro_torch.models.model import Model
+    lm_train_record(torch, np, dev)
+    n_params = prm.param_count(Model(lm_config()).param_specs())
+    # the final checkpoint: bf16 params, fp32 m and v, and some room
+    root = ckpt_root(torch, np, int(n_params * (2 + 4 + 4) * 1.05))
+    try:
+        lm_train_full(torch, np, dev, root / "full")
+        lm_train_resume(torch, np, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {}
+
+
+def lm_train_full(torch, np, dev, ckpt_dir):
+    """``repro_torch.launch.train``'s ``train()`` on StarCoder2-3B at full
+    width and depth, bf16, batch 8 x 128 (the launcher's defaults, with
+    ``LM_TRAIN_ARGS``' weights and warmup), 20 steps into ``ckpt_dir``
+    (the final save ~30 GB): finite losses falling, steady step seconds, tokens/s,
+    peak device bytes, the idle share of two traced steady steps, no
+    ``flash_attention`` launch."""
+    import shutil
+    from repro_torch.data.lm_data import (SyntheticCorpus, make_train_batch,
+                                          to_device)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import params as prm
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import step as step_mod
+    cfg = lm_config()
+    args = train_args(ckpt_dir, "--steps", str(LM_TRAIN_STEPS),
+                      "--ckpt-every", str(10 * LM_TRAIN_STEPS),
+                      *LM_TRAIN_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = launcher.train(args)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = out["losses"], out["step_seconds"]
+    steady = statistics.median(secs[2:])
+    tokens = args.batch * args.seq
+    saved = sum(f.stat().st_size for f in pathlib.Path(ckpt_dir).rglob("*")
+                if f.is_file())
+    head = float(np.mean(losses[:LM_TRAIN_TAIL]))
+    tail = float(np.mean(losses[-LM_TRAIN_TAIL:]))
+    res = {"phase": "lm_train", "arch": cfg.name, "layers": cfg.n_layers,
+           "params": prm.param_count(Model(cfg).param_specs()),
+           "dtype": args.dtype, "batch": [args.batch, args.seq],
+           "lr": args.lr, "warmup": args.warmup,
+           "steps": LM_TRAIN_STEPS, "losses": losses,
+           "first_mean": head, "last_mean": tail,
+           "first_step_s": secs[0], "steady_step_s": steady,
+           "tokens_per_s": tokens / steady, "peak_device_bytes": peak,
+           "wall_s": wall, "steps_s": sum(secs), "checkpoint_bytes": saved,
+           "launches": counts, "card": nvidia_smi()}
+    check_launches("lm train", counts, {"flash_attention": 0,
+                                        "flash_attention_simt": 0})
+    # two more steady steps of the trained state, traced
+    opt = AdamW(AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                            total_steps=args.steps))
+    step = step_mod.make_train_step(Model(cfg), opt)
+    corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
+    state = out.pop("state")
+    batches = [to_device(make_train_batch(
+        corpus, LM_TRAIN_STEPS + i, global_batch=args.batch, seq=args.seq),
+        dev) for i in range(LM_PROFILE_STEPS)]
+
+    def steps():
+        nonlocal state
+        for bt in batches:
+            state, _ = step(state, bt)
+    res["profile"] = profile_run(torch, steps)
+    del state, out, step, batches
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    line(res)
+    if not (np.isfinite(losses).all() and tail < head):
+        fail(f"lm train: losses finite {np.isfinite(losses).all()}, last "
+             f"{LM_TRAIN_TAIL} mean {tail:.4f} not below the first "
+             f"{LM_TRAIN_TAIL}' {head:.4f}")
+
+
+def lm_train_resume(torch, np, dev, root):
+    """At full width and 4 layers: an uninterrupted 10-step run, then a
+    run that crashes at step 6 (``--fail-at-step``) after its step-4
+    checkpoint and a rerun that resumes from it; the resumed steps 4-9
+    against the uninterrupted run's losses."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launcher
+    common = ("--layers", str(LM_RESUME_LAYERS), "--steps", "10",
+              *LM_TRAIN_ARGS)
+    ref = launcher.train(train_args(root / "ref", *common,
+                                    "--ckpt-every", "100"))
+    ref.pop("state")
+    argv = ["--arch", LM_ARCH, "--ckpt-dir", str(root / "run"),
+            "--log-every", "1", *common, "--ckpt-every", "4"]
+    crashed = False
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            launcher.main(argv + ["--fail-at-step", "6"])
+        except RuntimeError as e:
+            crashed = "injected failure (test)" in str(e)
+        launcher.main(argv)
+    text = buf.getvalue()
+    resumed = [float(ln.split()[4]) for ln in text.splitlines()
+               if ln.startswith("[train] step ")][-6:]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, ref["losses"][4:])]
+    ok = (crashed and "resumed from step 4" in text and "done" in text
+          and len(rel) == 6 and max(rel) <= LM_RESUME_REL)
+    line({"phase": "lm_train_resume", "layers": LM_RESUME_LAYERS,
+          "crashed_at_6": crashed,
+          "resumed_from_4": "resumed from step 4" in text,
+          "resumed_losses": resumed,
+          "uninterrupted_losses": ref["losses"][4:], "rel": rel,
+          "limit": LM_RESUME_REL})
+    if not ok:
+        fail(f"lm train resume: crashed {crashed}, output {text[-400:]!r}, "
+             f"rel {rel}")
+
+
 # --- phase 6, continued: the rest of the LM zoo ------------------------------
 
 def zoo_record_config(cfg, depth: int):
@@ -4876,7 +5268,7 @@ def main() -> int:
 
     launches = {}
     for runs in (snn_runs, wide_runs, xbar_runs, mixed_runs, stream_runs,
-                 lm_runs, zoo_runs):
+                 mesh_runs, lm_runs, zoo_runs, lm_train_runs):
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)

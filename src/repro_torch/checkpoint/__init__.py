@@ -1,0 +1,5 @@
+"""Checkpoints of train states (port of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -567,12 +567,19 @@ class NetworkEngine:
               ``network_tick`` (one cross-kind pack for a mixed library),
               other stacked MLP heads through ``mlp_surrogate_heads``;
               ``False`` keeps the einsum path
+    mesh      optional :class:`repro_torch.launch.mesh.Mesh`: the batch
+              shards over every mesh axis (``core/distributed.py``); each
+              shard runs on its device through a replica of this engine
+              (shards on one device run in turn), energy, events and flush
+              are summed and latency is maxed across shards. The batch
+              must divide by the mesh size
     device    where the engine runs (default ``cuda``; see
-              ``ops.resolve_device``)
+              ``ops.resolve_device``); with a mesh, its first device, and a
+              ``device=`` given beside a mesh must be that device
     """
 
     def __init__(self, spec: NetworkSpec, backend: str = "lasana", *,
-                 surrogates=None, mode: str = "standalone",
+                 surrogates=None, mode: str = "standalone", mesh=None,
                  record_hidden: bool = True, fused: bool = True,
                  fused_kernel: bool | None = None, device=None):
         if backend not in BACKENDS:
@@ -590,6 +597,16 @@ class NetworkEngine:
         self.fused = bool(fused)
         self.fused_kernel = (None if fused_kernel is None
                              else bool(fused_kernel))
+        self.mesh = mesh
+        shard_devs = []
+        if mesh is not None:
+            shard_devs = [ops.resolve_device(d) for d in mesh.flat()]
+            if device is not None \
+                    and ops.resolve_device(device) != shard_devs[0]:
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh, whose "
+                    f"first device is {shard_devs[0]}")
+            device = shard_devs[0]
         self.device = ops.resolve_device(device)
         self.circs = tuple(get_circuit(l.circuit) for l in spec.layers)
         if surrogates is not None and backend != "lasana":
@@ -638,6 +655,16 @@ class NetworkEngine:
         self._runners: dict = {}
         self._lock = threading.Lock()
         self.compile_count = 0        # tick-loop runners built
+        # one replica engine per other device of the mesh: a shard runs
+        # the replica's runner on the replica's copy of the weights
+        self._replicas = {}
+        for dev in shard_devs:
+            if dev != self.device and str(dev) not in self._replicas:
+                self._replicas[str(dev)] = NetworkEngine(
+                    spec, backend, mode=mode, record_hidden=record_hidden,
+                    fused=fused, fused_kernel=fused_kernel, device=dev)
+        if self.surrogates is not None:
+            self._load_libraries(self.surrogates)
 
     def _normalize_surrogates(self, src) -> SurrogateLibrary:
         """Coerce surrogates into a validated library on the engine's device."""
@@ -718,10 +745,14 @@ class NetworkEngine:
             raise ValueError(f"input width {x.shape[-1]} != layer-0 fan_in "
                              f"{self.spec.layers[0].fan_in}")
         t_steps, b, _ = x.shape
+        self._check_mesh_batch(b)
         banks = self._runtime_banks(surrogates)
         key = self._program_key("mono", b, t_steps, banks)
-        runner, compile_s = self._compiled(
-            key, lambda: self._build_sim(b, t_steps))
+        hid = 1 if self.record_hidden else []
+        runner, compile_s = self._compiled(key, lambda: self._sharded(
+            lambda eng, bl: eng._build_sim(bl, t_steps), b, banks,
+            in_specs=(1, 0, None),
+            out_specs=(0, 1, hid, "sum", "max", "sum", "sum")))
         t0 = time.time()
         carries = [self._init_carry(i, b) for i in range(self.spec.n_layers)]
         return PendingRun(self, b, t0, compile_s, runner(x, carries, banks))
@@ -820,6 +851,7 @@ class NetworkEngine:
                              "tick" + (" past the checkpoint offset"
                                        if resume_from is not None else ""))
         b = cur.shape[1]
+        self._check_mesh_batch(b)
         n_layers = spec.n_layers
         last_lif = spec.circuits[-1] == "lif"
         carries = [self._init_carry(i, b) for i in range(n_layers)]
@@ -892,8 +924,11 @@ class NetworkEngine:
                                          "library for the first chunk")
                 tc = x_chunk.shape[0]
                 key = self._program_key("stream", b, tc, banks)
-                step, comp_s = self._compiled(
-                    key, lambda: self._build_stream_step(tc))
+                hid = 1 if self.record_hidden else []
+                step, comp_s = self._compiled(key, lambda: self._sharded(
+                    lambda eng, bl: eng._build_stream_step(tc), b, banks,
+                    in_specs=(1, None, 0, 0, None),
+                    out_specs=(0, 1, hid, "sum", "max", "sum", 0, 0)))
                 comp_seg += comp_s
                 # enqueue chunk k, then read chunk k-1's records
                 (primary, out_seq, hidden, e_tl, l_tl, ev_tl, carries,
@@ -925,8 +960,9 @@ class NetworkEngine:
             flush = np.zeros((n_layers,), np.float32)
             if self.backend == "lasana":
                 fkey = self._program_key("flush", b, None, banks)
-                flush_fn, comp_s = self._compiled(
-                    fkey, self._build_flush)
+                flush_fn, comp_s = self._compiled(fkey, lambda: self._sharded(
+                    lambda eng, bl: eng._build_flush(), b, banks,
+                    in_specs=(0, None, None), out_specs="sum"))
                 comp_seg += comp_s
                 t_ends = [_t_end(k0, c) for c in self.circs]
                 ((flush_t,),), ev = self._to_host(
@@ -1591,6 +1627,9 @@ class NetworkEngine:
         if self.backend not in ("lasana", "behavioral"):
             raise ValueError("slot_programs requires backend='lasana' or "
                              f"'behavioral' (got {self.backend!r})")
+        if self.mesh is not None:
+            raise ValueError("slot_programs does not support mesh "
+                             "sharding yet")
         if chunk_ticks <= 0:
             raise ValueError(f"chunk_ticks must be positive: {chunk_ticks}")
         banks = self._runtime_banks(surrogates)
@@ -1605,17 +1644,44 @@ class NetworkEngine:
             lambda: self._build_slot_join(b))
         # a lane's first step must build nothing: the kernel libraries its
         # routes launch are built (or loaded) here, with the runners
-        cs_libs = 0.0
-        if self.device.type == "cuda":
-            from repro_torch.kernels import _build
-            t0, loaded = time.time(), _build.n_loaded()
-            for name in self._route_libraries(banks):
-                _build.library(name)
-            if _build.n_loaded() != loaded:
-                cs_libs = time.time() - t0
+        cs_libs = self._load_libraries(banks)
         return SlotPrograms(step=step, flush=flush, join=join,
                             compile_seconds=(cs_step + cs_flush + cs_join
                                              + cs_libs))
+
+    def _load_libraries(self, banks) -> float:
+        """Build (or load) the kernel libraries this engine's routes launch
+        with ``banks`` when it runs on the card, so that no run or shard
+        builds one; the seconds it took when anything loaded, else 0."""
+        if self.device.type != "cuda" and not any(
+                e.device.type == "cuda" for e in self._replicas.values()):
+            return 0.0
+        from repro_torch.kernels import _build
+        t0, loaded = time.time(), _build.n_loaded()
+        for name in self._route_libraries(banks):
+            _build.library(name)
+        return time.time() - t0 if _build.n_loaded() != loaded else 0.0
+
+    def _check_mesh_batch(self, b: int):
+        if self.mesh is not None and b % self.mesh.size:
+            raise ValueError(f"batch {b} not divisible by mesh size "
+                             f"{self.mesh.size}")
+
+    def _sharded(self, build, b: int, banks, in_specs, out_specs):
+        """``build(engine, batch)`` — the unsharded runner — or, with a
+        mesh, that runner built by each shard device's engine at the
+        shard's batch and wrapped by ``shard_over_batch``: the caller
+        passes and gets back whole-batch tensors on :attr:`device`. A
+        shard's kernel libraries load here, before its first launch."""
+        if self.mesh is None:
+            return build(self, b)
+        from repro_torch.core.distributed import shard_over_batch
+        self._load_libraries(banks)
+        bl = b // self.mesh.size
+        bodies = {str(self.device): build(self, bl)}
+        for key, eng in self._replicas.items():
+            bodies[key] = build(eng, bl)
+        return shard_over_batch(bodies, self.mesh, in_specs, out_specs)
 
     def _route_libraries(self, banks) -> tuple:
         """The kernel libraries (``csrc/`` sources) a tick of this engine

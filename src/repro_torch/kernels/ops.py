@@ -65,6 +65,13 @@ def moe_capacity_factor(default: float) -> float:
     return float(os.environ.get("REPRO_MOE_CF", default))
 
 
+def microbatches_override():
+    """``REPRO_MICROBATCHES`` as an int, or None when unset or empty: the
+    training launcher's default ``--microbatches``."""
+    env = os.environ.get("REPRO_MICROBATCHES")
+    return int(env) if env else None
+
+
 def fault_plan_path():
     """``REPRO_FAULT_PLAN``: the path of a JSON fault-injection plan, or
     None (unset or empty: injection sites do nothing). The resilience

@@ -62,9 +62,16 @@ JSON-lines protocol on stdin::
 
 The layer runners of the paper's comparisons (golden, behavioral,
 LASANA-P / -O, annotation) are ``repro_torch.core.simulate`` and the
-legacy bank shims ``repro_torch.core.persist``. Still to come with a
-later slice: multi-device batches (``mesh=``). Everything runs on
-``cuda`` unless ``device=`` says otherwise.
+legacy bank shims ``repro_torch.core.persist``. ``mesh=`` (a
+``repro_torch.launch.mesh.Mesh``) shards the batch of :func:`simulate`,
+:func:`simulate_stream`, :func:`stream` and :func:`resume` over its
+devices, each listed device a shard (a device may repeat)::
+
+    mesh = make_mesh((2,), ("data",), devices=["cuda:0", "cuda:0"])
+    run = lasana.simulate(spec, x, surrogates=sur, mesh=mesh)
+
+Everything runs on ``cuda`` unless ``device=`` (or the mesh) says
+otherwise.
 
 ``simulate`` keeps one :class:`NetworkEngine` per live spec and
 configuration (an LRU attached to the spec), so repeated calls with
@@ -216,15 +223,26 @@ def load(path: str, device=None):
 
 
 def engine(spec: NetworkSpec, *, backend: str = "lasana",
-           mode: str = "standalone", record_hidden: bool = True,
+           mode: str = "standalone", mesh=None, record_hidden: bool = True,
            fused: bool = True, fused_kernel: Optional[bool] = None,
            device=None) -> NetworkEngine:
     """The cached :class:`NetworkEngine` serving ``spec`` for
-    :func:`simulate`: one per live ``(spec, backend, mode, record_hidden,
-    fused, fused_kernel, device)``, in a bounded LRU attached to the spec."""
+    :func:`simulate`: one per live ``(spec, backend, mode, mesh,
+    record_hidden, fused, fused_kernel, device)``, in a bounded LRU
+    attached to the spec. The mesh keys by value (its devices and axis
+    names), never by identity, as the reference's does: equal meshes share
+    an engine, and a new mesh can never reuse a dead one's. With a mesh
+    the device is the mesh's first (a ``device=`` beside it must agree)."""
+    if mesh is not None:
+        first = ops.resolve_device(mesh.flat()[0])
+        if device is not None and ops.resolve_device(device) != first:
+            raise ValueError(f"device={device!r} disagrees with the mesh, "
+                             f"whose first device is {first}")
+        device = first
     device = ops.resolve_device(device)
     fused_kernel = None if fused_kernel is None else bool(fused_kernel)
-    key = (backend, mode, record_hidden, bool(fused), fused_kernel, device)
+    key = (backend, mode, mesh, record_hidden, bool(fused), fused_kernel,
+           device)
     with _ENGINE_LOCK:
         cache = getattr(spec, _ENGINE_ATTR, None)
         if cache is None:
@@ -234,7 +252,7 @@ def engine(spec: NetworkSpec, *, backend: str = "lasana",
             object.__setattr__(spec, _ENGINE_ATTR, cache)
         eng = cache.get(key)
         if eng is None:
-            eng = NetworkEngine(spec, backend=backend, mode=mode,
+            eng = NetworkEngine(spec, backend=backend, mode=mode, mesh=mesh,
                                 record_hidden=record_hidden, fused=fused,
                                 fused_kernel=fused_kernel, device=device)
             cache[key] = eng
@@ -247,7 +265,7 @@ def engine(spec: NetworkSpec, *, backend: str = "lasana",
 
 
 def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
-             surrogates=None, mode: str = "standalone",
+             surrogates=None, mode: str = "standalone", mesh=None,
              record_hidden: bool = True, fused: bool = True,
              fused_kernel: Optional[bool] = None,
              device=None) -> NetworkRun:
@@ -262,6 +280,8 @@ def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
     surrogates  backend="lasana": a :class:`Surrogate` (one circuit kind)
                 or a :class:`SurrogateLibrary` / ``{kind: Surrogate}``
     mode        lasana only: "standalone" | "annotation"
+    mesh        optional ``repro_torch.launch.mesh.Mesh``: shard the batch
+                over its devices (the batch must divide by its size)
     fused       lasana only: stacked ``predict_heads`` tick (default) or
                 one ``predict`` per head
     fused_kernel  lasana only: kernel-path switch — None defers to
@@ -269,7 +289,7 @@ def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
                 stacked-einsum 3-dispatch tick, which has no kernel
     device      default ``cuda``; ``"cpu"`` runs the plain versions
     """
-    return engine(spec, backend=backend, mode=mode,
+    return engine(spec, backend=backend, mode=mode, mesh=mesh,
                   record_hidden=record_hidden, fused=fused,
                   fused_kernel=fused_kernel,
                   device=device).run(stimulus, surrogates=surrogates)
@@ -278,7 +298,8 @@ def simulate(spec: NetworkSpec, stimulus, *, backend: str = "lasana",
 def simulate_stream(spec: NetworkSpec, stimulus, *,
                     chunk_ticks: Optional[int] = None,
                     backend: str = "lasana", surrogates=None,
-                    mode: str = "standalone", record_hidden: bool = False,
+                    mode: str = "standalone", mesh=None,
+                    record_hidden: bool = False,
                     fused_kernel: Optional[bool] = None,
                     device=None) -> NetworkRun:
     """Streaming-chunked :func:`simulate`: the same record, bit for bit,
@@ -292,7 +313,7 @@ def simulate_stream(spec: NetworkSpec, stimulus, *,
     one flush runner are built per batch and surrogate structure.
     ``record_hidden`` defaults to False here: per-layer traces of an
     unbounded stream defeat the point."""
-    return engine(spec, backend=backend, mode=mode,
+    return engine(spec, backend=backend, mode=mode, mesh=mesh,
                   record_hidden=record_hidden, fused_kernel=fused_kernel,
                   device=device).run_stream(stimulus,
                                             chunk_ticks=chunk_ticks,
@@ -301,7 +322,7 @@ def simulate_stream(spec: NetworkSpec, stimulus, *,
 
 def stream(spec: NetworkSpec, stimulus, *,
            chunk_ticks: Optional[int] = None, backend: str = "lasana",
-           surrogates=None, mode: str = "standalone",
+           surrogates=None, mode: str = "standalone", mesh=None,
            record_hidden: bool = False,
            fused_kernel: Optional[bool] = None,
            checkpoint_every: Optional[int] = None, device=None):
@@ -314,7 +335,7 @@ def stream(spec: NetworkSpec, stimulus, *,
     to every Nth chunk's record (``run.checkpoint``; persist with
     ``.save(path)``); :func:`resume` continues from it. Requires
     ``chunk_ticks``."""
-    return engine(spec, backend=backend, mode=mode,
+    return engine(spec, backend=backend, mode=mode, mesh=mesh,
                   record_hidden=record_hidden, fused_kernel=fused_kernel,
                   device=device).stream(
                       stimulus, chunk_ticks=chunk_ticks,
@@ -323,7 +344,7 @@ def stream(spec: NetworkSpec, stimulus, *,
 
 
 def resume(checkpoint, spec: NetworkSpec, stimulus, *, surrogates=None,
-           fused_kernel: Optional[bool] = None,
+           mesh=None, fused_kernel: Optional[bool] = None,
            checkpoint_every: Optional[int] = None,
            device=None) -> NetworkRun:
     """Continue a checkpointed stream to its end and return the whole-run
@@ -339,7 +360,7 @@ def resume(checkpoint, spec: NetworkSpec, stimulus, *, surrogates=None,
     if isinstance(checkpoint, (str, os.PathLike)):
         checkpoint = StreamCheckpoint.load(str(checkpoint))
     eng = engine(spec, backend=checkpoint.backend, mode=checkpoint.mode,
-                 record_hidden=checkpoint.record_hidden,
+                 mesh=mesh, record_hidden=checkpoint.record_hidden,
                  fused_kernel=fused_kernel, device=device)
     acc = StreamingRun()
     acc.update(checkpoint.acc_run)

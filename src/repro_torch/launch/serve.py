@@ -13,9 +13,9 @@ zeros as the reference's ``launch/serve.py`` gives them. ``--layers N``
 cuts the config to its first N layers and drops the multi-token-
 prediction head, which serving never runs, so that a model too large for
 one card serves at its full width. It runs on ``cuda`` unless ``--device`` says otherwise, and
-raises where there is no card. The reference's mesh options
-(``--model-parallel`` > 1, ``--kv-seq``) raise: they need the sharding
-work (ROADMAP §A item 4, old A9).
+raises where there is no card. The reference's tensor-parallel options
+(``--model-parallel`` > 1, ``--kv-seq``) raise: tensor-parallel placement
+is a later slice (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -30,18 +30,17 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.lm_data import SyntheticCorpus
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model
+from repro_torch.sharding import TENSOR_PARALLEL
 
 
 def setup(args):
     """(model, params, prompts, max_seq) for ``args``, on its device."""
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs a device mesh, which the port does "
-            "not have yet (ROADMAP A9)")
+            f"--model-parallel {args.model_parallel}: " + TENSOR_PARALLEL)
     if args.kv_seq:
         raise NotImplementedError(
-            "--kv-seq (sequence-sharded KV caches) needs a device mesh, "
-            "which the port does not have yet (ROADMAP A9)")
+            "--kv-seq (sequence-sharded KV caches): " + TENSOR_PARALLEL)
     dev = ops.resolve_device(getattr(args, "device", None))
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:

@@ -23,7 +23,9 @@ the reference's Pallas kernel does, so the two agree to bf16 rounding, not
 bit for bit. Every other call — bidirectional (an encoder), cross, a
 window shorter than the sequence, a head dim of 256, MLA's 192 / 128 — takes
 the plain chunked path :func:`_chunked_attn`, the reference's arithmetic
-step for step; the reference computes all of these in XLA too.
+step for step; the reference computes all of these in XLA too. So does a
+call under autograd (a training forward): the kernel has no backward, and
+the reference's training never reaches its Pallas kernel either.
 """
 
 from __future__ import annotations
@@ -128,8 +130,14 @@ def _chunked_attn(q, k, v, q_pos, k_pos, scale: float, *, causal: bool,
 def takes_flash(q, k, v, *, causal: bool, window: int, cross: bool) -> bool:
     """Whether a full-sequence call is the function ``ops.flash_attention``
     computes (causal self-attention over the whole sequence) at a head dim
-    the kernel takes. q (B, S, H, D), k and v (B, T, KVH, D)."""
+    the kernel takes, and autograd need not differentiate it. q (B, S, H,
+    D), k and v (B, T, KVH, D)."""
     s, d = q.shape[1], q.shape[-1]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel has no backward (neither has the reference's: its
+        # training computes attention in XLA), so a call autograd must
+        # differentiate takes the plain chunked path
+        return False
     return (causal and not cross and (not window or s <= window)
             and d in flash_attn.HEAD_DIMS and k.shape[-1] == d
             and v.shape[-1] == d and q.dtype in flash_attn.DTYPES)

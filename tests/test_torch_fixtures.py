@@ -9,7 +9,8 @@ package produced on the CPU. Regenerate all of them with::
 
 or only the crossbar and mixed-graph files (the LIF four stay as they
 are) with ``--regen-crossbar``, only the stream record with
-``--regen-stream``, only the LM record with ``--regen-lm``, or only
+``--regen-stream``, only the LM record with ``--regen-lm``, only the
+LM training record with ``--regen-lm-train``, or only
 the wide-surrogate artifact and its record with ``--regen-wide``, or
 only the training record with ``--regen-train``, or only the layer
 record with ``--regen-layer``, or only the DSE record with
@@ -99,6 +100,18 @@ crossbar_unpackable)``: the engine's base rows (``base_x``, ``base_p``,
 rows ``tile_energy_latency`` prices (``tile_x``, ``tile_p``,
 ``tile_o``: ``jax.random`` key 0, as it draws them).
 
+The LM training record (``--regen-lm-train``,
+``starcoder2_3b_train_ref_record.npz``) runs the reference's
+``make_train_step`` on StarCoder2-3B at full width, cut to
+:data:`LM_TRAIN_LAYERS` layers, in fp32 (:func:`fp32_reference`, the
+weights ``lm_numpy_params(cfg, 0)`` unrounded), for
+:data:`LM_TRAIN_STEPS` steps of AdamW (:data:`LM_TRAIN_OPT`) on the
+launcher's batches ``make_train_batch(SyntheticCorpus(49152, seed=0), step,
+global_batch=2, seq=128)``: each step's ``loss``, ``grad_norm`` and
+``lr``, every leaf's gradient L2 norm at step 0 (``grad_norm/<path>``)
+and every leaf's update L2 norm after the last step (``update_norm/<path>``,
+the norm of the parameter's change); ~2 minutes and ~12 GB.
+
 The wire record (``--regen-serve``, ``serve_wire_record.json``) holds the
 op script :func:`wire_script` (register ``lif_packable.npz`` by path, the
 784-128-10 SNN as an ``snn`` spec, one ``simulate_batch`` of 8 requests of
@@ -111,6 +124,7 @@ chunk_ticks=16)`` on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import sys
@@ -170,6 +184,12 @@ def chip_workload(n_images: int = N_IMAGES, t_steps: int = T_STEPS):
 
 # the LM record: StarCoder2-3B at full width, depth cut to 4 of 30 layers
 LM_RECORD = ARTIFACTS / "starcoder2_3b_ref_record.npz"
+# the LM training record: StarCoder2-3B at full width, 2 layers, fp32
+LM_TRAIN_RECORD = ARTIFACTS / "starcoder2_3b_train_ref_record.npz"
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_BATCH = (2, 128)    # global batch, sequence length
+LM_TRAIN_STEPS = 3
+LM_TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)
 LM_RECORD_LAYERS = 4
 LM_PROMPT = (4, 512)         # batch, prompt length
 LM_DECODE_STEPS = 8
@@ -690,6 +710,187 @@ def surrogate_pairs():
                    Surrogate.load(str(path), device="cpu"))
             for name, path in (("packable", PACKABLE),
                                ("unpackable", UNPACKABLE))}
+
+
+# --- LM training: an fp32 reference, train steps of both packages ---------
+
+TRAIN_BATCH = (2, 16)          # global batch, sequence length
+TRAIN_REL = 1e-4               # fp32: loss, its parts, grad norm, each grad
+TRAIN_BF16_REL = 2e-2          # bf16: the loss (the reference's sharded bound)
+
+
+class _F32Jnp:
+    """``jax.numpy`` as the reference's model module sees it in an fp32
+    run: ``bfloat16`` names float32. The reference's ``cfg.dtype`` is
+    inert (its model casts activations to bf16 by name), so its fp32 model
+    is this module swap, made for the test's duration; no file of the JAX
+    package changes."""
+
+    def __init__(self):
+        import jax.numpy as jnp
+        self._jnp = jnp
+        self.bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, name)
+
+
+@contextlib.contextmanager
+def fp32_reference():
+    import repro.models.model as jmm
+    old = jmm.jnp
+    jmm.jnp = _F32Jnp()
+    try:
+        yield
+    finally:
+        jmm.jnp = old
+
+
+def train_batches(cfg, steps: int, *, num_microbatches: int = 1,
+                  batch=TRAIN_BATCH, seed: int = 0) -> list:
+    """The launcher's batches ``make_train_batch(SyntheticCorpus(vocab,
+    seed), step, ...)`` for steps 0 .. steps-1, with the zoo's frames /
+    patches (fp32) where the config takes them."""
+    from repro_torch.data.lm_data import SyntheticCorpus, make_train_batch
+    corpus = SyntheticCorpus(cfg.vocab, seed=seed)
+    extras = zoo_inputs(cfg, batch[0])
+    return [make_train_batch(corpus, i, global_batch=batch[0], seq=batch[1],
+                             num_microbatches=num_microbatches,
+                             extras=extras) for i in range(steps)]
+
+
+def train_opt_kw() -> dict:
+    return dict(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def train_models(arch: str, dtype: str = "float32"):
+    """(port Model, JAX Model, port params, JAX params) of the reduced
+    ``arch`` from ``lm_numpy_params(cfg, 0)``: fp32 leaves for both, or
+    each leaf rounded to its spec's dtype (bf16)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.models.model import Model as JaxModel
+    from repro_torch import configs
+    from repro_torch.convert import lm_numpy_params, lm_params_from_numpy
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(configs.reduced_config(arch), dtype=dtype)
+    jcfg = jconfigs.reduced_config(arch)
+    arr = lm_numpy_params(cfg, 0)
+    params = lm_params_from_numpy(cfg, arr, "cpu")
+    jparams = (jax.tree.map(jnp.asarray, arr) if dtype == "float32"
+               else jax_lm_params(jcfg, arr))
+    return Model(cfg), JaxModel(jcfg), params, jparams
+
+
+def train_rel(got, want) -> float:
+    return rel_l2(np.asarray(got, np.float64), np.asarray(want, np.float64))
+
+
+def assert_grads_match(arch: str, grads, jgrads, rel=TRAIN_REL):
+    """Every leaf's gradient within relative L2 ``rel``."""
+    import jax
+
+    from repro_torch import tree as tr
+    got, want = tr.leaves(grads), jax.tree.leaves(jgrads)
+    assert len(got) == len(want)
+    bad = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w, np.float32)
+        assert tuple(g.shape) == w.shape
+        err = train_rel(g.float().numpy(), w)
+        if not err < rel:
+            bad[i] = err
+    assert not bad, (arch, bad)
+
+
+def assert_train_matches_reference(arch: str, steps: int = 3):
+    """fp32 training of the reduced ``arch`` through both packages from
+    the same weights and batches: the gradient of every leaf at step 0,
+    then ``steps`` train steps (AdamW, warmup 2) — each step's loss, ce,
+    aux, mtp_ce, tokens, grad_norm and lr within TRAIN_REL, and every
+    parameter after the last step within relative L2 TRAIN_REL."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.optim import AdamW as JaxAdamW, AdamWConfig as JaxAdamWConfig
+    from repro.train import step as jstep
+    from repro_torch import tree as tr
+    from repro_torch.data.lm_data import to_device
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import step as step_mod
+
+    model, jmodel, params, jparams = train_models(arch)
+    batches = train_batches(model.cfg, steps)
+    jopt = JaxAdamW(JaxAdamWConfig(**train_opt_kw()))
+    opt = AdamW(AdamWConfig(**train_opt_kw()))
+    with fp32_reference():
+        jgrad = jax.jit(jax.grad(lambda p, b: jmodel.loss(p, b)[0]))(
+            jparams, batches[0])
+        jtrain = jax.jit(jstep.make_train_step(jmodel, jopt))
+        jstate = {"step": jnp.zeros((), jnp.int32), "params": jparams,
+                  "opt": jopt.init(jparams)}
+        jmets = []
+        for b in batches:
+            jstate, m = jtrain(jstate, b)
+            jmets.append(m)
+    _, _, grads = step_mod.loss_and_grads(model, params,
+                                          to_device(batches[0], "cpu"))
+    assert_grads_match(arch, grads, jgrad)
+    train = step_mod.make_train_step(model, opt)
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt": opt.init(params)}
+    for i, b in enumerate(batches):
+        state, met = train(state, b)
+        want = jmets[i]
+        assert sorted(met) == sorted(want), (sorted(met), sorted(want))
+        for k, v in met.items():
+            np.testing.assert_allclose(float(v), float(want[k]),
+                                       rtol=TRAIN_REL, atol=1e-7,
+                                       err_msg=f"{arch} step {i} {k}")
+    assert int(state["step"]) == steps
+    bad = {}
+    for i, (p, w) in enumerate(zip(tr.leaves(state["params"]),
+                                   jax.tree.leaves(jstate["params"]))):
+        err = train_rel(p.numpy(), w)
+        if not err < TRAIN_REL:
+            bad[i] = err
+    assert not bad, (arch, bad)
+
+
+def assert_bf16_step_matches_reference(arch: str):
+    """One bf16 train step of the reduced ``arch`` (the configs' own
+    dtypes) in both packages: the loss within TRAIN_BF16_REL."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.optim import AdamW as JaxAdamW, AdamWConfig as JaxAdamWConfig
+    from repro.train import step as jstep
+    from repro_torch import tree as tr
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import step as step_mod
+
+    model, jmodel, params, jparams = train_models(arch, "bfloat16")
+    batch = train_batches(model.cfg, 1)[0]
+    jopt = JaxAdamW(JaxAdamWConfig(**train_opt_kw()))
+    opt = AdamW(AdamWConfig(**train_opt_kw()))
+    _, jm = jax.jit(jstep.make_train_step(jmodel, jopt))(
+        {"step": jnp.zeros((), jnp.int32), "params": jparams,
+         "opt": jopt.init(jparams)}, batch)
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt": opt.init(params)}
+    _, met = step_mod.make_train_step(model, opt)(state, batch)
+    assert all(p.dtype == s.dtype for p, s in zip(
+        tr.leaves(params), tr.leaves(model.abstract_params())))
+    np.testing.assert_allclose(float(met["loss"]), float(jm["loss"]),
+                               rtol=TRAIN_BF16_REL)
+    assert np.isfinite(float(met["grad_norm"]))
 
 
 # --- regeneration (JAX package, CPU) ------------------------------------------
@@ -1238,12 +1439,70 @@ def _regen_dse():
           f"{time.time() - t0:.0f} s")
 
 
+def _regen_lm_train():
+    """Write the LM training record only (JAX on the CPU)."""
+    import dataclasses
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.models.model import Model
+    from repro.optim import AdamW, AdamWConfig
+    from repro.train import step as jstep
+    from repro_torch import configs
+    from repro_torch.convert import lm_numpy_params
+    from repro_torch.models import params as prm
+
+    t0 = time.time()
+    n = LM_TRAIN_LAYERS
+    cfg = dataclasses.replace(configs.get_config("starcoder2-3b"),
+                              n_layers=n, dtype="float32")
+    arrays = lm_numpy_params(cfg, 0)
+    paths = [path for path, _ in prm.leaves(arrays)]
+    params = jax.tree.map(jnp.asarray, arrays)
+    model = Model(dataclasses.replace(get_config("starcoder2-3b"),
+                                      n_layers=n))
+    opt = AdamW(AdamWConfig(**LM_TRAIN_OPT))
+    batches = train_batches(cfg, LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH)
+    out = {}
+    with fp32_reference():
+        grads = jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))(
+            params, batches[0])
+        gflat = dict(prm.leaves(jax.tree.map(np.asarray, grads)))
+        for path in paths:
+            out[f"grad_norm/{path}"] = np.float64(
+                np.linalg.norm(gflat[path].astype(np.float64)))
+        del grads, gflat
+        train = jax.jit(jstep.make_train_step(model, opt))
+        state = {"step": jnp.zeros((), jnp.int32), "params": params,
+                 "opt": opt.init(params)}
+        mets = []
+        for b in batches:
+            state, m = train(state, b)
+            mets.append({k: float(v) for k, v in m.items()})
+    for k in ("loss", "grad_norm", "lr"):
+        out[k] = np.asarray([m[k] for m in mets], np.float64)
+    after = dict(prm.leaves(jax.tree.map(np.asarray, state["params"])))
+    before = dict(prm.leaves(arrays))
+    for path in paths:
+        out[f"update_norm/{path}"] = np.float64(np.linalg.norm(
+            after[path].astype(np.float64) - before[path]))
+    out["n_layers"] = np.int64(n)
+    out["batch"] = np.asarray(LM_TRAIN_BATCH, np.int64)
+    np.savez(LM_TRAIN_RECORD, **out)
+    print(f"wrote {LM_TRAIN_RECORD.name}: losses {out['loss']}, "
+          f"{time.time() - t0:.0f} s")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--regen"]:
         _regen()
         _regen_crossbar()
         _regen_stream()
         _regen_lm()
+        _regen_lm_train()
         for arch in ZOO_RECORDS:
             _regen_zoo(arch)
         _regen_wide()
@@ -1257,6 +1516,8 @@ if __name__ == "__main__":
         _regen_stream()
     elif sys.argv[1:] == ["--regen-lm"]:
         _regen_lm()
+    elif sys.argv[1:] == ["--regen-lm-train"]:
+        _regen_lm_train()
     elif sys.argv[1:2] == ["--regen-zoo"] and len(sys.argv) <= 3:
         for arch in sys.argv[2:] or ZOO_RECORDS:
             _regen_zoo(arch)
@@ -1273,5 +1534,6 @@ if __name__ == "__main__":
     else:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_fixtures.py "
                  "--regen | --regen-crossbar | --regen-stream | --regen-lm | "
+                 "--regen-lm-train | "
                  "--regen-zoo [ARCH] | --regen-wide | --regen-train | "
                  "--regen-layer | --regen-dse | --regen-serve")

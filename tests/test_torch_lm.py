@@ -415,7 +415,7 @@ def test_serve_generate_is_greedy_over_prefill_and_decode():
 @pytest.mark.parametrize("extra", [("--device", "cpu", "--model-parallel",
                                     "2"), ("--device", "cpu", "--kv-seq")])
 def test_serve_mesh_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
         serve.serve(_args(*extra))
 
 

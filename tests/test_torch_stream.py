@@ -641,14 +641,14 @@ def test_facade_stream_entry_points(banks):
 @pytest.mark.parametrize("name", ["simulate_stream", "stream", "resume"])
 def test_facade_signatures_match_reference(name):
     """The streaming entry points take the reference's parameters, in its
-    order and with its defaults, less ``mesh`` (multi-device batches come
-    later) and plus the port's ``device``."""
+    order and with its defaults (``mesh`` included), plus the port's
+    ``device``."""
     import inspect
 
     import repro.lasana as jax_lasana
     import repro_torch.lasana as lasana
     want = [(p.name, p.kind, p.default) for p in inspect.signature(
-        getattr(jax_lasana, name)).parameters.values() if p.name != "mesh"]
+        getattr(jax_lasana, name)).parameters.values()]
     got = [(p.name, p.kind, p.default) for p in inspect.signature(
         getattr(lasana, name)).parameters.values() if p.name != "device"]
     assert got == want
