@@ -111,7 +111,17 @@ Phases, one output line each (JSON where it helps):
    tokens/s, peak device bytes, the idle share of two traced steps, no
    ``flash_attention`` launch), and at 4 layers a crash at step 6 and a
    resume from the step-4 checkpoint against the uninterrupted run
-   (losses within 1e-2);
+   (losses within 1e-2); then tensor parallelism (the tp phase), each
+   sharded run against the port's own unsharded one on the same weights:
+   StarCoder2-3B at full width and depth through ``launch.serve
+   --model-parallel 2`` on a (1, 2) mesh of the card (parity-distribution
+   weights, the sharded decode fed the unsharded run's greedy tokens:
+   prefill logits within 5e-2 of max |logit|, every decided token equal,
+   ``flash_attention`` once per shard per layer, each entry's parameter
+   bytes equal to ``params.shard_bytes``), 4 layers on (1, 4) and with
+   ``--kv-seq`` on (1, 2), and in fp32 with TF32 off the (1, 2) serve
+   path and one AdamW step on a (2, 2) mesh (logits, loss, grad and
+   update norms, each leaf's gradient and values within 1e-5);
 7. train at the reference's scale (``TrainConfig()``: 1,000 runs x 125
    steps, all five families): LIF on the committed JAX record's own
    testbench (``train_lif_ref_record.npz``) through ``simulate_golden``
@@ -356,6 +366,8 @@ ZOO_DECODE_VS_FORWARD = {"mamba2-1.3b": 0.15}
 ZOO_DVF_BATCH = {"deepseek-v3-671b": 2}
 FLASH_BH, FLASH_G, FLASH_S, FLASH_D = 96, 12, 512, 128   # 4 x 24 heads
 FLASH_SERVE_BH = 192             # the serve run's prefill: 8 x 24 heads
+# the tp phase's per-shard prefill: (mesh, query heads a shard, G)
+TP_FLASH = (("(1, 2)", 12, 12), ("(1, 4)", 6, 6))
 FLASH_LONG_S = 4096              # StarCoder2's sliding window
 FLASH_TOL = {"bf16": 3e-2, "fp32": 2e-5}   # tests/test_kernels.py:199
 # the tensor-core route against bf16 resolution: |got - want| <= 2^-7
@@ -1956,6 +1968,23 @@ def check_flash_attention(torch, np, dev):
         out["max_abs_err"] = max(out["max_abs_err"], err)
         del zq, zk, zv
     out["zoo_serve_shapes"] = zoo
+    # the tp phase's per-shard prefill shapes: StarCoder2-3B's 24 heads
+    # over 2 shards (12 heads on 1 kv head a shard) and over 4 (6 heads on
+    # the one kv head they use), batch 8 x 512, on the tensor-core route
+    tp = {}
+    for i, (name, heads, tg) in enumerate(TP_FLASH):
+        tq, tk, tv = flash_inputs(torch, dev, ZOO_SERVE_BATCH * heads, tg,
+                                  FLASH_S, FLASH_D, torch.bfloat16, 20 + i)
+        if flash_attn.route(tq.dtype, FLASH_D) != "flash_attention":
+            fail(f"flash_attention: tp shape {name} off the tensor cores")
+        err = flash_err(flash_attn.flash_attention(tq, tk, tv, groups=tg),
+                        flash_attn.attention_plain(tq, tk, tv, tg),
+                        FLASH_TOL["bf16"], f"bf16 tp {name} shard shape", res)
+        tp[name] = {"max_abs_err": err, **flash_timing(
+            torch, flash_attn, tq, tk, tv, tg, heads=heads, plain=True)}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del tq, tk, tv
+    out["tp_shard_shapes"] = tp
     return out
 
 
@@ -3263,6 +3292,372 @@ def lm_train_resume(torch, np, dev, root):
     if not ok:
         fail(f"lm train resume: crashed {crashed}, output {text[-400:]!r}, "
              f"rel {rel}")
+
+
+# --- tensor parallelism: the tp phase ----------------------------------------
+
+TP_LOGIT_LIMIT = 5e-2      # of max |logit|: tests/test_kvseq.py's limit
+TP_FP32_LIMIT = 1e-5       # fp32 runs: logits, loss, grad / update norms
+TP_LAYERS = 4              # depth of the (1, 4), kv_seq and fp32 runs
+TP_DECODE_STEPS = 8        # teacher-forced steps of the 4-layer runs
+TP_TRAIN_BATCH = (8, 128)  # the fp32 train step's batch, sequence
+
+
+def tp_forced(torch, model, params, prompts, steps, max_seq, fed=None):
+    """A prefill and ``steps`` decode steps, fed ``fed`` (teacher
+    forcing) or the greedy tokens: (each step's logits (B, V) fp32 on the
+    host, the fed tokens, the prefill's launch counts, seconds)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ops.reset_launches()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_seq=max_seq)
+        counts = dict(ops.LAUNCHES)
+        outs, toks = [logits[:, -1].float().cpu()], []
+        for i in range(steps):
+            tok = fed[:, i:i + 1] if fed is not None else torch.argmax(
+                logits[:, -1:], -1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = model.decode(params, cache, tok)
+            outs.append(logits[:, -1].float().cpu())
+    del cache
+    torch.cuda.synchronize()
+    return outs, torch.cat(toks, 1), counts, time.perf_counter() - t0
+
+
+def tp_setup(torch, argv):
+    """``launch.serve.setup`` for ``argv``, the weights redrawn from the
+    parity distribution (``convert.lm_parity_specs``, seed 0, placed on the
+    model's mesh). ``Model.init``'s distribution (std 1/sqrt(heads) on the
+    attention weights, ROADMAP caveat 4) makes the bf16 model chaotic: a
+    reordered sum moves its logits by tens of percent within a few
+    layers, which no comparison of two bf16 runs could see past."""
+    from repro_torch.convert import lm_parity_specs
+    from repro_torch.launch import serve
+    from repro_torch.models import params as prm
+    model, params, prompts, max_seq = serve.setup(
+        serve.parser().parse_args(argv))
+    dev = prompts.device
+    del params
+    params = prm.materialize(
+        torch.Generator(device=dev).manual_seed(0),
+        lm_parity_specs(model.cfg), dev,
+        placements=model.param_placements() if model.mesh else None)
+    return model, params, prompts, max_seq
+
+
+def tp_compare(torch, got, want, limit, every_step=False) -> dict:
+    """Each step's max |diff| / max |logit| — the prefill's (or with
+    ``every_step`` every step's) held to ``limit`` — and the greedy
+    tokens: equal on every row whose top-2 gap in the unsharded run
+    exceeds twice that row's max |diff|."""
+    rel, decided, agree, bad = [], 0, 0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs().max(dim=-1).values
+        rel.append(float(diff.max() / w.abs().max()))
+        top2 = torch.topk(w, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        same = torch.argmax(g, -1) == torch.argmax(w, -1)
+        decided += int(sure.sum())
+        agree += int((same & sure).sum())
+        if bool((sure & ~same).any()) or (rel[-1] > limit
+                                           and (every_step or i == 0)):
+            bad.append(i)
+    return {"max_rel_by_step": rel, "limit": limit, "decided_rows": decided,
+            "decided_rows_equal": agree, "failed_steps": bad}
+
+
+TP_ALLOC_SLACK = 2 << 20   # the caching allocator's rounding, per tensor
+
+
+def tp_reckon_bytes(model) -> list:
+    """Each mesh entry's parameter bytes from the specs alone: a leaf's
+    whole bytes divided by the product of the mesh axes its resolved spec
+    (``ShardingRules.spec_for_shape``) names."""
+    import math
+    from repro_torch import tree as tr
+    mesh, per = model.mesh, 0
+    for s in tr.leaves(model.param_specs()):
+        spec = model.rules.spec_for_shape(mesh, s.logical, s.shape)
+        cut = math.prod(mesh.shape[a] for e in spec if e is not None
+                        for a in ((e,) if isinstance(e, str) else e))
+        nbytes = math.prod(s.shape) * s.dtype.itemsize
+        if nbytes % cut:
+            fail(f"tp: a leaf of {nbytes} bytes does not split {cut} ways")
+        per += nbytes // cut
+    return [per] * mesh.size
+
+
+def tp_serve(torch, np, dev, total):
+    """(a), (e), (f): StarCoder2-3B at full width and depth through
+    ``launch.serve`` with the lm_serve phase's arguments, unsharded and on
+    a (1, 2) mesh of the card; the sharded run fed the unsharded run's
+    greedy tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import params as prm
+    from repro_torch import tree as tr
+    cfg = lm_config()
+    gen = int(serve.parser().parse_args(list(SERVE_ARGS)).gen)
+    model, params, prompts, max_seq = tp_setup(torch, list(SERVE_ARGS))
+    want, fed, _, t_plain = tp_forced(torch, model, params, prompts,
+                                      gen - 1, max_seq)
+    del model, params
+    torch.cuda.empty_cache()
+    tp_argv = list(SERVE_ARGS) + ["--model-parallel", "2"]
+    model, params, prompts, max_seq = tp_setup(torch, tp_argv)
+    got, _, counts, t_tp = tp_forced(torch, model, params, prompts, gen - 1,
+                                     max_seq, fed=fed)
+    # (f) the flash kernel once per shard per layer of the prefill
+    check_launches("tp prefill (1, 2)", counts, {
+        "flash_attention": 2 * cfg.n_layers, "flash_attention_simt": 0})
+    add_counts(total, "tp/prefill_1x2", counts)
+    res = tp_compare(torch, got, want, TP_LOGIT_LIMIT)
+    # (e) each entry's parameter bytes against a reckoning from the specs'
+    # shapes and resolved specs alone (a leaf's bytes over the mesh
+    # entries its spec cuts it into), and the card's allocated bytes
+    # that the placed parameters free
+    held = [sum(x.shards[i].numel() * x.shards[i].element_size()
+                for x in tr.leaves(params)) for i in range(model.mesh.size)]
+    reckoned = tp_reckon_bytes(model)
+    whole = prm.param_bytes(model.param_specs())
+    wq = params["layers"]["attn"]["wq"].placement
+    wk = params["layers"]["attn"]["wk"].placement
+    n_tensors = sum(len(x.shards) for x in tr.leaves(params))
+    before = torch.cuda.memory_allocated()
+    del params
+    freed = before - torch.cuda.memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    # the entry point itself, on the mesh (Model.init's weights): its
+    # numbers and launches
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = serve.serve(serve.parser().parse_args(tp_argv))
+    counts = dict(ops.LAUNCHES)
+    check_launches("tp serve (1, 2)", counts, {
+        "flash_attention": 2 * cfg.n_layers, "flash_attention_simt": 0})
+    add_counts(total, "tp/serve_1x2", counts)
+    line({"phase": "tp_serve", "arch": cfg.name, "layers": cfg.n_layers,
+          "mesh": "(1, 2) of one card", "args": " ".join(tp_argv),
+          "forced_runs_weights": "parity distribution, seed 0",
+          "prefill_logits_max_rel": res["max_rel_by_step"][0],
+          "decode_max_rel": max(res["max_rel_by_step"][1:]), **res,
+          "forced_run_s": {"unsharded": t_plain, "sharded": t_tp},
+          "serve": {k: run[k] for k in ("prefill_s", "decode_s",
+                                        "tokens_per_s", "logits_finite")},
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "param_bytes_per_entry": held,
+          "param_bytes_reckoned": reckoned, "param_bytes_whole": whole,
+          "param_bytes_freed": freed,
+          "wq_spec": list(map(str, wq.spec)),
+          "wk_spec": list(map(str, wk.spec)),
+          "launches": counts, "card": nvidia_smi()})
+    if held != reckoned:
+        fail(f"tp: entries hold {held} parameter bytes, the specs reckon "
+             f"{reckoned}")
+    if not sum(held) <= freed <= sum(held) + n_tensors * TP_ALLOC_SLACK:
+        fail(f"tp: the placed parameters freed {freed} bytes of the card, "
+             f"their {n_tensors} tensors hold {sum(held)}")
+    if res["failed_steps"] or not run["logits_finite"]:
+        fail(f"tp (1, 2): steps {res['failed_steps']}: the prefill beyond "
+             f"{TP_LOGIT_LIMIT} or a decided token differs")
+    del run
+    torch.cuda.empty_cache()
+
+
+def tp_cut(torch, np, dev, total):
+    """(b): the first TP_LAYERS layers on (1, 4), where StarCoder2's two
+    kv heads do not divide the axis and stay whole (each shard attends
+    with the one its six query heads use, G = 6), and with ``--kv-seq`` on
+    (1, 2)."""
+    base = list(SERVE_ARGS) + ["--layers", str(TP_LAYERS)]
+    model, params, prompts, max_seq = tp_setup(torch, base)
+    want, fed, _, _ = tp_forced(torch, model, params, prompts,
+                                TP_DECODE_STEPS, max_seq)
+    del model, params
+    out = {}
+    for name, extra, flash in (
+            ("1x4", ["--model-parallel", "4"], 4 * TP_LAYERS),
+            ("kvseq_1x2", ["--model-parallel", "2", "--kv-seq"],
+             2 * TP_LAYERS)):
+        model, params, prompts, max_seq = tp_setup(torch, base + extra)
+        got, _, counts, secs = tp_forced(torch, model, params, prompts,
+                                         TP_DECODE_STEPS, max_seq, fed=fed)
+        check_launches(f"tp prefill {name}", counts, {
+            "flash_attention": flash, "flash_attention_simt": 0})
+        add_counts(total, f"tp/prefill_{name}", counts)
+        res = tp_compare(torch, got, want, TP_LOGIT_LIMIT)
+        wk = params["layers"]["attn"]["wk"].placement
+        out[name] = {**res, "seconds": secs, "launches": counts,
+                     "wk_spec": list(map(str, wk.spec))}
+        if name == "1x4" and wk.splits("model"):
+            fail("tp (1, 4): two kv heads split over four shards")
+        del model, params
+        torch.cuda.empty_cache()
+    line({"phase": "tp_cut", "layers": TP_LAYERS, **out,
+          "card": nvidia_smi()})
+    bad = {k: v["failed_steps"] for k, v in out.items() if v["failed_steps"]}
+    if bad:
+        fail(f"tp cut runs: {bad}")
+
+
+def tp_fp32(torch, np, dev, total):
+    """(c) and (d): fp32 with TF32 off at TP_LAYERS layers — the serve
+    path on (1, 2) against the unsharded model, and one AdamW step on a
+    (2, 2) mesh of the card against the unsharded step."""
+    import dataclasses
+    from repro_torch import sharding as shd
+    from repro_torch import tree as tr
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.convert import lm_parity_specs
+    from repro_torch.data.lm_data import (SyntheticCorpus, make_train_batch,
+                                          to_device)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import params as prm
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.train import step as step_mod
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(lm_config(), n_layers=TP_LAYERS,
+                                  mtp_depth=0, dtype="float32")
+        b, s = 8, 512
+        corpus = SyntheticCorpus(cfg.vocab, seed=0)
+        prompts = torch.as_tensor(corpus.batch(0, b, s), device=dev)
+        model = Model(cfg)
+        params = prm.materialize(torch.Generator(device=dev).manual_seed(0),
+                                 lm_parity_specs(cfg), dev)
+        want, fed, _, _ = tp_forced(torch, model, params, prompts,
+                                    TP_DECODE_STEPS, s + TP_DECODE_STEPS + 1)
+        mesh = make_mesh((1, 2), ("data", "model"), [dev] * 2)
+        tp = Model(cfg, mesh=mesh, rules=shd.serve_rules(mesh))
+        placed = shd.place_tree(params, tp.param_placements())
+        del params
+        got, _, counts, _ = tp_forced(torch, tp, placed, prompts,
+                                      TP_DECODE_STEPS,
+                                      s + TP_DECODE_STEPS + 1, fed=fed)
+        add_counts(total, "tp/fp32_prefill_1x2", counts)
+        serve_res = tp_compare(torch, got, want, TP_FP32_LIMIT,
+                               every_step=True)
+        del placed, tp
+        torch.cuda.empty_cache()
+        # (d) one train step, (2, 2)
+        params = prm.materialize(torch.Generator(device=dev).manual_seed(0),
+                                 lm_parity_specs(cfg), dev)
+        opt = AdamW(AdamWConfig(**LM_TRAIN_OPT))
+        batch = to_device(make_train_batch(
+            corpus, 0, global_batch=TP_TRAIN_BATCH[0],
+            seq=TP_TRAIN_BATCH[1]), dev)
+        state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                 "params": tr.tree_map(torch.clone, params),
+                 "opt": opt.init(params)}
+        mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+        rules = shd.train_rules(mesh)
+        placed = shd.place_tree(
+            state, step_mod.train_state_shardings(model, opt, mesh, rules))
+        step = step_mod.jit_train_step(
+            model, opt, mesh, rules,
+            ShapeConfig("tp", TP_TRAIN_BATCH[1], TP_TRAIN_BATCH[0],
+                        "train"))
+        # every leaf's gradient first (Adam's first step is nearly sign(g),
+        # so the update alone would not show a gradient's scale)
+        _, _, g_plain = step_mod.loss_and_grads(model, state["params"], batch)
+        _, _, g_tp = step_mod.placed_loss_and_grads(
+            step_mod.on_mesh(model, mesh, rules), placed["params"], batch)
+        grad_rel = max(float((a.double() - b.double()).norm()
+                             / b.double().norm())
+                       for a, b in zip(tr.leaves(shd.gather_tree(g_tp)),
+                                       tr.leaves(g_plain)))
+        del g_tp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_mod.make_train_step(model, opt)(state, batch)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed, met_tp = step(placed, batch)
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+        whole = shd.gather_tree(placed["params"])
+        lr = float(met["lr"])
+        # the updated values as the CPU tests hold them: Adam's first step
+        # moves an element by ~lr * g / (|g| + eps), so an element whose
+        # gradient sits at rounding level (below 1e-4 of its leaf's
+        # largest) may step anywhere within 2 lr; the rest stay within
+        # the limit of the leaf's largest value
+        leaf_rel, elem_rel, live_rel, step_max = 0.0, 0.0, 0.0, 0.0
+        upd_tp, upd = 0.0, 0.0
+        for g, w, p0, gr in zip(tr.leaves(whole), tr.leaves(state["params"]),
+                                tr.leaves(params), tr.leaves(g_plain)):
+            d = (g.double() - w.double())
+            leaf_rel = max(leaf_rel, float(d.norm() / w.double().norm()))
+            elem_rel = max(elem_rel, float(d.abs().max() / w.abs().max()))
+            live = d.abs()[gr.abs() > 1e-4 * gr.abs().max()]
+            if live.numel():
+                live_rel = max(live_rel, float(live.max() / w.abs().max()))
+            step_max = max(step_max, float(d.abs().max()))
+            upd_tp += float(torch.sum(torch.square(g.double() - p0.double())))
+            upd += float(torch.sum(torch.square(w.double() - p0.double())))
+        # Adam's moments (the update's inputs), each leaf by relative L2
+        moment_rel = 0.0
+        for key in ("m", "v"):
+            for g, w in zip(tr.leaves(shd.gather_tree(placed["opt"][key])),
+                            tr.leaves(state["opt"][key])):
+                moment_rel = max(moment_rel, float(
+                    (g.double() - w.double()).norm() / w.double().norm()))
+        del g_plain
+        train = {
+            "loss": float(met_tp["loss"]),
+            "loss_unsharded": float(met["loss"]),
+            "grad_norm": float(met_tp["grad_norm"]),
+            "grad_norm_unsharded": float(met["grad_norm"]),
+            "update_norm": upd_tp ** 0.5, "update_norm_unsharded": upd ** 0.5,
+            "grad_leaf_max_rel_l2": grad_rel,
+            "leaf_max_rel_l2": leaf_rel, "element_max_rel": elem_rel,
+            "live_element_max_rel": live_rel,
+            "moment_leaf_max_rel_l2": moment_rel,
+            "element_max_abs": step_max, "lr": lr,
+            "first_call_seconds": {"unsharded": t_plain, "sharded": t_tp}}
+        rels = {"loss": abs(train["loss"] / train["loss_unsharded"] - 1),
+                "grad_norm": abs(train["grad_norm"]
+                                 / train["grad_norm_unsharded"] - 1),
+                "update_norm": abs(train["update_norm"]
+                                   / train["update_norm_unsharded"] - 1),
+                "leaf": leaf_rel, "grad_leaf": grad_rel,
+                "live_element": live_rel, "moment_leaf": moment_rel}
+        train["rel"] = rels
+        del placed, state, params, whole
+        torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    line({"phase": "tp_fp32", "layers": TP_LAYERS, "tf32": False,
+          "serve_1x2": {**serve_res, "launches": counts},
+          "train_2x2": train, "limit": TP_FP32_LIMIT, "card": nvidia_smi()})
+    if serve_res["failed_steps"] or max(rels.values()) > TP_FP32_LIMIT \
+            or step_max > 2 * lr:
+        fail(f"tp fp32: serve steps {serve_res['failed_steps']}, train "
+             f"{rels} (limit {TP_FP32_LIMIT}), an element "
+             f"{step_max:.3g} off (limit 2 lr = {2 * lr:.3g})")
+
+
+def tp_runs(torch, np, dev, surs, profile):
+    """The tp phase: tensor-parallel placement on (1, 2), (1, 4) and
+    (2, 2) meshes of the one card, each against the port's own unsharded
+    run."""
+    total = {}
+    t0 = time.perf_counter()
+    tp_serve(torch, np, dev, total)
+    tp_cut(torch, np, dev, total)
+    tp_fp32(torch, np, dev, total)
+    line({"phase": "tp_done", "seconds": time.perf_counter() - t0})
+    return total
 
 
 # --- phase 6, continued: the rest of the LM zoo ------------------------------
@@ -5268,7 +5663,7 @@ def main() -> int:
 
     launches = {}
     for runs in (snn_runs, wide_runs, xbar_runs, mixed_runs, stream_runs,
-                 mesh_runs, lm_runs, zoo_runs, lm_train_runs):
+                 mesh_runs, lm_runs, zoo_runs, lm_train_runs, tp_runs):
         for kernel, by_run in runs(torch, np, dev, surs,
                                    args.profile).items():
             launches.setdefault(kernel, {}).update(by_run)

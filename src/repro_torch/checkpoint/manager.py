@@ -11,6 +11,10 @@ format::
 Leaves are whole tensors in ``jax.tree.flatten`` order (dict keys sorted,
 lists in order; ``repro_torch.tree``) with the reference's dtype strings,
 so a checkpoint written by either package restores in the other. A
+placed leaf (``sharding.Sharded``) is gathered whole before it is
+written, and :meth:`CheckpointManager.restore` splits a leaf onto a mesh
+where ``shardings`` gives it a ``sharding.Placement``: a checkpoint
+crosses between sharded and unsharded states, and between meshes. A
 bfloat16 leaf is stored as its 16-bit words under the dtype string
 ``"bfloat16"``, and read back as those words viewed as
 ``torch.bfloat16``: no ``ml_dtypes`` is needed on either side.
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.sharding import Placement, Sharded
 
 try:                                    # optional: fall back to raw chunks
     import zstandard as zstd
@@ -45,7 +50,9 @@ except ImportError:                     # pragma: no cover - env dependent
 
 def _host(t) -> tuple:
     """``(numpy array, dtype string)`` of a leaf on the host; a bf16 tensor
-    becomes its 16-bit words."""
+    becomes its 16-bit words; a placed leaf is gathered whole."""
+    if isinstance(t, Sharded):
+        t = t.gather("cpu")
     if isinstance(t, torch.Tensor):
         # a copy even on the CPU: the step overwrites its tensors in place
         t = t.detach().to("cpu", copy=True)
@@ -173,9 +180,11 @@ class CheckpointManager:
 
     def restore(self, step: int, like, *, shardings=None):
         """``(tree, user metadata)``: the checkpoint in the structure of
-        ``like`` (tensors or meta tensors). Each leaf lands on its device
-        in ``shardings`` (a matching tree of devices), else on its ``like``
-        leaf's device (the CPU for a meta tensor)."""
+        ``like`` (tensors or meta tensors). Each leaf lands where
+        ``shardings`` (a matching tree of devices and
+        ``sharding.Placement`` s) says — split onto a mesh for a
+        placement — else on its ``like`` leaf's device (the CPU for a meta
+        tensor)."""
         path = os.path.join(self.dir, f"step_{step:07d}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
@@ -197,7 +206,9 @@ class CheckpointManager:
         for i, dev in enumerate(devices):
             t = _read_leaf(os.path.join(path, f"leaf_{i:05d}.{ext}"),
                            meta["dtypes"][i], meta["shapes"][i], dctx)
-            if dev is not None and torch.device(dev).type != "meta":
+            if isinstance(dev, Placement):
+                t = dev.place(t)
+            elif dev is not None and torch.device(dev).type != "meta":
                 t = t.to(dev)
             out.append(t)
         return tr.unflatten(treedef, out), meta["user"]

@@ -4,8 +4,10 @@ JAX package's ``ft/elastic.py`` (``:24-68``) in PyTorch.
 Checkpoints hold whole tensors, never device layouts, so elastic resume
 is: rebuild a ``(data, model)`` mesh over the surviving devices (shrunk
 along the data axis — the model axis stays whole), re-derive the
-placement from the same rules, and restore onto it
-(``tests/test_torch_lm_train.py`` resumes a four-shard run on two).
+placements from the same rules, and restore onto them: each leaf is
+split onto the new mesh (``tests/test_torch_lm_train.py`` resumes a
+four-shard run on two, ``tests/test_torch_tp_train.py`` a ``(2, 2)``
+tensor-parallel run on ``(1, 2)``).
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ def resume_state(ckpt_manager, abstract_state, plan: ElasticPlan,
                  shardings_fn):
     """Restore the latest checkpoint onto the (possibly shrunk) mesh.
 
-    ``shardings_fn(mesh, rules)`` -> a tree of devices matching the state.
+    ``shardings_fn(mesh, rules)`` -> a tree of placements (or devices)
+    matching the state.
     Returns ``(step, state)``, or None when no checkpoint exists."""
     sh = shardings_fn(plan.mesh, plan.rules)
     got = ckpt_manager.restore_latest(abstract_state, shardings=sh)

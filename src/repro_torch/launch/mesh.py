@@ -2,14 +2,18 @@
 
 A :class:`Mesh` is an ndarray of ``torch.device``s with named axes — the
 ``shape``, ``devices`` and ``axis_names`` a ``jax.sharding.Mesh`` has.
-The port shards only the batch: a mesh's entries, flattened in row-major
-order, are the batch's shards (``core/distributed.py``).
+The network engine shards the batch over a mesh's entries, flattened in
+row-major order (``core/distributed.py``); the LM places its parameters,
+caches and batches on a ``(data, model)`` mesh by the logical rules of
+``sharding.py``, tensor parallel over ``model``.
 
 A device may be listed more than once. Each entry is a shard of its own,
 and shards on the same device run one after another. This is the port's
 counterpart of ``--xla_force_host_platform_device_count``, with which the
 reference's tests give one CPU eight devices: it lets the CPU tests and a
 single card run 2-8 shards through the sharded code paths.
+:func:`shard_devices` and :func:`mesh_devices` list the launchers' entries
+that way: the visible cards in turn (or the CPU), repeated as needed.
 
 Meshes are hashed and compared by value (device strings, shape, axis
 names), so the engine cache keys on them as the reference's does: two
@@ -24,6 +28,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import ops
 
 
 class Mesh:
@@ -96,6 +102,28 @@ def make_mesh(shape, axes, devices=None) -> Mesh:
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(shape), axes)
+
+
+def shard_devices(device, n_shards) -> list:
+    """The data shards' devices: ``n_shards`` entries over the visible
+    CUDA devices in turn (or the CPU), by default one per CUDA device."""
+    dev = ops.resolve_device(device)
+    if dev.type != "cuda":
+        return [dev] * (n_shards or 1)
+    n_cards = torch.cuda.device_count()
+    n = n_shards or n_cards
+    return [torch.device("cuda", i % n_cards) for i in range(n)]
+
+
+def mesh_devices(device, data_shards, model_parallel: int) -> list:
+    """The mesh's entries: ``data_shards * model_parallel`` of them (by
+    default one per CUDA device, or one data shard on the CPU), at least
+    ``model_parallel``."""
+    n = data_shards * model_parallel if data_shards else None
+    devices = shard_devices(device, n)
+    if len(devices) < model_parallel:
+        devices = shard_devices(device, model_parallel)
+    return devices
 
 
 def make_host_mesh(*, model: int = 1, devices=None) -> Mesh:

@@ -12,10 +12,13 @@ wall time. An encoder-decoder gets ``frames`` and a VLM ``patches``,
 zeros as the reference's ``launch/serve.py`` gives them. ``--layers N``
 cuts the config to its first N layers and drops the multi-token-
 prediction head, which serving never runs, so that a model too large for
-one card serves at its full width. It runs on ``cuda`` unless ``--device`` says otherwise, and
-raises where there is no card. The reference's tensor-parallel options
-(``--model-parallel`` > 1, ``--kv-seq``) raise: tensor-parallel placement
-is a later slice (ROADMAP §A).
+one card serves at its full width. It runs on ``cuda`` unless
+``--device`` says otherwise, and raises where there is no card.
+``--model-parallel N`` serves the model split over N shards of a
+``(1, N)`` mesh's model axis (``mesh.shard_devices``: the visible cards in
+turn, so one card, or the CPU, carries every shard) with the reference's
+serving rules; ``--kv-seq`` cuts the KV caches by position over those
+shards.
 """
 
 from __future__ import annotations
@@ -29,23 +32,25 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.lm_data import SyntheticCorpus
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh, shard_devices
 from repro_torch.models.model import Model
-from repro_torch.sharding import TENSOR_PARALLEL
+from repro_torch.sharding import serve_rules
 
 
 def setup(args):
-    """(model, params, prompts, max_seq) for ``args``, on its device."""
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: " + TENSOR_PARALLEL)
-    if args.kv_seq:
-        raise NotImplementedError(
-            "--kv-seq (sequence-sharded KV caches): " + TENSOR_PARALLEL)
+    """(model, params, prompts, max_seq) for ``args``, on its device (the
+    params placed on the mesh, with ``--model-parallel`` or
+    ``--kv-seq``)."""
     dev = ops.resolve_device(getattr(args, "device", None))
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers, mtp_depth=0)
-    model = Model(cfg)
+    mesh = rules = None
+    if args.model_parallel != 1 or args.kv_seq:
+        mesh = make_mesh((1, args.model_parallel), ("data", "model"),
+                         shard_devices(dev, args.model_parallel))
+        rules = serve_rules(mesh, kv_seq_sharding=args.kv_seq)
+    model = Model(cfg, mesh=mesh, rules=rules)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                         dev)
     corpus = SyntheticCorpus(cfg.vocab, seed=args.seed)
@@ -132,7 +137,7 @@ def parser() -> argparse.ArgumentParser:
                     "the MTP head (default: all)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--kv-seq", action="store_true",
-                    help="sequence-sharded KV caches (not ported: raises)")
+                    help="KV caches cut by position over the model axis")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")

@@ -4,12 +4,14 @@ PyTorch.
 ``python -m repro_torch.launch.train --arch starcoder2-3b --reduced
 --steps 10 --device cpu``
 
-Wires together: config registry -> model -> mesh and rules
-(``ft.elastic.plan_mesh``) -> train step (data parallel over the mesh's
-shards) -> synthetic data on a prefetch thread -> AdamW -> checkpoints
+Wires together: config registry -> mesh and rules
+(``ft.elastic.plan_mesh``) -> model on the mesh -> train step (FSDP over
+the data axis, tensor parallel over ``--model-parallel`` shards) ->
+synthetic data on a prefetch thread -> AdamW -> checkpoints
 (asynchronous, resumed automatically from ``--ckpt-dir``) -> watchdog.
 A run killed mid-way (``--fail-at-step``, or for real) restarts from the
-last committed checkpoint, on as many data shards as it now has.
+last committed checkpoint, on as many data shards as it now has, the
+model axis kept whole.
 
 The reference's flags, plus ``--device`` (``cuda`` by default, which
 must exist; ``cpu`` runs the plain versions), ``--data-shards`` (the data
@@ -22,8 +24,10 @@ reference's ``Model.init`` draws attention weights with std
 depth its gradient norm runs to millions and more, the clip to 1 leaves
 each update below Adam's eps, and a bf16 model does not move; ``--init
 parity`` draws std 1/sqrt(contracted size) instead
-(``convert.lm_parity_specs``), a model that trains. ``--model-parallel`` > 1
-raises: tensor-parallel placement is a later slice (ROADMAP §A).
+(``convert.lm_parity_specs``), a model that trains. ``--model-parallel
+N`` splits the model over N shards of the mesh's model axis; the mesh's
+entries are ``shard_devices(device, data_shards * N)``, so one card (or
+the CPU) carries every shard, in turn.
 """
 
 from __future__ import annotations
@@ -42,21 +46,10 @@ from repro_torch.data.lm_data import (Prefetcher, SyntheticCorpus,
 from repro_torch.ft.elastic import plan_mesh, resume_state
 from repro_torch.ft.watchdog import StepWatchdog
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mesh_devices
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, AdamWConfig
-from repro_torch.sharding import TENSOR_PARALLEL
 from repro_torch.train import step as step_mod
-
-
-def shard_devices(device, n_shards) -> list:
-    """The data shards' devices: ``n_shards`` entries over the visible
-    CUDA devices in turn (or the CPU), by default one per CUDA device."""
-    dev = ops.resolve_device(device)
-    if dev.type != "cuda":
-        return [dev] * (n_shards or 1)
-    n_cards = torch.cuda.device_count()
-    n = n_shards or n_cards
-    return [torch.device("cuda", i % n_cards) for i in range(n)]
 
 
 def config(args):
@@ -67,13 +60,11 @@ def config(args):
 
 
 def build(args):
-    if args.model_parallel != 1:
-        raise NotImplementedError(f"--model-parallel {args.model_parallel}: "
-                                  + TENSOR_PARALLEL)
     cfg = config(args)
-    plan = plan_mesh(shard_devices(args.device, args.data_shards),
+    plan = plan_mesh(mesh_devices(args.device, args.data_shards,
+                                  args.model_parallel),
                      model_size=args.model_parallel)
-    model = Model(cfg)
+    model = Model(cfg, mesh=plan.mesh, rules=plan.rules)
     opt = AdamW(AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
                             total_steps=args.steps,
                             compress_grads=args.compress_grads))

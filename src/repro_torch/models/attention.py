@@ -26,6 +26,21 @@ the plain chunked path :func:`_chunked_attn`, the reference's arithmetic
 step for step; the reference computes all of these in XLA too. So does a
 call under autograd (a training forward): the kernel has no backward, and
 the reference's training never reaches its Pallas kernel either.
+
+Tensor parallelism (the ``*_tp`` functions): each shard of a mesh's model
+axis holds its heads of ``wq`` / ``wo`` (and of ``wk`` / ``wv`` where the
+kv heads divide the axis, else all of them) and runs the functions above
+on them — the widths come from the shard's own leaves — giving a partial
+sum of the output projection, all-reduced across the shards. A shard
+attends with the kv heads its own query heads use (query head h uses kv
+head h // (H / KVH)), which need not be a contiguous slice of the global
+kv heads: ``kv_pick``. MLA splits its heads the same way; the latent
+``c_kv`` / ``k_rope`` are computed by every shard alike. With
+sequence-sharded caches (``kv_seq``) each shard holds a contiguous slice
+of the cache's positions and all kv heads; a decode step gathers every
+query head onto each shard, each shard takes the softmax statistics of its
+slice (max, sum, weighted values), and the shards merge them by
+log-sum-exp in shard order (:func:`_lse_merge`).
 """
 
 from __future__ import annotations
@@ -144,16 +159,20 @@ def takes_flash(q, k, v, *, causal: bool, window: int, cross: bool) -> bool:
 
 
 def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
-             window: int = 0, kv_x=None, kv_positions=None, return_kv=False):
+             window: int = 0, kv_x=None, kv_positions=None, return_kv=False,
+             kv_pick: slice | None = None):
     """Attention over a whole sequence: x (B, S, d) -> (B, S, d) (and the
     post-rope (k, v), each (B, T, KVH, Dh), with ``return_kv``).
     ``kv_x`` (B, T, d) makes it cross-attention (no rope, no mask).
 
     ``positions`` (B, S) rotate q and k and build the mask; a call that
     :func:`takes_flash` is masked by sequence index instead, so there they
-    must be ``0 .. S-1`` on every row, as a prefill's are."""
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kvh
+    must be ``0 .. S-1`` on every row, as a prefill's are.
+
+    The head counts are those of ``params``' leaves (a tensor-parallel
+    shard's); ``kv_pick`` selects the kv heads the query heads attend with
+    (all by default); ``return_kv`` returns every kv head computed."""
+    h, dh = params["wq"].shape[1], params["wq"].shape[2]
     cross = kv_x is not None
     src = kv_x if cross else x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
@@ -169,15 +188,19 @@ def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
         causal, window = False, 0
     else:
         kpos = positions if kv_positions is None else kv_positions
-    if kv_positions is None and takes_flash(q, k, v, causal=causal,
+    ka, va = (k, v) if kv_pick is None else (k[:, :, kv_pick],
+                                               v[:, :, kv_pick])
+    kvh = ka.shape[2]
+    g = h // kvh
+    if kv_positions is None and takes_flash(q, ka, va, causal=causal,
                                             window=window, cross=cross):
         out = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                                  k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous())
+                                  ka.transpose(1, 2).contiguous(),
+                                  va.transpose(1, 2).contiguous())
         y = torch.einsum("bhsk,hkd->bsd", out, params["wo"])
     else:
         qg = q.reshape(*q.shape[:2], kvh, g, dh)
-        out = _chunked_attn(qg, k, v, positions, kpos, _inv_sqrt(dh),
+        out = _chunked_attn(qg, ka, va, positions, kpos, _inv_sqrt(dh),
                             causal=causal, window=window)
         y = torch.einsum("bshk,hkd->bsd", out.reshape(*x.shape[:2], h, dh),
                          params["wo"])
@@ -187,15 +210,16 @@ def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
 
 
 def gqa_decode(params, x, cache: dict, pos: int, cfg: ModelConfig, *,
-               window: int = 0):
+               window: int = 0, kv_pick: slice | None = None):
     """One-token decode: x (B, 1, d) at absolute position ``pos`` against
     cache {'k', 'v': (B, Tbuf, KVH, Dh), 'kpos': (Tbuf,) absolute
     positions (-1 = empty)}. The new K/V go to slot ``pos % Tbuf`` of the
     cache's own tensors (in place); with a ``window`` only the last
     ``window`` positions count, so a ring buffer of that length serves any
-    context. Returns (y, the same cache dict's tensors)."""
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // kvh
+    context. Returns (y, the same cache dict's tensors). Head counts and
+    ``kv_pick`` as in :func:`gqa_full`: every kv head computed is
+    written, the picked ones attended."""
+    h, dh = params["wq"].shape[1], params["wq"].shape[2]
     k, v, kpos = cache["k"], cache["v"], cache["kpos"]
     write = pos % k.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])      # S == 1
@@ -208,31 +232,45 @@ def gqa_decode(params, x, cache: dict, pos: int, cfg: ModelConfig, *,
     k[:, write] = k_new[:, 0].to(k.dtype)
     v[:, write] = v_new[:, 0].to(v.dtype)
     kpos[write] = pos
-    valid = (kpos >= 0) & (kpos <= pos)
-    if window:
-        valid = valid & (kpos > pos - window)
+    valid = _valid(kpos, pos, window)
+    ka, va = (k, v) if kv_pick is None else (k[:, :, kv_pick],
+                                             v[:, :, kv_pick])
+    kvh = ka.shape[2]
     logits = torch.einsum("bskgd,btkd->bkgst",
-                          q.reshape(*q.shape[:2], kvh, g, dh), k)
+                          q.reshape(*q.shape[:2], kvh, h // kvh, dh), ka)
     logits = ops.div(logits.float(), math.sqrt(dh))
     logits = torch.where(valid, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(*x.shape[:2], h, dh)
+    out = torch.einsum("bkgst,btkd->bskgd", w, va).reshape(*x.shape[:2], h,
+                                                           dh)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, {"k": k, "v": v, "kpos": kpos}
 
 
-def cross_decode(params, x, xk, xv, cfg: ModelConfig):
+def _valid(kpos, pos: int, window: int):
+    """Cache slots holding a position the step at ``pos`` attends to."""
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid = valid & (kpos > pos - window)
+    return valid
+
+
+def cross_decode(params, x, xk, xv, cfg: ModelConfig, *,
+                 kv_pick: slice | None = None):
     """One token's cross-attention against the encoder K/V that the
     prefill computed once: x (B, 1, d), xk / xv (B, T_enc, KVH, Dh)."""
-    kvh, dh = cfg.n_kv_heads, cfg.head_dim
-    g = cfg.n_heads // kvh
+    if kv_pick is not None:
+        xk, xv = xk[:, :, kv_pick], xv[:, :, kv_pick]
+    h, dh = params["wq"].shape[1], params["wq"].shape[2]
+    kvh = xk.shape[2]
+    g = h // kvh
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     logits = torch.einsum("bskgd,btkd->bkgst",
                           q.reshape(*q.shape[:2], kvh, g, dh), xk)
     w = torch.softmax(ops.div(logits.float(), math.sqrt(dh)),
                       dim=-1).to(x.dtype)
     o = torch.einsum("bkgst,btkd->bskgd", w, xv)
-    o = o.reshape(*x.shape[:2], cfg.n_heads, dh)
+    o = o.reshape(*x.shape[:2], h, dh)
     return torch.einsum("bshk,hkd->bsd", o, params["wo"])
 
 
@@ -317,3 +355,264 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, n_layers: int,
         "k_rope": TensorSpec((n_layers, batch, max_seq, m.qk_rope_head_dim),
                              dtype),
     }
+
+
+# --- tensor parallelism over the model axis ------------------------------------
+
+def kv_pick(n_heads: int, n_kv: int, n_shards: int, j: int, q_split: bool,
+            kv_split: bool) -> slice | None:
+    """The kv heads (a slice of those shard ``j`` holds) that its query
+    heads attend with: None where they use all it holds. Query head h
+    uses kv head h // (H / KVH); a shard whose heads would use its kv
+    heads unevenly raises."""
+    if not q_split:
+        return None
+    hq = n_heads // n_shards
+    lo = j * hq
+    group = n_heads // n_kv
+    held_lo = j * (n_kv // n_shards) if kv_split else 0
+    held = n_kv // n_shards if kv_split else n_kv
+    first, last = lo // group, (lo + hq - 1) // group
+    n_used = last - first + 1
+    if not (n_used == 1 or (lo % group == 0 and hq % group == 0)):
+        raise NotImplementedError(
+            f"shard {j} of {n_shards}: query heads {lo}..{lo + hq - 1} use "
+            f"kv heads {first}..{last} unevenly ({n_heads} heads over "
+            f"{n_kv} kv heads)")
+    if first - held_lo == 0 and n_used == held:
+        return None
+    if first < held_lo or last >= held_lo + held:
+        raise NotImplementedError(f"shard {j}: kv heads {first}..{last} "
+                                  "not held")
+    return slice(first - held_lo, last - held_lo + 1)
+
+
+def _head_split(cfg: ModelConfig, p) -> tuple:
+    """(query heads split, kv heads split) of a GQA shard's leaves."""
+    return (p["wq"].shape[1] != cfg.n_heads,
+            p["wk"].shape[1] != cfg.n_kv_heads)
+
+
+def _picks(cfg: ModelConfig, ps) -> list:
+    q_split, kv_split = _head_split(cfg, ps[0])
+    return [kv_pick(cfg.n_heads, cfg.n_kv_heads, len(ps), j, q_split,
+                    kv_split) for j in range(len(ps))]
+
+
+def gqa_full_tp(ps, hs, positions, cfg: ModelConfig, group, *, causal=True,
+                window: int = 0, kv_xs=None, return_kv=False):
+    """:func:`gqa_full` on each shard's heads, the output projections'
+    partial sums all-reduced. Lists over the shards: ``ps``, ``hs``,
+    ``positions``, ``kv_xs``. Returns the outputs (and each shard's
+    computed (k, v) with ``return_kv``)."""
+    picks = _picks(cfg, ps)
+    outs = [gqa_full(p, h, pos, cfg, causal=causal, window=window,
+                     kv_x=None if kv_xs is None else kv_xs[j],
+                     return_kv=return_kv, kv_pick=picks[j])
+            for j, (p, h, pos) in enumerate(zip(ps, hs, positions))]
+    ys = group.reduce([o[0] if return_kv else o for o in outs],
+                      _head_split(cfg, ps[0])[0])
+    if return_kv:
+        return ys, [o[1] for o in outs]
+    return ys
+
+
+def gqa_decode_tp(ps, hs, caches, pos: int, cfg: ModelConfig, group, *,
+                  window: int = 0):
+    """:func:`gqa_decode` on each shard's heads and its cache (its kv
+    heads, or all of them), partial sums all-reduced."""
+    picks = _picks(cfg, ps)
+    ys = [gqa_decode(p, h, c, pos, cfg, window=window, kv_pick=picks[j])[0]
+          for j, (p, h, c) in enumerate(zip(ps, hs, caches))]
+    return group.reduce(ys, _head_split(cfg, ps[0])[0])
+
+
+def cross_decode_tp(ps, hs, xks, xvs, cfg: ModelConfig, group):
+    picks = _picks(cfg, ps)
+    ys = [cross_decode(p, h, xk, xv, cfg, kv_pick=picks[j])
+          for j, (p, h, xk, xv) in enumerate(zip(ps, hs, xks, xvs))]
+    return group.reduce(ys, _head_split(cfg, ps[0])[0])
+
+
+def _lse_merge(group, logits, values):
+    """Softmax attention over keys spread across the shards: ``logits``
+    per shard (..., T_j) fp32 (masked at NEG_INF), ``values`` per shard a
+    function of the unnormalised weights (..., T_j) -> (..., Dv) fp32.
+    Each shard's max, sum and weighted values, merged by log-sum-exp in
+    shard order -> the attention output (..., Dv) on every shard."""
+    ms = [lg.amax(-1, keepdim=True) for lg in logits]
+    es = [torch.exp(lg - m) for lg, m in zip(logits, ms)]
+    outs = [fn(e) for fn, e in zip(values, es)]
+    sums = [e.sum(-1, keepdim=True) for e in es]
+    top = group.max(ms)
+    scale = [torch.exp(m - t) for m, t in zip(ms, top)]
+    num = group.sum([o * s for o, s in zip(outs, scale)])
+    den = group.sum([z * s for z, s in zip(sums, scale)])
+    return [n / d for n, d in zip(num, den)]
+
+
+def _all_heads(group, parts, split: bool, dim: int = 2):
+    """Every head of a per-shard head-split activation, on every shard."""
+    return group.gather(parts, dim) if split else list(parts)
+
+
+def _own_heads(xs, split: bool, n_shards: int, dim: int = 2):
+    """Each shard's own heads of an all-heads activation."""
+    if not split:
+        return list(xs)
+    return [x.chunk(n_shards, dim=dim)[j] for j, x in enumerate(xs)]
+
+
+def _seq_owner(caches, key: str, slot: int):
+    """(shard, local slot) of global cache slot ``slot`` in a cache cut
+    into equal contiguous position slices."""
+    n = caches[0][key].shape[1]
+    return slot // n, slot % n
+
+
+def _kvseq_project(ps, hs, pos: int, cfg: ModelConfig, group):
+    """q of every head and the new token's k / v of every kv head, on each
+    shard, after rope (kv_seq decode)."""
+    q_split, kv_split = _head_split(cfg, ps[0])
+    qs, ks, vs = [], [], []
+    for p, h in zip(ps, hs):
+        q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+        if cfg.rope_theta > 0:
+            at = torch.full(h.shape[:2], pos, dtype=torch.int32,
+                            device=h.device)
+            q = apply_rope(q, at, cfg.rope_theta)
+            k = apply_rope(k, at, cfg.rope_theta)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    return (_all_heads(group, qs, q_split), _all_heads(group, ks, kv_split),
+            _all_heads(group, vs, kv_split))
+
+
+def _kvseq_attend(group, qs, ks, vs, valids, dh: int):
+    """Every head's attention over sequence-sliced K/V: q (B, 1, H, Dh),
+    k / v (B, T_j, KVH, Dh), valid (T_j,) or None -> (B, 1, H, Dh) fp32."""
+    b, _, h, _ = qs[0].shape
+    kvh = ks[0].shape[2]
+    logits = []
+    for q, k, valid in zip(qs, ks, valids):
+        lg = torch.einsum("bskgd,btkd->bkgst",
+                          q.reshape(b, 1, kvh, h // kvh, dh), k)
+        lg = ops.div(lg.float(), math.sqrt(dh))
+        logits.append(lg if valid is None else
+                      torch.where(valid, lg, NEG_INF))
+    values = [lambda e, v=v: torch.einsum("bkgst,btkd->bkgsd", e, v.float())
+              for v in vs]
+    outs = _lse_merge(group, logits, values)
+    return [o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh) for o in outs]
+
+
+def gqa_decode_kvseq(ps, hs, caches, pos: int, cfg: ModelConfig, group, *,
+                     window: int = 0):
+    """One decode step against caches cut by position over the shards
+    (each holds a contiguous slice of the slots and every kv head): the
+    new k / v go to the slot's owner, every shard attends all heads over
+    its slice, the slices merge by log-sum-exp, and each shard projects
+    its own heads' context through its ``wo``."""
+    q_split = _head_split(cfg, ps[0])[0]
+    dh = cfg.head_dim
+    qs, ks, vs = _kvseq_project(ps, hs, pos, cfg, group)
+    n_slots = caches[0]["k"].shape[1] * len(caches)
+    owner, at = _seq_owner(caches, "k", pos % n_slots)
+    c = caches[owner]
+    c["k"][:, at] = ks[owner][:, 0].to(c["k"].dtype)
+    c["v"][:, at] = vs[owner][:, 0].to(c["v"].dtype)
+    c["kpos"][at] = pos
+    ctx = _kvseq_attend(group, qs, [c["k"] for c in caches],
+                        [c["v"] for c in caches],
+                        [_valid(c["kpos"], pos, window) for c in caches], dh)
+    return _project_own(ps, hs, ctx, q_split, group)
+
+
+def _project_own(ps, hs, ctx, q_split: bool, group):
+    """Each shard's own heads of an all-heads context through its ``wo``,
+    partial sums all-reduced."""
+    own = _own_heads(ctx, q_split, len(ps))
+    ys = [torch.einsum("bshk,hkd->bsd", o.to(h.dtype), p["wo"])
+          for o, h, p in zip(own, hs, ps)]
+    return group.reduce(ys, q_split)
+
+
+def cross_decode_kvseq(ps, hs, xks, xvs, cfg: ModelConfig, group):
+    """Cross-attention of one token against encoder K/V cut by position
+    over the shards (every kv head on each), merged by log-sum-exp."""
+    q_split = _head_split(cfg, ps[0])[0]
+    qs = _all_heads(group, [torch.einsum("bsd,dhk->bshk", h, p["wq"])
+                            for p, h in zip(ps, hs)], q_split)
+    ctx = _kvseq_attend(group, qs, xks, xvs, [None] * len(ps),
+                        cfg.head_dim)
+    return _project_own(ps, hs, ctx, q_split, group)
+
+
+def _mla_split(cfg: ModelConfig, p) -> bool:
+    return p["wq_b"].shape[1] != cfg.n_heads
+
+
+def mla_full_tp(ps, hs, positions, cfg: ModelConfig, group, *, causal=True,
+                return_kv=False):
+    """:func:`mla_full` on each shard's heads (the latent computed by
+    every shard alike), partial sums all-reduced."""
+    outs = [mla_full(p, h, pos, cfg, causal=causal, return_kv=return_kv)
+            for p, h, pos in zip(ps, hs, positions)]
+    ys = group.reduce([o[0] if return_kv else o for o in outs],
+                      _mla_split(cfg, ps[0]))
+    if return_kv:
+        return ys, [o[1] for o in outs]
+    return ys
+
+
+def mla_decode_tp(ps, hs, caches, pos: int, cfg: ModelConfig, group):
+    """:func:`mla_decode` on each shard's heads against its copy of the
+    latent cache (every shard writes the same new entry)."""
+    ys = [mla_decode(p, h, c, pos, cfg)[0]
+          for p, h, c in zip(ps, hs, caches)]
+    return group.reduce(ys, _mla_split(cfg, ps[0]))
+
+
+def mla_decode_kvseq(ps, hs, caches, pos: int, cfg: ModelConfig, group):
+    """Absorbed MLA decode against a latent cache cut by position over
+    the shards: the absorbed queries of every head gathered onto each
+    shard, each shard's slice attended, merged by log-sum-exp; each shard
+    expands its own heads' latent context."""
+    m = cfg.mla
+    split = _mla_split(cfg, ps[0])
+    qls, qrs, new = [], [], []
+    for p, h in zip(ps, hs):
+        at = torch.full(h.shape[:2], pos, dtype=torch.int32, device=h.device)
+        q_nope, q_rope, c_new, kr_new = _mla_qkv(p, h, at, cfg)
+        qls.append(torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"]))
+        qrs.append(q_rope)
+        new.append((c_new, kr_new))
+    qls = _all_heads(group, qls, split)
+    qrs = _all_heads(group, qrs, split)
+    n_slots = caches[0]["c_kv"].shape[1] * len(caches)
+    owner, at = _seq_owner(caches, "c_kv", min(pos, n_slots - 1))
+    c = caches[owner]
+    c["c_kv"][:, at] = new[owner][0][:, 0].to(c["c_kv"].dtype)
+    c["k_rope"][:, at] = new[owner][1][:, 0].to(c["k_rope"].dtype)
+    scale = _inv_sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    logits, values = [], []
+    for j, (ql, qr, c) in enumerate(zip(qls, qrs, caches)):
+        n = c["c_kv"].shape[1]
+        lg = (torch.einsum("bshr,btr->bhst", ql, c["c_kv"])
+              + torch.einsum("bshk,btk->bhst", qr, c["k_rope"]))
+        lg = lg.float() * scale
+        slots = torch.arange(j * n, (j + 1) * n, device=lg.device)
+        logits.append(torch.where(slots <= pos, lg, NEG_INF))
+        values.append(lambda e, ck=c["c_kv"]: torch.einsum(
+            "bhst,btr->bhsr", e, ck.float()))
+    ctx = _lse_merge(group, logits, values)            # (B, H, 1, r)
+    ctx = [x.transpose(1, 2) for x in ctx]              # (B, 1, H, r)
+    own = _own_heads(ctx, split, len(ps))
+    ys = []
+    for o, h, p in zip(own, hs, ps):
+        out = torch.einsum("bshr,rhk->bshk", o.to(h.dtype), p["wv_b"])
+        ys.append(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    return group.reduce(ys, split)

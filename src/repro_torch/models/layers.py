@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.models.params import ParamSpec
 
 
@@ -108,3 +109,44 @@ def mlp(params, x, cfg: ModelConfig):
     else:
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return torch.einsum("...f,fd->...d", h, params["down"])
+
+
+# --- tensor parallelism over the model axis ------------------------------------
+#
+# Lists over the shards of one data row: each shard's leaves (``ps``) and
+# its copy of the replicated activations; ``group`` is the row's
+# ``core.collectives.Group``. A width split over the shards shows in the
+# shard's leaf shapes.
+
+def embed_tp(ps, tokens, vocab: int, group):
+    """Vocab-parallel lookup: shard j holds rows j*n .. (j+1)*n - 1 of the
+    table (or every row); a token outside them looks up zeros, and the
+    shards' lookups are summed."""
+    n = ps[0]["embedding"].shape[0]
+    if n == vocab:
+        return [embed(p, t) for p, t in zip(ps, tokens)]
+    parts = []
+    for j, (p, t) in enumerate(zip(ps, tokens)):
+        local = t - j * n
+        inside = (local >= 0) & (local < n)
+        rows = p["embedding"][local.clamp(0, n - 1)]
+        parts.append(torch.where(inside[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device)))
+    return group.sum(parts)
+
+
+def unembed_tp(ps, hs, cfg: ModelConfig, group):
+    """Vocab-parallel logits, gathered over the vocab onto the row's
+    first shard (the loss and the returned logits read them there)."""
+    parts = [unembed(p, h, cfg) for p, h in zip(ps, hs)]
+    if parts[0].shape[-1] == cfg.vocab:
+        return parts[0]
+    return collectives.all_gather(parts, -1, [group.devices[0]])[0]
+
+
+def mlp_tp(ps, hs, cfg: ModelConfig, group, d_ff: int | None = None):
+    """Column- then row-parallel MLP over ``mlp``: each shard's partial
+    down projection, all-reduced."""
+    ys = [mlp(p, h, cfg) for p, h in zip(ps, hs)]
+    return group.reduce(ys, ps[0]["up"].shape[-1] != (d_ff or cfg.d_ff))

@@ -20,9 +20,23 @@ homogeneous stack, a list of per-layer trees for the Griffin interleave;
 caches {"stacks": {name: stacked leaves, or a list for the interleave},
 "pos": the next position}. A Python loop over the layers replaces
 ``lax.scan`` (each layer's parameters are views of the stack, unbound
-once a call, so a stacked leaf's gradient is assembled once), and the
-reference's sharding constraints have no counterpart: data parallelism
-splits the batch in ``train/step.py``.
+once a call, so a stacked leaf's gradient is assembled once).
+
+On a mesh (``Model(cfg, mesh=, rules=)``, the reference's signature;
+``train_rules(mesh)`` by default) ``init`` returns the placed tree — each
+leaf a ``sharding.Sharded`` (on a mesh of one entry, plain tensors) — and
+``forward`` / ``loss_parts`` / ``prefill`` / ``decode`` run on it: each
+data row of the mesh takes its slice of the batch, and within a row each
+layer runs shard by shard over the model axis
+(``transformer.layer_*_tp``), the residual stream replicated over the
+shards. A leaf split over the data axes (FSDP's ``embed``) is gathered
+for the layer that reads it. A MoE layer routes each token once, in the
+unsharded model's dispatch groups (:meth:`Model._ffn_rows`). Outputs
+come back whole: logits gathered
+over the vocab and the rows, the decode cache placed as
+:meth:`cache_placements` says. ``param_specs`` / ``abstract_params`` stay
+global. Every tensor that crosses shards goes through
+``core/collectives.py``.
 
 Training (``loss``): the reference's ``remat_policy`` per layer —
 ``"full"`` recomputes each layer in the backward
@@ -50,13 +64,17 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import sharding as shd
+from repro_torch import tree as tr
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.core import collectives
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as prm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (embed, embed_specs, rmsnorm,
+from repro_torch.models.layers import (embed, embed_specs, embed_tp, rmsnorm,
                                        rmsnorm_spec, sinusoidal_positions,
-                                       unembed)
+                                       unembed, unembed_tp)
 from repro_torch.models.params import ParamSpec, TensorSpec
 
 # rows of the decoder's sinusoidal table that decode reads (the reference's)
@@ -144,14 +162,147 @@ def _remat(fn, policy: str):
         fn, *a, use_reentrant=False, **kw)
 
 
+class Rows:
+    """A mesh seen as data rows of model shards: entries in row-major
+    order with the ``model`` axis last, row ``r``'s shards entries ``r * M
+    .. r * M + M - 1``, each row's shards a ``collectives.Group``."""
+
+    def __init__(self, mesh):
+        names = mesh.axis_names
+        if "model" in names and names[-1] != "model":
+            raise ValueError(f"mesh axes {names}: 'model' must come last")
+        self.mesh = mesh
+        self.m = mesh.shape.get("model", 1)
+        self.n = mesh.size // self.m
+        flat = mesh.flat()
+        self.groups = [collectives.Group(flat[r * self.m:(r + 1) * self.m])
+                       for r in range(self.n)]
+
+    def entries(self, r: int) -> range:
+        return range(r * self.m, (r + 1) * self.m)
+
+
+def _gather_over_rows(t_entry, pl: shd.Placement, e: int, k: int,
+                      dim: int, dev):
+    """Entry ``e``'s block of a leaf with dim ``k`` whole over the data
+    axes that split it: the blocks of the entries that differ from ``e``
+    only on those axes, all-gathered along ``dim``."""
+    axes = pl.dim_axes(k)
+    if "model" in axes:
+        raise NotImplementedError(f"{pl}: dim {k} split over {axes}")
+    mine = pl.coords(e)
+    peers = [i for i in range(pl.mesh.size)
+             if all(c == mine[a] for a, c in pl.coords(i).items()
+                    if a not in axes)]
+    peers.sort(key=lambda i: pl.block(i)[k])
+    return collectives.all_gather([t_entry(i) for i in peers], dim,
+                                  [dev])[0]
+
+
+class PlacedView:
+    """One call's view of a placed tree, row by row: each shard's leaves
+    (a stacked leaf's layers unbound once, FSDP's data-split dims
+    gathered per use)."""
+
+    def __init__(self, rows: Rows):
+        self.rows = rows
+        self._unbound: dict = {}
+
+    def _layers(self, leaf: shd.Sharded) -> list:
+        key = id(leaf)
+        if key not in self._unbound:
+            self._unbound[key] = [t.unbind(0) for t in leaf.shards]
+        return self._unbound[key]
+
+    def prepare(self, tree) -> None:
+        """Unbind a stacked tree's leaves (outside any recomputed
+        region)."""
+        for leaf in tr.leaves(tree):
+            self._layers(leaf)
+
+    def leaf(self, leaf, r: int, layer=None) -> list:
+        """Row ``r``'s shards of ``leaf`` (layer ``layer`` of a stacked
+        one), whole over the data axes."""
+        if not isinstance(leaf, shd.Sharded):
+            raise TypeError(
+                "a model on a mesh runs on placed leaves, got "
+                f"{type(leaf).__name__}: place the tree with "
+                "sharding.place_tree(tree, model.param_placements())")
+        pl = leaf.placement
+        if layer is None:
+            def block(i):
+                return leaf.shards[i]
+        else:
+            views = self._layers(leaf)
+
+            def block(i):
+                return views[i][layer]
+        dp_dims = [k for k in range(len(pl.shape))
+                   if any(a != "model" and pl.mesh.shape[a] > 1
+                          for a in pl.dim_axes(k))]
+        if len(dp_dims) > 1:
+            raise NotImplementedError(f"{pl}: several dims split over the "
+                                      "data axes")
+        out = []
+        for e in self.rows.entries(r):
+            if not dp_dims:
+                out.append(block(e))
+                continue
+            k = dp_dims[0]
+            out.append(_gather_over_rows(block, pl, e, k,
+                                         k - (layer is not None),
+                                         pl.devices[e]))
+        return out
+
+    def shards(self, tree, r: int, layer=None) -> list:
+        """Row ``r``'s per-shard trees of ``tree``."""
+        flat, treedef = tr.flatten(tree)
+        per = [self.leaf(x, r, layer) for x in flat]
+        return [tr.unflatten(treedef, [p[j] for p in per])
+                for j in range(self.rows.m)]
+
+
+_INPUT_LOGICAL = {"tokens": ("batch", None), "labels": ("batch", None),
+                  "frames": ("batch", None, None),
+                  "patches": ("batch", None, None)}
+
+
+@dataclasses.dataclass
+class PlacedInputs:
+    """A batch on a mesh: ``parts[name]`` one tensor per mesh entry, and
+    whether the data axes split the batch (else every row holds all of
+    it)."""
+    parts: dict
+    split: bool
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None, rules=None):
         self.cfg = cfg
         self.stacks = _stacks_for(cfg)
         self._pe = {}
         # the activations' dtype (the reference's is bf16 whatever cfg says)
         self.dtype = torch.float32 if cfg.dtype == "float32" \
             else torch.bfloat16
+        self.mesh = mesh
+        self.rules = rules if rules is not None or mesh is None \
+            else shd.train_rules(mesh)
+        self.rows = None
+        if mesh is not None:
+            for logical, switch in (("attn_q_seq", "seq_parallel_attn"),
+                                    ("qk_dim", "qk_dim_fallback")):
+                axes = shd._entry_axes(self.rules.mesh_axes(logical))
+                if any(mesh.shape.get(a, 1) > 1 for a in axes):
+                    raise NotImplementedError(
+                        f"{switch}: {logical!r} over {axes} is not ported "
+                        "yet (the dry-run slice, ROADMAP §A)")
+            if mesh.size > 1:
+                self.rows = Rows(mesh)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the model runs on placed (split) trees."""
+        return self.rows is not None
 
     # --- parameters --------------------------------------------------------
 
@@ -186,7 +337,18 @@ class Model:
         return specs
 
     def init(self, generator: torch.Generator, device=None) -> Any:
-        return prm.materialize(generator, self.param_specs(), device)
+        """Seeded parameters: each leaf drawn whole from ``generator`` on
+        ``device`` (the generator's by default), and on a mesh placed as
+        :meth:`param_placements` says."""
+        specs = self.param_specs()
+        if self.mesh is None:
+            return prm.materialize(generator, specs, device)
+        return prm.materialize(generator, specs, device,
+                               placements=self.param_placements())
+
+    def param_placements(self):
+        """Each parameter's ``sharding.Placement`` on the model's mesh."""
+        return prm.shardings(self.param_specs(), self.mesh, self.rules)
 
     def abstract_params(self):
         """The parameter tree as meta tensors (shapes and dtypes only)."""
@@ -254,6 +416,8 @@ class Model:
 
     def forward(self, params, batch, *, n_moe_groups: int = 1):
         """-> (hidden (B, S, d) post-final-norm, aux_loss)."""
+        if self.sharded:
+            return self._forward_placed(params, batch, n_moe_groups)
         cfg = self.cfg
         x = self._add_positions(self._embed_inputs(params, batch))
         positions = self._positions(x)
@@ -285,7 +449,10 @@ class Model:
         """The loss's parts before normalisation: ``nll`` / ``n`` (the
         next-token NLL sum and valid count), ``aux`` (MoE), and with an
         MTP head ``mtp_nll`` / ``mtp_n``. A data shard's parts over its
-        slice of the batch add up to the whole batch's."""
+        slice of the batch add up to the whole batch's (on a mesh, the
+        rows' parts summed onto the first shard)."""
+        if self.sharded:
+            return self._loss_parts_placed(params, batch, n_moe_groups)
         cfg = self.cfg
         h, aux = self.forward(params, batch, n_moe_groups=n_moe_groups)
         logits = unembed(params["embed"], h, cfg)
@@ -349,6 +516,26 @@ class Model:
                                    for k in st.kinds]
         return {"stacks": caches, "pos": TensorSpec((), torch.int32)}
 
+    def cache_placements(self, batch: int, max_seq: int,
+                         dtype=torch.bfloat16):
+        """Each decode-cache leaf's ``sharding.Placement`` on the model's
+        mesh (``pos`` excepted: a Python int)."""
+        specs = self.cache_specs(batch, max_seq, dtype)["stacks"]
+        logical = self.cache_logical()["stacks"]
+        out: dict[str, Any] = {}
+        for st in self.stacks:
+            def one(lg, sp):
+                return self.rules.sharding(self.mesh, lg, sp.shape,
+                                           segments=sp.segments)
+            if st.scan:
+                out[st.name] = {k: one(logical[st.name][k], v)
+                                for k, v in specs[st.name].items()}
+            else:
+                out[st.name] = [{k: one(lg[k], v) for k, v in sp.items()}
+                                for lg, sp in zip(logical[st.name],
+                                                  specs[st.name])]
+        return out
+
     def cache_logical(self):
         cfg = self.cfg
         out: dict[str, Any] = {}
@@ -360,10 +547,14 @@ class Model:
                 out[st.name] = [tfm.cache_logical(k, cfg) for k in st.kinds]
         return {"stacks": out, "pos": ()}
 
-    def prefill(self, params, batch, *, max_seq: int,
-                cache_dtype=torch.bfloat16):
-        """Full-sequence forward that also builds the decode cache.
-        -> (logits (B, 1, V) fp32 at the last position, cache)."""
+    def prefill(self, params, batch, *, max_seq: int, cache_dtype=None):
+        """Full-sequence forward that also builds the decode cache, in
+        ``cache_dtype`` (the model's dtype by default: bf16, or fp32 for
+        an fp32 model). -> (logits (B, 1, V) fp32 at the last position,
+        cache)."""
+        cache_dtype = cache_dtype or self.dtype
+        if self.sharded:
+            return self._prefill_placed(params, batch, max_seq, cache_dtype)
         cfg = self.cfg
         x = self._add_positions(self._embed_inputs(params, batch))
         positions = self._positions(x)
@@ -393,6 +584,8 @@ class Model:
 
         The new token's state is written into ``cache``'s tensors in place;
         the returned cache holds the same tensors and ``pos + 1``."""
+        if self.sharded:
+            return self._decode_placed(params, cache, tokens)
         cfg = self.cfg
         pos = int(cache["pos"])
         x = embed(params["embed"], tokens).to(self.dtype)
@@ -404,6 +597,336 @@ class Model:
         h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(params["embed"], h, cfg)
         return logits, {"stacks": cache["stacks"], "pos": pos + 1}
+
+    # --- on a mesh ------------------------------------------------------------
+
+    def place_inputs(self, batch) -> "PlacedInputs":
+        """Each input split over the data axes by the batch (replicated
+        where they do not divide it), one tensor per mesh entry."""
+        parts, split = {}, False
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            logical = _INPUT_LOGICAL.get(k, ("batch",) + (None,) *
+                                         (v.dim() - 1))
+            pl = self.rules.sharding(self.mesh, logical, tuple(v.shape))
+            parts[k] = pl.split(v)
+            split = split or pl.splits("data") or pl.splits("pod")
+        return PlacedInputs(parts, split)
+
+    def _row(self, inputs, name: str, r: int) -> list:
+        return [inputs.parts[name][e] for e in self.rows.entries(r)]
+
+    def _gather_rows(self, inputs, parts: list):
+        """Row results (B_r, ...) on each row's first shard -> the whole
+        batch on the mesh's first device (row 0's where every row holds
+        the whole batch)."""
+        if len(parts) == 1 or not inputs.split:
+            return parts[0]
+        return collectives.all_gather(parts, 0, [self.mesh.flat()[0]])[0]
+
+    def _row_embed(self, view, params, inputs, r: int):
+        cfg = self.cfg
+        group = self.rows.groups[r]
+        emb = view.shards(params["embed"], r)
+        xs = [x.to(self.dtype) for x in embed_tp(
+            emb, self._row(inputs, "tokens", r), cfg.vocab, group)]
+        if cfg.family == Family.VLM and "patches" in inputs.parts:
+            pats = self._row(inputs, "patches", r)
+            n = pats[0].shape[1]
+            xs = [torch.cat([p.to(x.dtype), x[:, n:]], dim=1)
+                  for p, x in zip(pats, xs)]
+        return emb, [self._add_positions(x) for x in xs]
+
+    def _row_encode(self, view, params, inputs, r: int):
+        cfg = self.cfg
+        if cfg.encdec is None:
+            return None
+        group = self.rows.groups[r]
+        xs = []
+        for f in self._row(inputs, "frames", r):
+            pe = sinusoidal_positions(f.shape[1], cfg.d_model, f.device)
+            xs.append((f.float() + pe).to(self.dtype))
+        positions = [self._positions(x) for x in xs]
+        view.prepare(params["encoder"])
+        for i in range(cfg.encdec.n_encoder_layers):
+            def body(*xc, _i=i):
+                ps = view.shards(params["encoder"], r, _i)
+                return tuple(tfm.layer_apply_tp(ps, list(xc), positions, cfg,
+                                                "enc", group,
+                                                causal=False)[0])
+            xs = list(_remat(body, cfg.remat_policy)(*xs))
+        norms = view.leaf(params["enc_norm"], r)
+        return [rmsnorm(w, x, cfg.norm_eps) for w, x in zip(norms, xs)]
+
+    def _layer_params(self, view, params, st: StackDef, r: int, i: int):
+        if st.scan:
+            return view.shards(params[st.name], r, i)
+        return view.shards(params[st.name][i], r)
+
+    def _ffn_rows(self, ps: list, kind: str, mids: list, inputs,
+                  n_moe_groups: int):
+        """The FFN half of a layer over every row (``ps``: each row's
+        shards' layer leaves). A MoE layer routes each token once, in the
+        unsharded model's dispatch groups: where those groups fall on the
+        rows' bounds, each row routes its own tokens in its own groups
+        and the aux loss is reckoned once from the rows' summed router
+        loads; otherwise row 0 routes the whole batch, all-gathered onto
+        it, and each row gets its slice of the output back."""
+        cfg = self.cfg
+        rows = range(len(mids))
+        groups = self.rows.groups
+        if kind != "attn_moe":
+            return [tfm.ffn_tp(ps[r], mids[r], cfg, kind, groups[r])[0]
+                    for r in rows], None
+        h2 = [[rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(ps[r],
+                                                                 mids[r])]
+              for r in rows]
+        experts = [[p["moe"] for p in ps[r]] for r in rows]
+        n = len(mids) if inputs.split else 1   # rows that split the batch
+        b, s = mids[0][0].shape[:2]
+        tokens = n * b * s
+        g = n_moe_groups if tokens % n_moe_groups == 0 else 1
+        dev = self.mesh.flat()[0]
+        if g % n == 0:
+            outs, loads = [], []
+            for r in rows:
+                ys, ld = moe_mod.moe_ffn_tp(experts[r], h2[r], cfg,
+                                            groups[r], n_groups=g // n,
+                                            load=True)
+                outs.append([x + y for x, y in zip(mids[r], ys)])
+                loads.append(ld)
+            return outs, moe_mod.balance_loss(loads[:n], tokens, cfg, dev)
+        whole = [collectives.all_gather([h2[r][j] for r in rows], 0,
+                                        [h2[0][j].device])[0]
+                 for j in range(self.rows.m)]
+        ys, ld = moe_mod.moe_ffn_tp(experts[0], whole, cfg, groups[0],
+                                    n_groups=g, load=True)
+        # a one-part reduce_scatter: row 0's output cut into the rows'
+        # slices, each onto its row's shard
+        cut = [collectives.reduce_scatter([y], 0, [mids[r][j].device
+                                                   for r in rows])
+               for j, y in enumerate(ys)]
+        return ([[x + c[r] for x, c in zip(mids[r], cut)] for r in rows],
+                moe_mod.balance_loss([ld], tokens, cfg, dev))
+
+    def _rows_hidden(self, view, params, inputs, n_moe_groups: int):
+        """Every row's final hidden states per shard, the aux loss (once)
+        and each row's shards' embedding leaves; layer by layer over the
+        rows."""
+        cfg = self.cfg
+        rows = range(self.rows.n)
+        embs, xs = zip(*[self._row_embed(view, params, inputs, r)
+                         for r in rows])
+        xs = [list(x) for x in xs]
+        positions = [[self._positions(x) for x in xr] for xr in xs]
+        enc = [self._row_encode(view, params, inputs, r) for r in rows]
+        aux = torch.zeros((), dtype=torch.float32,
+                          device=self.mesh.flat()[0])
+        m = self.rows.m
+        for st in self.stacks:
+            if st.scan:
+                view.prepare(params[st.name])
+            for i, kind in enumerate(st.kinds):
+                def body(*flat, _i=i, _kind=kind, _st=st):
+                    mids = []
+                    for r in rows:
+                        mids.append(tfm.layer_apply_tp(
+                            self._layer_params(view, params, _st, r, _i),
+                            list(flat[r * m:(r + 1) * m]), positions[r], cfg,
+                            _kind, self.rows.groups[r], enc_outs=enc[r],
+                            ffn=False))
+                    if _kind == "mamba2":
+                        return (*[x for xr in mids for x in xr],
+                                torch.zeros_like(aux))
+                    outs, a = self._ffn_rows(
+                        [self._layer_params(view, params, _st, r, _i)
+                         for r in rows], _kind, mids, inputs, n_moe_groups)
+                    a = torch.zeros_like(aux) if a is None else a.to(
+                        aux.device)
+                    return (*[x for xr in outs for x in xr], a)
+                *flat, a = _remat(body, cfg.remat_policy)(
+                    *[x for xr in xs for x in xr])
+                xs = [list(flat[r * m:(r + 1) * m]) for r in rows]
+                aux = aux + a
+        hs = []
+        for r in rows:
+            norms = view.leaf(params["final_norm"], r)
+            hs.append([rmsnorm(w, x, cfg.norm_eps)
+                       for w, x in zip(norms, xs[r])])
+        return hs, aux, embs
+
+    def _forward_placed(self, params, batch, n_moe_groups: int):
+        inputs = self.place_inputs(batch)
+        hs, aux, _ = self._rows_hidden(PlacedView(self.rows), params,
+                                       inputs, n_moe_groups)
+        return self._gather_rows(inputs, [h[0] for h in hs]), aux
+
+    def _loss_parts_placed(self, params, batch, n_moe_groups: int) -> dict:
+        """:meth:`loss_parts` on the mesh: each row's NLL sum and count
+        over its slice of the batch, summed over the rows onto the first
+        shard (a batch every row holds whole is counted once)."""
+        cfg = self.cfg
+        inputs = self.place_inputs(batch)
+        view = PlacedView(self.rows)
+        hs, aux, embs = self._rows_hidden(view, params, inputs, n_moe_groups)
+        rows = range(self.rows.n) if inputs.split else [0]
+        parts = []
+        for r in rows:
+            labels = self._row(inputs, "labels", r)[0]
+            nll, n = self._ce(unembed_tp(embs[r], hs[r], cfg,
+                                         self.rows.groups[r]), labels)
+            parts.append({"nll": nll, "n": n})
+        if cfg.mtp_depth:
+            for r, p in zip(rows, self._mtp_rows(view, params, inputs, embs,
+                                                 hs, n_moe_groups)):
+                parts[r].update(p)
+        dev = self.mesh.flat()[0]
+        out = {k: collectives.all_reduce_sum([p[k] for p in parts], [dev])[0]
+               for k in parts[0]}
+        out["aux"] = aux
+        return out
+
+    def _mtp_rows(self, view, params, inputs, embs, hs,
+                  n_moe_groups: int) -> list:
+        """Each row's multi-token-prediction NLL sum and count; its layer
+        runs over every row, as the stacks' layers do."""
+        cfg = self.cfg
+        rows = range(self.rows.n)
+        mtp = [view.shards(params["mtp"], r) for r in rows]
+        mids = []
+        for r in rows:
+            group = self.rows.groups[r]
+            e_next = [e.to(self.dtype) for e in embed_tp(
+                embs[r], [t[:, 1:] for t in self._row(inputs, "tokens", r)],
+                cfg.vocab, group)]
+            xs = [torch.einsum("bsk,kd->bsd", torch.cat(
+                [rmsnorm(m["norm_h"], h[:, :-1], cfg.norm_eps),
+                 rmsnorm(m["norm_e"], e, cfg.norm_eps)], dim=-1), m["proj"])
+                for m, h, e in zip(mtp[r], hs[r], e_next)]
+            kind = "attn_moe" if cfg.moe is not None else "attn_dense"
+            mids.append(tfm.layer_apply_tp(
+                [m["layer"] for m in mtp[r]], xs,
+                [self._positions(x) for x in xs], cfg, kind, group,
+                ffn=False))
+        ys, _ = self._ffn_rows([[m["layer"] for m in mtp[r]] for r in rows],
+                               kind, mids, inputs, n_moe_groups)
+        out = []
+        for r in (rows if inputs.split else [0]):
+            h_mtp = [rmsnorm(m["final_norm"], y, cfg.norm_eps)
+                     for m, y in zip(mtp[r], ys[r])]
+            labels = self._row(inputs, "labels", r)[0]
+            nll, n = self._ce(unembed_tp(embs[r], h_mtp, cfg,
+                                         self.rows.groups[r]), labels[:, 1:])
+            out.append({"mtp_nll": nll, "mtp_n": n})
+        return out
+
+    def _seq_split(self, placements) -> set:
+        """Names of a layer's cache leaves cut by position over the model
+        axis (``kv_seq``)."""
+        out = set()
+        for k, pl in placements.items():
+            lg = pl.logical or ()
+            if "kv_seq" in lg and "model" in pl.dim_axes(lg.index("kv_seq")) \
+                    and pl.mesh.shape["model"] > 1:
+                out.add(k)
+        return out
+
+    def _prefill_placed(self, params, batch, max_seq: int, cache_dtype):
+        cfg = self.cfg
+        inputs = self.place_inputs(batch)
+        b = int(torch.as_tensor(batch["tokens"]).shape[0])
+        pls = self.cache_placements(b, max_seq, cache_dtype)
+        view = PlacedView(self.rows)
+        rows = range(self.rows.n)          # each row fills its own cache
+        embs, xs = zip(*[self._row_embed(view, params, inputs, r)
+                         for r in rows])
+        xs = [list(x) for x in xs]
+        positions = [[self._positions(x) for x in xr] for xr in xs]
+        enc = [self._row_encode(view, params, inputs, r) for r in rows]
+        entries = [list(self.rows.entries(r)) for r in rows]
+        stacks = {}
+        for st in self.stacks:
+            if st.scan:
+                view.prepare(params[st.name])
+            stacked = [None] * self.mesh.size      # per entry {leaf: (L, ..)}
+            per_layer = []
+            for i, kind in enumerate(st.kinds):
+                split = self._seq_split(pls[st.name] if st.scan
+                                        else pls[st.name][i])
+                mids, layer_caches = [], [None] * self.mesh.size
+                for r in rows:
+                    x, cs = tfm.layer_prefill_tp(
+                        self._layer_params(view, params, st, r, i), xs[r],
+                        positions[r], cfg, kind, self.rows.groups[r],
+                        max_seq=max_seq, enc_outs=enc[r],
+                        cache_dtype=cache_dtype, seq_split=split, ffn=False)
+                    mids.append(x)
+                    for e, c in zip(entries[r], cs):
+                        layer_caches[e] = c
+                xs = mids if kind == "mamba2" else self._ffn_rows(
+                    [self._layer_params(view, params, st, r, i)
+                     for r in rows], kind, mids, inputs, 1)[0]
+                if not st.scan:
+                    per_layer.append({
+                        k: shd.Sharded(pl, [c[k] for c in layer_caches])
+                        for k, pl in pls[st.name][i].items()})
+                    continue
+                for e, c in enumerate(layer_caches):
+                    if stacked[e] is None:        # stacked layer by layer
+                        stacked[e] = {k: t.new_empty((len(st.kinds),
+                                                      *t.shape))
+                                      for k, t in c.items()}
+                    for k, t in c.items():
+                        stacked[e][k][i] = t
+            stacks[st.name] = per_layer if not st.scan else {
+                k: shd.Sharded(pl, [c[k] for c in stacked])
+                for k, pl in pls[st.name].items()}
+        logits = []
+        for r in rows:
+            norms = view.leaf(params["final_norm"], r)
+            hs = [rmsnorm(w, x[:, -1:], cfg.norm_eps)
+                  for w, x in zip(norms, xs[r])]
+            logits.append(unembed_tp(embs[r], hs, cfg, self.rows.groups[r]))
+        pos = inputs.parts["tokens"][0].shape[1]
+        return self._gather_rows(inputs, logits), {"stacks": stacks,
+                                                   "pos": pos}
+
+    def _decode_placed(self, params, cache, tokens):
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        inputs = self.place_inputs({"tokens": tokens})
+        view = PlacedView(self.rows)
+        rows = range(self.rows.n)          # each row steps its own cache
+        embs = [view.shards(params["embed"], r) for r in rows]
+        xs = [[self._add_positions(x.to(self.dtype), pos)
+               for x in embed_tp(embs[r], self._row(inputs, "tokens", r),
+                                 cfg.vocab, self.rows.groups[r])]
+              for r in rows]
+        for st in self.stacks:
+            for i, kind in enumerate(st.kinds):
+                leaves = cache["stacks"][st.name] if st.scan \
+                    else cache["stacks"][st.name][i]
+                split = self._seq_split({k: t.placement
+                                         for k, t in leaves.items()})
+                mids = []
+                for r in rows:
+                    cs = [{k: (t.shards[e][i] if st.scan else t.shards[e])
+                           for k, t in leaves.items()}
+                          for e in self.rows.entries(r)]
+                    mids.append(tfm.layer_decode_tp(
+                        self._layer_params(view, params, st, r, i), xs[r],
+                        cs, pos, cfg, kind, self.rows.groups[r],
+                        seq_split=split, ffn=False))
+                xs = mids if kind == "mamba2" else self._ffn_rows(
+                    [self._layer_params(view, params, st, r, i)
+                     for r in rows], kind, mids, inputs, 1)[0]
+        logits = []
+        for r in rows:
+            norms = view.leaf(params["final_norm"], r)
+            hs = [rmsnorm(w, x, cfg.norm_eps) for w, x in zip(norms, xs[r])]
+            logits.append(unembed_tp(embs[r], hs, cfg, self.rows.groups[r]))
+        return self._gather_rows(inputs, logits), {"stacks": cache["stacks"],
+                                                   "pos": pos + 1}
 
     # --- input specs --------------------------------------------------------------
 

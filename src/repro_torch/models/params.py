@@ -4,9 +4,11 @@ Models declare their parameters as a nested dict of ``ParamSpec`` (shape,
 dtype, logical sharding axes, initializer), the JAX package's layout leaf
 for leaf. :func:`materialize` draws real tensors from an explicit
 ``torch.Generator`` on a given device; :func:`param_count` and
-:func:`param_bytes` read the specs without allocating anything. The
-reference's ``abstract`` and ``shardings`` wait for the sharding work
-(ROADMAP §A item 6, ``sharding.py``).
+:func:`param_bytes` read the specs without allocating anything.
+:func:`shardings` resolves each leaf's logical axes to a
+``sharding.Placement`` on a mesh, and ``materialize`` under a mesh draws
+each whole leaf exactly as the unsharded init does, then splits it: a
+sharded init holds the unsharded one's numbers.
 
 Each element gets the reference's distribution, not its bits:
 ``jax.random`` cannot be replayed in ``torch``. Tests that compare the
@@ -30,6 +32,9 @@ class ParamSpec:
     init: str = "normal"   # normal | zeros | ones | embed | lambda_lru | dt_bias | a_log
     scale: float = 1.0
     dtype: torch.dtype = torch.bfloat16
+    # sizes of the segments packed side by side in the last dim (Mamba-2's
+    # in_proj z | x | B | C | dt); a split cuts each segment alike
+    segments: tuple[int, ...] | None = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
@@ -43,6 +48,7 @@ class TensorSpec:
     """Shape and dtype of a tensor that is not allocated (a cache leaf)."""
     shape: tuple[int, ...]
     dtype: torch.dtype
+    segments: tuple[int, ...] | None = None
 
 
 def leaves(tree, prefix: str = ""):
@@ -133,11 +139,43 @@ def _init_one(generator: torch.Generator, spec: ParamSpec,
     return out
 
 
-def materialize(generator: torch.Generator, spec_tree, device=None):
+def materialize(generator: torch.Generator, spec_tree, device=None, *,
+                placements=None):
     """Seeded init of the full parameter tree on ``device`` (the
-    generator's own device by default)."""
+    generator's own device by default). With ``placements`` (a matching
+    tree of ``sharding.Placement``, :func:`shardings`) each leaf is drawn
+    whole, in the same order and from the same generator as without, then
+    placed: split onto its mesh entries' devices and freed."""
     dev = torch.device(device) if device is not None else generator.device
-    return tree_map(lambda s: _init_one(generator, s, dev), spec_tree)
+    if placements is None:
+        return tree_map(lambda s: _init_one(generator, s, dev), spec_tree)
+    flat = list(leaves(placements))
+    it = iter(flat)
+    return tree_map(lambda s: next(it)[1].place(_init_one(generator, s,
+                                                           dev)),
+                    spec_tree)
+
+
+def shardings(spec_tree, mesh, rules):
+    """Each leaf's ``sharding.Placement`` on ``mesh`` under ``rules``."""
+    return tree_map(lambda s: rules.sharding(mesh, s.logical, s.shape,
+                                             segments=s.segments),
+                    spec_tree)
+
+
+def logical_specs(spec_tree):
+    return tree_map(lambda s: s.logical, spec_tree)
+
+
+def shard_bytes(spec_tree, mesh, rules) -> list:
+    """Bytes of parameters each mesh entry holds, from the specs' shapes
+    and placements alone (no allocation), in mesh order."""
+    per = [0] * mesh.size
+    for (_, s), (_, pl) in zip(leaves(spec_tree),
+                               leaves(shardings(spec_tree, mesh, rules))):
+        n = int(np.prod(pl.shard_shape)) * s.dtype.itemsize
+        per = [b + n for b in per]
+    return per
 
 
 def param_bytes(spec_tree) -> int:
@@ -157,6 +195,7 @@ def stacked(spec: ParamSpec, n: int) -> ParamSpec:
         init=spec.init,
         scale=spec.scale,
         dtype=spec.dtype,
+        segments=spec.segments,
     )
 
 

@@ -12,6 +12,16 @@ define one layer of every kind; stacks are built in ``model.py``:
 - ``enc``       : bidirectional attention + dense MLP (encoder)
 - ``dec_cross`` : self attention + cross attention + dense MLP (decoder of
   an encoder-decoder); the cross K/V are computed once, at prefill
+
+``layer_apply_tp`` / ``layer_prefill_tp`` / ``layer_decode_tp`` are the
+same layers over the shards of a mesh's model axis: lists over the shards
+of one data row (each shard's leaves, its copy of the residual stream,
+which stays replicated, and its cache), each mixer and FFN the
+tensor-parallel function of its module, ``group`` the row's
+``core.collectives.Group``. ``seq_split`` names the cache leaves cut by
+position over the shards (``kv_seq``): those layers' prefill keeps each
+shard's slice of positions with every kv head, and their decode merges
+the slices by log-sum-exp.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import mlp, mlp_specs, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import (mlp, mlp_specs, mlp_tp, rmsnorm,
+                                       rmsnorm_spec)
 from repro_torch.models.params import TensorSpec
 
 KINDS = ("attn_dense", "attn_moe", "mamba2", "recurrent", "local_attn",
@@ -202,7 +213,7 @@ def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
 
 def cache_logical(kind: str, cfg: ModelConfig) -> dict:
     """Logical sharding axes of each cache leaf (batch over dp, heads over
-    tp), the reference's table; the port has no mesh to place them on yet."""
+    tp, the sequence over tp with ``kv_seq``), the reference's table."""
     if kind == "mamba2":
         return {"conv": ("batch", None, "ssm_inner"),
                 "ssm": ("batch", "heads", None, None)}
@@ -219,3 +230,170 @@ def cache_logical(kind: str, cfg: ModelConfig) -> dict:
         out["xk"] = ("batch", "kv_seq", "kv_heads", None)
         out["xv"] = ("batch", "kv_seq", "kv_heads", None)
     return out
+
+
+# --- tensor parallelism over the model axis ------------------------------------
+
+def _norms(ps, xs, key: str, cfg: ModelConfig):
+    return [rmsnorm(p[key], x, cfg.norm_eps) for p, x in zip(ps, xs)]
+
+
+def _sub(ps, key: str) -> list:
+    return [p[key] for p in ps]
+
+
+def _add(xs, ys) -> list:
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def ffn_tp(ps, xs, cfg: ModelConfig, kind: str, group,
+           n_moe_groups: int = 1):
+    """The post-attention half over the shards -> (outputs, aux loss)."""
+    h2 = _norms(ps, xs, "ln2", cfg)
+    if kind == "attn_moe":
+        ys, aux = moe_mod.moe_ffn_tp(_sub(ps, "moe"), h2, cfg, group,
+                                     n_groups=n_moe_groups)
+        return _add(xs, ys), aux
+    return _add(xs, mlp_tp(_sub(ps, "ffn"), h2, cfg, group)), None
+
+
+def layer_apply_tp(ps, xs, positions, cfg: ModelConfig, kind: str, group, *,
+                   enc_outs=None, n_moe_groups: int = 1,
+                   causal: bool = True, ffn: bool = True):
+    """:func:`layer_apply` over the shards -> (outputs, aux loss); with
+    ``ffn=False`` only the mixer half -> outputs (a MoE layer's FFN runs
+    over every data row at once, in ``model.py``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    hs = _norms(ps, xs, "ln1", cfg)
+    if kind == "mamba2":
+        ys = _add(xs, ssm_mod.mamba2_forward_tp(_sub(ps, "ssm"), hs, cfg,
+                                                group))
+        return (ys, aux) if ffn else ys
+    if kind == "recurrent":
+        mixed = rglru_mod.rglru_forward_tp(_sub(ps, "rglru"), hs, cfg, group)
+    elif kind == "local_attn":
+        mixed = attn.gqa_full_tp(_sub(ps, "attn"), hs, positions, cfg, group,
+                                 causal=True, window=cfg.window)
+    elif cfg.attention == AttentionKind.MLA:
+        mixed = attn.mla_full_tp(_sub(ps, "attn"), hs, positions, cfg, group,
+                                 causal=causal)
+    else:
+        mixed = attn.gqa_full_tp(_sub(ps, "attn"), hs, positions, cfg, group,
+                                 causal=causal)
+    xs = _add(xs, mixed)
+    if kind == "dec_cross":
+        xs = _add(xs, attn.gqa_full_tp(_sub(ps, "xattn"),
+                                       _norms(ps, xs, "lnx", cfg), positions,
+                                       cfg, group, kv_xs=enc_outs))
+    if not ffn:
+        return xs
+    ys, a = ffn_tp(ps, xs, cfg, kind, group, n_moe_groups)
+    return ys, aux if a is None else a
+
+
+def _by_position(group, parts, n_shards: int, split_heads: bool,
+                 seq_dim: int = 1):
+    """Each shard's contiguous slice of positions of a per-shard (B, T,
+    KVH, ...) tensor, with every kv head (gathered where the heads were
+    split)."""
+    whole = group.gather(parts, 2) if split_heads else list(parts)
+    return [w.chunk(n_shards, dim=seq_dim)[j].contiguous()
+            for j, w in enumerate(whole)]
+
+
+def layer_prefill_tp(ps, xs, positions, cfg: ModelConfig, kind: str, group,
+                     *, max_seq: int, enc_outs=None,
+                     cache_dtype=torch.bfloat16, seq_split=(),
+                     ffn: bool = True):
+    """:func:`layer_prefill` over the shards -> (outputs, each shard's
+    cache); ``ffn`` as in :func:`layer_apply_tp`."""
+    n = group.size
+    hs = _norms(ps, xs, "ln1", cfg)
+    if kind == "mamba2":
+        ys, sts = ssm_mod.mamba2_forward_tp(_sub(ps, "ssm"), hs, cfg, group,
+                                            return_state=True)
+        return _add(xs, ys), [{"conv": st["conv"].to(cache_dtype),
+                               "ssm": st["ssm"]} for st in sts]
+    if kind == "recurrent":
+        ys, sts = rglru_mod.rglru_forward_tp(_sub(ps, "rglru"), hs, cfg,
+                                             group, return_state=True)
+        caches = [{"conv": st["conv"].to(cache_dtype), "h": st["h"]}
+                  for st in sts]
+    elif cfg.attention == AttentionKind.MLA:
+        ys, kvs = attn.mla_full_tp(_sub(ps, "attn"), hs, positions, cfg,
+                                   group, return_kv=True)
+        caches = []
+        for j, (c_kv, k_rope) in enumerate(kvs):
+            c = {"c_kv": _fill_buffer(max_seq, c_kv, cache_dtype)[0],
+                 "k_rope": _fill_buffer(max_seq, k_rope, cache_dtype)[0]}
+            if "c_kv" in seq_split:
+                c = {k: t.chunk(n, dim=1)[j].contiguous()
+                     for k, t in c.items()}
+            caches.append(c)
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        aps = _sub(ps, "attn")
+        ys, kvs = attn.gqa_full_tp(aps, hs, positions, cfg, group,
+                                   window=window, return_kv=True)
+        buf_len = min(max_seq, window) if window else max_seq
+        caches = []
+        for k, v in kvs:
+            k_buf, kpos = _fill_buffer(buf_len, k, cache_dtype)
+            caches.append({"k": k_buf, "v": _fill_buffer(buf_len, v,
+                                                         cache_dtype)[0],
+                           "kpos": kpos})
+        if "k" in seq_split:
+            kv_split = attn._head_split(cfg, aps[0])[1]
+            for key in ("k", "v"):
+                for c, t in zip(caches, _by_position(
+                        group, [c[key] for c in caches], n, kv_split)):
+                    c[key] = t
+            for j, c in enumerate(caches):
+                c["kpos"] = c["kpos"].chunk(n)[j].contiguous()
+    xs = _add(xs, ys)
+    if kind == "dec_cross":
+        xps = _sub(ps, "xattn")
+        xs = _add(xs, attn.gqa_full_tp(xps, _norms(ps, xs, "lnx", cfg),
+                                       positions, cfg, group,
+                                       kv_xs=enc_outs))
+        for key, w in (("xk", "wk"), ("xv", "wv")):
+            parts = [torch.einsum("btd,dhk->bthk", e, p[w]).to(cache_dtype)
+                     for e, p in zip(enc_outs, xps)]
+            if "xk" in seq_split:
+                parts = _by_position(group, parts, n,
+                                     attn._head_split(cfg, xps[0])[1])
+            for c, t in zip(caches, parts):
+                c[key] = t
+    if not ffn:
+        return xs, caches
+    ys, _ = ffn_tp(ps, xs, cfg, kind, group)
+    return ys, caches
+
+
+def layer_decode_tp(ps, xs, caches, pos: int, cfg: ModelConfig, kind: str,
+                    group, *, seq_split=(), ffn: bool = True):
+    """:func:`layer_decode` over the shards, each shard's cache updated in
+    place -> outputs; ``ffn`` as in :func:`layer_apply_tp`."""
+    hs = _norms(ps, xs, "ln1", cfg)
+    if kind == "mamba2":
+        return _add(xs, ssm_mod.mamba2_decode_tp(_sub(ps, "ssm"), hs, caches,
+                                                 cfg, group))
+    if kind == "recurrent":
+        ys = rglru_mod.rglru_decode_tp(_sub(ps, "rglru"), hs, caches, cfg,
+                                       group)
+    elif cfg.attention == AttentionKind.MLA:
+        fn = attn.mla_decode_kvseq if "c_kv" in seq_split \
+            else attn.mla_decode_tp
+        ys = fn(_sub(ps, "attn"), hs, caches, pos, cfg, group)
+    else:
+        window = cfg.window if kind == "local_attn" else 0
+        fn = attn.gqa_decode_kvseq if "k" in seq_split \
+            else attn.gqa_decode_tp
+        ys = fn(_sub(ps, "attn"), hs, caches, pos, cfg, group, window=window)
+    xs = _add(xs, ys)
+    if kind == "dec_cross":
+        fn = attn.cross_decode_kvseq if "xk" in seq_split \
+            else attn.cross_decode_tp
+        xs = _add(xs, fn(_sub(ps, "xattn"), _norms(ps, xs, "lnx", cfg),
+                         _sub(caches, "xk"), _sub(caches, "xv"), cfg, group))
+    return ffn_tp(ps, xs, cfg, kind, group)[0] if ffn else xs

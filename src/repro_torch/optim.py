@@ -16,6 +16,14 @@ temporaries of an update never exceed one slice's. StarCoder2-3B's
 (30, 3072, 12288) MLP leaf is 4.5 GB per fp32 temporary whole and 151 MB
 per layer, so its update peaks at about 1 GB above the state, where a
 whole-tree map would need tens of GB of an 80 GB card.
+
+On a placed state (``sharding.Sharded`` leaves, a mesh's train state)
+each shard updates its own block with the same arithmetic. The global
+norm counts each block once — a leaf split over the mesh once per block,
+a leaf replicated over an axis once, not once per copy — and int8
+compression's per-tensor scale is the maximum over the whole leaf
+(``all_max`` across its shards); the scalars every shard reads are
+broadcast from the first shard's.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.core import collectives
 from repro_torch.kernels import ops
+from repro_torch.sharding import Sharded, map_tensors, tensors
 
 
 # --- schedules ---------------------------------------------------------------
@@ -75,9 +85,20 @@ def _sq_sum(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _leaf_sq_sum(x) -> torch.Tensor:
+    """A leaf's sum of squares; a placed leaf's blocks each counted once
+    (the first holder of each), summed in block order."""
+    if not isinstance(x, Sharded):
+        return _sq_sum(x)
+    parts = [_sq_sum(x.shards[g[0]]) for g in x.placement.replicas()]
+    return collectives.all_reduce_sum(parts, [x.device])[0]
+
+
 def global_norm(tree) -> torch.Tensor:
-    """fp32 L2 norm over every leaf, leaves in the reference's order."""
-    sums = [_sq_sum(x) for x in tr.leaves(tree)]
+    """fp32 L2 norm over every leaf, leaves in the reference's order (on
+    the first leaf's device, the mesh's first device for a placed
+    tree)."""
+    sums = [_leaf_sq_sum(x) for x in tr.leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -93,8 +114,8 @@ def clip_by_global_norm(tree, max_norm: float):
     (norm + 1e-9))`` in fp32, cast back to its dtype (new tensors)."""
     norm = global_norm(tree)
     scale = _clip_scale(norm, max_norm)
-    return tr.tree_map(lambda x: (x.float() * scale).to(x.dtype),
-                       tree), norm
+    return map_tensors(lambda x: (x.float() * scale.to(x.device))
+                       .to(x.dtype), tree), norm
 
 
 # --- AdamW -----------------------------------------------------------------------
@@ -128,10 +149,10 @@ class AdamW:
         def zeros(dtype):
             return lambda p: torch.zeros(p.shape, dtype=dtype,
                                          device=device or p.device)
-        state = {"m": tr.tree_map(zeros(c.state_dtype), params),
-                 "v": tr.tree_map(zeros(c.state_dtype), params)}
+        state = {"m": map_tensors(zeros(c.state_dtype), params),
+                 "v": map_tensors(zeros(c.state_dtype), params)}
         if c.compress_grads:
-            state["err"] = tr.tree_map(zeros(torch.float32), params)
+            state["err"] = map_tensors(zeros(torch.float32), params)
         return state
 
     def init(self, params):
@@ -159,62 +180,90 @@ class AdamW:
         t = _f32(step) + 1.0
         bc1 = 1.0 - torch.pow(c.b1, t)
         bc2 = 1.0 - torch.pow(c.b2, t)
+        scalars: dict = {}
+
+        def on(dev):
+            # the step's scalars, one copy per device (the broadcast)
+            key = str(dev)
+            if key not in scalars:
+                scalars[key] = [collectives.broadcast(x, [dev])[0]
+                                for x in (scale, lr, bc1, bc2)]
+            return scalars[key]
         for g, m, v, p in zip(g_leaves, tr.leaves(state["m"]),
                               tr.leaves(state["v"]), tr.leaves(params)):
-            decay = p.dim() >= 2          # the whole leaf's rank decides
-            for gs, ms, vs, ps in zip(_slices(g), _slices(m), _slices(v),
-                                      _slices(p)):
-                # the clip's rounding to the gradient's dtype, then fp32
-                g32 = (gs.float() * scale).to(gs.dtype).float()
-                m_new = c.b1 * ms.float() + (1 - c.b1) * g32
-                v_new = c.b2 * vs.float() + (1 - c.b2) * torch.square(g32)
-                delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + c.eps)
-                p32 = ps.float()
-                if decay:
-                    delta = delta + c.weight_decay * p32
-                ps.copy_(p32 - lr * delta)
-                ms.copy_(m_new)
-                vs.copy_(v_new)
+            decay = len(p.shape) >= 2     # the whole leaf's rank decides
+            for gt, mt, vt, pt in zip(tensors(g), tensors(m), tensors(v),
+                                      tensors(p)):
+                sc, lr_d, bc1_d, bc2_d = on(pt.device)
+                for gs, ms, vs, ps in zip(_slices(gt), _slices(mt),
+                                          _slices(vt), _slices(pt)):
+                    # the clip's rounding to the gradient's dtype, then fp32
+                    g32 = (gs.float() * sc).to(gs.dtype).float()
+                    m_new = c.b1 * ms.float() + (1 - c.b1) * g32
+                    v_new = c.b2 * vs.float() + (1 - c.b2) * torch.square(g32)
+                    delta = (m_new / bc1_d) / (torch.sqrt(v_new / bc2_d)
+                                               + c.eps)
+                    p32 = ps.float()
+                    if decay:
+                        delta = delta + c.weight_decay * p32
+                    ps.copy_(p32 - lr_d * delta)
+                    ms.copy_(m_new)
+                    vs.copy_(v_new)
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
 # --- int8 error-feedback compression ------------------------------------------------
 
 def quantize_int8(x):
-    """Symmetric per-tensor int8: ``(q, scale)``."""
-    x32 = x.float()
-    scale = ops.div(torch.clamp(torch.max(torch.abs(x32)), min=1e-12), 127.0)
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale
+    """Symmetric per-tensor int8: ``(q, scale)``. A placed tensor's scale
+    is its whole value's (the maximum over its shards), and ``q`` is
+    placed alike."""
+    amaxes = collectives.all_max([torch.max(torch.abs(t.float()))
+                                  for t in tensors(x)])
+    scales = [ops.div(torch.clamp(a, min=1e-12), 127.0) for a in amaxes]
+    qs = [torch.clamp(torch.round(t.float() / sc), -127, 127).to(torch.int8)
+          for t, sc in zip(tensors(x), scales)]
+    if isinstance(x, Sharded):
+        return Sharded(x.placement, qs), scales[0]
+    return qs[0], scales[0]
 
 
 def dequantize_int8(q, scale):
     return q.float() * scale
 
 
-def _compress_into(g, e):
-    """One leaf's round trip in place: ``g`` <- its int8 round trip (in
-    its dtype), ``e`` <- the residual carried to the next step. The scale
-    is the whole leaf's; the work goes a slice at a time."""
+def _amax(g, e) -> torch.Tensor:
     amax = None
     for gs, es in zip(_slices(g), _slices(e)):
         part = torch.max(torch.abs(gs.float() + es))
         amax = part if amax is None else torch.maximum(amax, part)
-    scale = ops.div(torch.clamp(amax, min=1e-12), 127.0)
-    for gs, es in zip(_slices(g), _slices(e)):
-        target = gs.float() + es
-        q = torch.clamp(torch.round(target / scale), -127, 127).to(torch.int8)
-        deq = dequantize_int8(q, scale)
-        gs.copy_(deq)
-        es.copy_(target - deq)
+    return amax
+
+
+def _compress_into(g, e):
+    """One leaf's round trip in place: ``g`` <- its int8 round trip (in
+    its dtype), ``e`` <- the residual carried to the next step. The scale
+    is the whole leaf's (a placed leaf's the maximum over its shards);
+    the work goes a slice at a time."""
+    gts, ets = tensors(g), tensors(e)
+    amaxes = collectives.all_max([_amax(gt, et) for gt, et in zip(gts, ets)])
+    for gt, et, amax in zip(gts, ets, amaxes):
+        scale = ops.div(torch.clamp(amax, min=1e-12), 127.0)
+        for gs, es in zip(_slices(gt), _slices(et)):
+            target = gs.float() + es
+            q = torch.clamp(torch.round(target / scale), -127,
+                            127).to(torch.int8)
+            deq = dequantize_int8(q, scale)
+            gs.copy_(deq)
+            es.copy_(target - deq)
 
 
 def compress_decompress(grads, err):
     """``(grads', err')``: each leaf int8-quantized with error feedback
     (1-bit-Adam style residuals) — what would cross a data-parallel
     interconnect — as new tensors; the scale is per leaf."""
-    g2 = tr.tree_map(torch.clone, grads)
-    e2 = tr.tree_map(torch.clone, err)
+    g2 = map_tensors(torch.clone, grads)
+    e2 = map_tensors(torch.clone, err)
     for g, e in zip(tr.leaves(g2), tr.leaves(e2)):
         _compress_into(g, e)
     return g2, e2

@@ -6,17 +6,19 @@ metrics)``: the loss's gradient by autograd, microbatches accumulated in
 fp32 and cast to bf16 (the reference's ``:74-91``), then
 :meth:`AdamW.update` in place. Only 0-d metrics are returned.
 
-``jit_train_step`` is the step on a ``(data, model)`` mesh — data
-parallel. Each data shard computes its slice's share of the global loss
-on its device (its NLL sum over the global valid count, its MoE groups,
-its share of the aux loss), the shards' gradients are summed onto the
-first device in shard order, and the update runs there; the shards' next
-step reads replicas of the updated parameters. The result is the
-single-device step up to the order of the summations, except the MoE
-aux loss: a product of two batch means, it is computed per shard over
-the shard's tokens and averaged (the reference's sharded program
-computes it over the whole batch). A model axis larger than one device
-(tensor parallelism) is a later slice and raises.
+``jit_train_step`` is the step on a mesh, on a placed state (the
+reference's in/out shardings, :func:`train_state_shardings`): data
+parallelism over the mesh's data axes (FSDP's ``embed`` split over them
+where the rules say so) and tensor parallelism over its ``model`` axis.
+Every leaf lives as one block per mesh entry (``sharding.Sharded``); the
+model runs on the mesh (``Model(cfg, mesh=, rules=)``), each data row's
+NLL sum over its slice of the batch, each MoE token routed once in the
+unsharded model's groups and the aux loss once; autograd's backward
+runs the collectives' adjoints; the gradients of the entries that hold
+the same block of a leaf are all-reduced; and AdamW updates each block
+where it lives. The result is the single-device step up to the order of
+the summations. ``cache_shardings`` / ``jit_prefill`` /
+``jit_decode_step`` are the serving counterparts.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch import sharding as shd
 from repro_torch import tree as tr
-from repro_torch.core.distributed import shard_bounds
+from repro_torch.core import collectives
 from repro_torch.data.lm_data import to_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import params as prm
@@ -39,9 +41,16 @@ def init_train_state(model: Model, optimizer: AdamW,
                      generator: torch.Generator, device=None, specs=None):
     """``{"step", "params", "opt"}``: params drawn from ``generator`` on
     ``device`` (the generator's own by default) by ``model.init``, or by
-    another tree of ParamSpecs (``specs``), and zero optimizer state."""
-    params = (model.init(generator, device) if specs is None
-              else prm.materialize(generator, specs, device))
+    another tree of ParamSpecs (``specs``), and zero optimizer state —
+    placed on the model's mesh where it has one (the step counter on the
+    mesh's first device)."""
+    if specs is None:
+        params = model.init(generator, device)
+    else:
+        params = prm.materialize(
+            generator, specs, device,
+            placements=None if model.mesh is None
+            else model.param_placements())
     dev = next(iter(tr.leaves(params))).device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "params": params, "opt": optimizer.init(params)}
@@ -56,37 +65,31 @@ def abstract_train_state(model: Model, optimizer: AdamW):
 
 def train_state_shardings(model: Model, optimizer: AdamW, mesh: Mesh,
                           rules: shd.ShardingRules):
-    """Where each leaf of the train state lives: the mesh's first device
-    (data parallelism keeps one copy of the state; the shards compute on
-    replicas of the parameters). A model axis over more than one device
-    raises (tensor parallelism is a later slice)."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(shd.TENSOR_PARALLEL)
-    dev = mesh.flat()[0]
-    pshard = prm.tree_map(lambda _: dev, model.param_specs())
+    """Where each leaf of the train state lives: the params' and the
+    optimizer moments' ``sharding.Placement`` s (FSDP's ``embed`` over the
+    data axes when ``rules`` say so, tensor parallelism over ``model``),
+    and the step counter — a replicated scalar — on the mesh's first
+    device."""
+    pshard = prm.shardings(model.param_specs(), mesh, rules)
     opt = {"m": pshard, "v": pshard}
     if optimizer.cfg.compress_grads:
         opt["err"] = pshard
-    return {"step": dev, "params": pshard, "opt": opt}
+    return {"step": mesh.flat()[0], "params": pshard, "opt": opt}
+
 
 
 # --- gradients -------------------------------------------------------------------
 
-def loss_and_grads(model: Model, params, batch, *, n_moe_groups: int = 1,
-                   counts=None, aux_share: float = 1.0):
-    """``(loss, metrics, grads)`` of the batch (or of one data shard's
-    slice: ``counts`` = the global ``(n, mtp_n)`` the NLL sums are divided
-    by, ``aux_share`` the shard's share of the aux loss). Grads are in the
-    params' dtypes; a leaf the loss does not reach gets zeros."""
+def loss_and_grads(model: Model, params, batch, *, n_moe_groups: int = 1):
+    """``(loss, metrics, grads)`` of the batch. Grads are in the params'
+    dtypes; a leaf the loss does not reach gets zeros."""
     flat, treedef = tr.flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         parts = model.loss_parts(tr.unflatten(treedef, leaves), batch,
                                  n_moe_groups=n_moe_groups)
-        parts["aux"] = parts["aux"] * aux_share
-        n, mtp_n = counts if counts is not None else (parts["n"],
-                                                      parts.get("mtp_n"))
-        loss, metrics = model.combine_loss(parts, n, mtp_n)
+        loss, metrics = model.combine_loss(parts, parts["n"],
+                                           parts.get("mtp_n"))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
@@ -94,67 +97,61 @@ def loss_and_grads(model: Model, params, batch, *, n_moe_groups: int = 1,
     return loss.detach(), metrics, tr.unflatten(treedef, grads)
 
 
-def _slice_batch(batch: dict, lo: int, hi: int, dev) -> dict:
-    return {k: v[lo:hi].to(dev, non_blocking=True) for k, v in batch.items()}
-
-
-def _sharded_grads(model: Model, params, batch, mesh: Mesh, *,
-                   n_moe_groups: int, replicas: dict):
-    """The data-parallel gradient: each shard's share on its device,
-    summed onto the first device in shard order."""
-    devices = mesh.flat()
-    first = devices[0]
-    labels = batch["labels"]
-    n = (labels >= 0).sum().float()
-    mtp_n = (labels[:, 1:] >= 0).sum().float() if model.cfg.mtp_depth \
-        else None
-    k = len(devices)
-    groups = n_moe_groups // k if n_moe_groups % k == 0 else 1
-    acc, met = None, None
-    for dev, (lo, hi) in zip(devices, shard_bounds(labels.shape[0], mesh)):
-        p = params if dev == first else replicas.setdefault(
-            str(dev), tr.tree_map(lambda t: t.to(dev), params))
-        _, m, g = loss_and_grads(
-            model, p, _slice_batch(batch, lo, hi, dev), n_moe_groups=groups,
-            counts=(n.to(dev), None if mtp_n is None else mtp_n.to(dev)),
-            aux_share=1.0 / k)
-        g = tr.tree_map(lambda t: t.to(first), g)
-        if acc is None:
-            acc, met = g, {key: v.to(first) for key, v in m.items()}
-            continue
-        for a, b in zip(tr.leaves(acc), tr.leaves(g)):
-            a.add_(b)
-        for key, v in m.items():
-            met[key] = met[key] + v.to(first)
-    met["tokens"] = n.to(first)
-    return met["loss"], met, acc
+def placed_loss_and_grads(model: Model, params, batch, *,
+                          n_moe_groups: int = 1):
+    """``(loss, metrics, grads)`` of the model on its mesh for a placed
+    ``params`` tree: one backward over every row and shard, then each
+    leaf's gradient summed over the entries that hold the same block
+    (its replicas), so every entry holds its block's whole gradient, in a
+    tensor of its own (the update and the int8 compression write the
+    gradients in place, entry by entry)."""
+    flat, treedef = tr.flatten(params)
+    leaves = [[t.detach().requires_grad_() for t in x.shards] for x in flat]
+    gp = tr.unflatten(treedef, [shd.Sharded(x.placement, ts)
+                                for x, ts in zip(flat, leaves)])
+    with torch.enable_grad():
+        parts = model.loss_parts(gp, batch, n_moe_groups=n_moe_groups)
+        loss, metrics = model.combine_loss(parts, parts["n"],
+                                           parts.get("mtp_n"))
+        every = [t for ts in leaves for t in ts]
+        got = torch.autograd.grad(loss, every, allow_unused=True)
+    it = iter(got)
+    grads = []
+    for x, ts in zip(flat, leaves):
+        g = [torch.zeros_like(t) if (gt := next(it)) is None else gt
+             for t in ts]
+        for group in x.placement.replicas():
+            if len(group) > 1:
+                summed = collectives.all_reduce_sum(
+                    [g[i] for i in group], [ts[i].device for i in group])
+                taken = set()
+                for i, t in zip(group, summed):
+                    g[i] = t.clone() if id(t) in taken else t
+                    taken.add(id(t))
+        grads.append(shd.Sharded(x.placement, g))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tr.unflatten(treedef, grads)
 
 
 # --- the train step --------------------------------------------------------------
 
 def make_train_step(model: Model, optimizer: AdamW, *,
-                    num_microbatches: int = 1, n_moe_groups: int = 1,
-                    mesh: Mesh | None = None):
+                    num_microbatches: int = 1, n_moe_groups: int = 1):
     """``train_step(state, batch) -> (state, metrics)``. ``batch`` leaves
     are (B, S), or (M, B/M, S) with ``num_microbatches`` M > 1, as numpy
-    arrays or tensors; the state's tensors are updated in place. With a
-    ``mesh`` of several data shards, the batch (each microbatch) splits
-    over them."""
-    replicas: dict = {}
+    arrays or tensors; the state's tensors are updated in place. A model
+    on a mesh of several entries trains a placed state
+    (:func:`jit_train_step`)."""
+    loss_grads = placed_loss_and_grads if model.sharded else loss_and_grads
 
     def grads_of(params, mb):
-        if mesh is None or mesh.size == 1:
-            return loss_and_grads(model, params, mb,
-                                  n_moe_groups=n_moe_groups)
-        return _sharded_grads(model, params, mb, mesh,
-                              n_moe_groups=n_moe_groups, replicas=replicas)
+        return loss_grads(model, params, mb, n_moe_groups=n_moe_groups)
 
     def train_step(state, batch):
         params = state["params"]
         dev = state["step"].device
         if not isinstance(batch["tokens"], torch.Tensor):
             batch = to_device(batch, dev)
-        replicas.clear()              # the parameters changed last step
         if num_microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
@@ -164,15 +161,14 @@ def make_train_step(model: Model, optimizer: AdamW, *,
                 l, _, g = grads_of(params, {k: v[i] for k, v in
                                             batch.items()})
                 if g_acc is None:
-                    g_acc = tr.tree_map(lambda t: t.float(), g)
+                    g_acc = shd.map_tensors(lambda t: t.float(), g)
                 else:
-                    for a, b in zip(tr.leaves(g_acc), tr.leaves(g)):
-                        a.add_(b.float())
+                    shd.map_tensors(lambda a, b: a.add_(b.float()), g_acc, g)
                 loss_sum = loss_sum + l
                 del g
             inv = 1.0 / num_microbatches
-            grads = tr.tree_map(lambda t: (t * inv).to(torch.bfloat16),
-                                g_acc)
+            grads = shd.map_tensors(lambda t: (t * inv).to(torch.bfloat16),
+                                    g_acc)
             del g_acc
             loss = loss_sum * inv
             metrics = {"loss": loss}
@@ -187,17 +183,23 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     return train_step
 
 
+def on_mesh(model: Model, mesh: Mesh, rules: shd.ShardingRules) -> Model:
+    """``model`` on ``mesh`` under ``rules`` (itself where it is)."""
+    if model.mesh == mesh and model.rules == rules:
+        return model
+    return Model(model.cfg, mesh=mesh, rules=rules)
+
+
 def jit_train_step(model: Model, optimizer: AdamW, mesh: Mesh,
                    rules: shd.ShardingRules, shape, *,
                    n_moe_groups: int = 1):
     """The train step on ``mesh`` for a shape cell (the reference's name:
-    PyTorch runs it eagerly). The data axis splits the batch; a model
-    axis over more than one device raises."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(shd.TENSOR_PARALLEL)
-    return make_train_step(model, optimizer,
+    PyTorch runs it eagerly), on a state placed as
+    :func:`train_state_shardings` says (plain tensors on a mesh of one
+    entry)."""
+    return make_train_step(on_mesh(model, mesh, rules), optimizer,
                            num_microbatches=shape.num_microbatches,
-                           n_moe_groups=n_moe_groups, mesh=mesh)
+                           n_moe_groups=n_moe_groups)
 
 
 # --- serving -----------------------------------------------------------------------
@@ -212,4 +214,26 @@ def make_prefill(model: Model, *, max_seq: int):
     def prefill_step(params, batch):
         return model.prefill(params, batch, max_seq=max_seq)
     return prefill_step
+
+
+def cache_shardings(model: Model, mesh: Mesh, rules: shd.ShardingRules,
+                    batch: int, max_seq: int):
+    """The decode cache's placements (``pos``: a replicated int, on the
+    mesh's first device)."""
+    m = on_mesh(model, mesh, rules)
+    return {"stacks": m.cache_placements(batch, max_seq),
+            "pos": mesh.flat()[0]}
+
+
+def jit_decode_step(model: Model, mesh: Mesh, rules: shd.ShardingRules,
+                    shape):
+    """The decode step on ``mesh``: placed params and cache (as
+    :func:`cache_shardings` says) -> (whole logits, cache)."""
+    return make_decode_step(on_mesh(model, mesh, rules))
+
+
+def jit_prefill(model: Model, mesh: Mesh, rules: shd.ShardingRules, shape):
+    """The prefill on ``mesh`` at ``shape.seq_len`` positions: placed
+    params, whole inputs -> (whole last logits, placed cache)."""
+    return make_prefill(on_mesh(model, mesh, rules), max_seq=shape.seq_len)
 

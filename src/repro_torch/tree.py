@@ -14,43 +14,44 @@ def flatten(tree):
     """``(leaves, treedef)``: the leaves in ``jax.tree.flatten`` order and
     a structure that :func:`unflatten` fills back."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if t is None:
-            return ("none",)
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return ("dict", keys, [walk(t[k]) for k in keys])
-        if isinstance(t, (list, tuple)):
-            return (type(t), [walk(v) for v in t])
-        leaves.append(t)
-        return _LEAF
 
-    treedef = walk(tree)
-    return leaves, treedef
+# module-level recursions: a nested recursive closure refers to itself,
+# and the cycle would hold the leaves until the cyclic collector ran
+def _walk(t, leaves: list):
+    if t is None:
+        return ("none",)
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return ("dict", keys, [_walk(t[k], leaves) for k in keys])
+    if isinstance(t, (list, tuple)):
+        return (type(t), [_walk(v, leaves) for v in t])
+    leaves.append(t)
+    return _LEAF
 
 
 def unflatten(treedef, leaves):
     """The tree of ``treedef`` with ``leaves`` in flatten order."""
     it = iter(leaves)
-
-    def build(d):
-        if d == _LEAF:
-            return next(it)
-        if d[0] == "none":
-            return None
-        if d[0] == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        kind, children = d
-        vals = [build(c) for c in children]
-        if kind is list:
-            return vals
-        return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def _build(d, it):
+    if d == _LEAF:
+        return next(it)
+    if d[0] == "none":
+        return None
+    if d[0] == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    kind, children = d
+    vals = [_build(c, it) for c in children]
+    if kind is list:
+        return vals
+    return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
 
 
 def leaves(tree) -> list:

@@ -67,11 +67,14 @@ def test_no_jax_or_reference_imports_in_the_port():
     # batch parallelism and LM training
     "launch/mesh.py", "core/distributed.py", "sharding.py", "ft/elastic.py",
     "optim.py", "tree.py", "train/step.py",
-    "checkpoint/__init__.py", "checkpoint/manager.py", "launch/train.py"])
+    "checkpoint/__init__.py", "checkpoint/manager.py", "launch/train.py",
+    # tensor-parallel placement
+    "core/collectives.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
     """The modules of the streaming, LM serve (the whole zoo), training,
     layer-runner, exploration, serving, batch-parallel and LM-training
-    slices, one by one (``core/events.py`` keeps its own copy of the reference's pure
+    slices and the collectives of tensor-parallel placement, one by one
+    (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
     (the reference imports ``repro.serve.buckets`` for the checkpoint's

@@ -415,8 +415,14 @@ def test_serve_generate_is_greedy_over_prefill_and_decode():
 @pytest.mark.parametrize("extra", [("--device", "cpu", "--model-parallel",
                                     "2"), ("--device", "cpu", "--kv-seq")])
 def test_serve_mesh_options_raise(extra):
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        serve.serve(_args(*extra))
+    """The reference's mesh options run on the CPU (two model shards, or
+    position-cut caches on a one-entry mesh): the same tokens as the
+    unsharded serve, from the same seeded weights."""
+    args = ("--batch", "2", "--prompt-len", "16", "--gen", "5")
+    want = serve.serve(_args("--device", "cpu", *args))
+    got = serve.serve(_args(*extra, *args))
+    assert got["logits_finite"]
+    assert np.array_equal(got["generated"], want["generated"])
 
 
 def test_serve_defaults_to_cuda_and_raises_without_a_card(monkeypatch):

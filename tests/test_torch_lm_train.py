@@ -36,22 +36,35 @@ def test_fp32_train_steps_match_reference(arch):
 
 def _port_steps(arch, batches, *, mesh=None, num_microbatches=1,
                 n_moe_groups=1, dtype="float32"):
-    """The port's metrics of each step and its final params, from the
-    parity weights."""
+    """The port's metrics of each step and its final params (whole), from
+    the parity weights: ``make_train_step`` on one device, or
+    ``jit_train_step`` on a state placed on ``mesh``."""
+    from repro_torch import sharding as shd
+    from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.optim import AdamW, AdamWConfig
     from repro_torch.train import step as step_mod
     model, _, params, _ = fx.train_models(arch, dtype)
     opt = AdamW(AdamWConfig(**fx.train_opt_kw()))
-    train = step_mod.make_train_step(model, opt, mesh=mesh,
-                                     num_microbatches=num_microbatches,
-                                     n_moe_groups=n_moe_groups)
     state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
              "opt": opt.init(params)}
+    if mesh is None:
+        train = step_mod.make_train_step(model, opt,
+                                         num_microbatches=num_microbatches,
+                                         n_moe_groups=n_moe_groups)
+    else:
+        rules = shd.train_rules(mesh)
+        cell = ShapeConfig("t", batches[0]["tokens"].shape[-1],
+                           batches[0]["tokens"].shape[-2], "train",
+                           num_microbatches=num_microbatches)
+        state = shd.place_tree(state, step_mod.train_state_shardings(
+            model, opt, mesh, rules))
+        train = step_mod.jit_train_step(model, opt, mesh, rules, cell,
+                                        n_moe_groups=n_moe_groups)
     mets = []
     for b in batches:
         state, m = train(state, b)
         mets.append({k: float(v) for k, v in m.items()})
-    return mets, state["params"]
+    return mets, shd.gather_tree(state["params"])
 
 
 def _rel_params(a, b) -> float:
@@ -95,9 +108,10 @@ def test_microbatches_match_reference():
 
 
 def test_four_shard_mesh_equals_one_device():
-    """A dense config on a 4-shard CPU mesh: each shard's share of the
-    global loss, the grads summed — the one-device step up to summation
-    order (1e-5), two steps, also with M = 2 on 2 shards."""
+    """A dense config's ``jit_train_step`` on a (4, 1) CPU mesh (each data
+    row's NLL over its quarter of the batch, FSDP's embed split over the
+    rows) — the one-device step up to summation order (1e-5), two steps,
+    also with M = 2 on (2, 1)."""
     from repro_torch.launch.mesh import make_mesh
     arch = "granite-3-8b"
     model, _, _, _ = fx.train_models(arch)
@@ -118,25 +132,69 @@ def test_four_shard_mesh_equals_one_device():
     assert _rel_params(q2, q1) < 1e-4
 
 
-def test_moe_mesh_shards_keep_their_groups():
-    """DeepSeekMoE on a 4-shard mesh against one device with 4 MoE
-    groups: the dispatch is per group either way, so the CE agrees to
-    summation order; the aux loss is each shard's own (averaged), within
-    the reference's sharded bound on the loss."""
+def _routed_tokens(monkeypatch):
+    """A spy on ``moe._routing``: the token count of each call."""
+    from repro_torch.models import moe
+    calls = []
+    real = moe._routing
+
+    def spy(params, x_flat, cfg, load=False):
+        calls.append(x_flat.shape[0] * x_flat.shape[1])
+        return real(params, x_flat, cfg, load=load)
+    monkeypatch.setattr(moe, "_routing", spy)
+    return calls
+
+
+def test_moe_mesh_shards_keep_their_groups(monkeypatch):
+    """DeepSeekMoE's ``jit_train_step`` on a (4, 1) mesh against one
+    device, with 4 MoE groups: each row routes its own quarter of the
+    batch as one group (no token routed twice), and the aux loss is the
+    whole batch's from the rows' summed router loads, so CE, aux and loss
+    agree to summation order (1e-5)."""
     from repro_torch.launch.mesh import make_mesh
     arch = "deepseek-moe-16b"
     model, _, _, _ = fx.train_models(arch)
     batches = fx.train_batches(model.cfg, 1, batch=(8, 16))
-    one, _ = _port_steps(arch, batches, n_moe_groups=4)
-    four, _ = _port_steps(arch, batches, n_moe_groups=4, mesh=make_mesh(
+    one, p1 = _port_steps(arch, batches, n_moe_groups=4)
+    calls = _routed_tokens(monkeypatch)
+    four, p4 = _port_steps(arch, batches, n_moe_groups=4, mesh=make_mesh(
         (4, 1), ("data", "model"), ["cpu"] * 4))
-    np.testing.assert_allclose(four[0]["ce"], one[0]["ce"], rtol=1e-5)
-    np.testing.assert_allclose(four[0]["loss"], one[0]["loss"],
-                               rtol=fx.TRAIN_BF16_REL)
+    # each MoE layer's forward and its recomputation in the backward
+    assert model.cfg.remat_policy == "full"
+    passes = 2 * (model.cfg.n_layers - model.cfg.moe.first_dense)
+    assert calls == [2 * 16] * (4 * passes)
+    for k in ("ce", "aux", "loss", "grad_norm"):
+        np.testing.assert_allclose(four[0][k], one[0][k], rtol=1e-5,
+                                   err_msg=k)
     assert four[0]["aux"] > 0
+    assert _rel_params(p4, p1) < 1e-5
+
+
+def test_moe_mesh_routes_the_whole_batch_once(monkeypatch):
+    """With one MoE group, which no row's bounds fall on, a (2, 1) mesh
+    routes the gathered batch once, on row 0: the one-device step's
+    dispatch, CE, aux and loss to summation order (1e-5)."""
+    from repro_torch.launch.mesh import make_mesh
+    arch = "deepseek-moe-16b"
+    model, _, _, _ = fx.train_models(arch)
+    batches = fx.train_batches(model.cfg, 1, batch=(8, 16))
+    one, p1 = _port_steps(arch, batches)
+    calls = _routed_tokens(monkeypatch)
+    two, p2 = _port_steps(arch, batches, mesh=make_mesh(
+        (2, 1), ("data", "model"), ["cpu"] * 2))
+    passes = 2 * (model.cfg.n_layers - model.cfg.moe.first_dense)
+    assert calls == [8 * 16] * passes
+    for k in ("ce", "aux", "loss", "grad_norm"):
+        np.testing.assert_allclose(two[0][k], one[0][k], rtol=1e-5,
+                                   err_msg=k)
+    assert _rel_params(p2, p1) < 1e-5
 
 
 def test_tensor_parallel_placement_raises():
+    """Placement on a mesh with a model axis: the train state's leaves
+    resolve to placements on the mesh's devices (the step counter on its
+    first device), a split spec gives each entry its block, and a
+    data-only mesh places every leaf on the CPU entries."""
     from repro_torch import sharding as shd
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import AdamW, AdamWConfig
@@ -144,15 +202,20 @@ def test_tensor_parallel_placement_raises():
     model, _, _, _ = fx.train_models("starcoder2-3b")
     mesh = make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
     opt = AdamW(AdamWConfig())
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        step_mod.train_state_shardings(model, opt, mesh,
-                                       shd.train_rules(mesh))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        shd.train_rules(mesh).sharding(mesh, ("embed", "mlp"), (64, 128))
+    sh = step_mod.train_state_shardings(model, opt, mesh,
+                                        shd.train_rules(mesh))
+    assert sh["step"] == torch.device("cpu")
+    wq = sh["params"]["layers"]["attn"]["wq"]
+    assert wq.spec == (None, "data", "model") and wq.shard_shape == (
+        2, 64, 2, 16)
+    pl = shd.train_rules(mesh).sharding(mesh, ("embed", "mlp"), (64, 128))
+    assert pl.shard_shape == (64, 64) and pl.devices == [
+        torch.device("cpu")] * 2
     dp = make_mesh((2, 1), ("data", "model"), ["cpu"] * 2)
     sh = step_mod.train_state_shardings(model, opt, dp, shd.train_rules(dp))
     from repro_torch import tree as tr
-    assert {str(d) for d in tr.leaves(sh)} == {"cpu"}
+    assert {str(d) for p in tr.leaves(sh["params"]) for d in p.devices} \
+        == {"cpu"}
 
 
 # --- the routing rule under autograd -------------------------------------------------
@@ -251,8 +314,11 @@ def test_launcher_defaults_to_cuda_and_raises_without_a_card(monkeypatch,
             "--ckpt-dir", str(tmp_path)]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main(argv)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        launcher.main(argv + ["--device", "cpu", "--model-parallel", "2"])
+    out = launcher.train(launcher.parse_args(
+        argv + ["--device", "cpu", "--model-parallel", "2"]))
+    assert out["final_step"] == 1 and np.isfinite(out["losses"][0])
+    assert out["state"]["params"]["layers"]["attn"]["wq"].placement \
+        .mesh.shape == {"data": 1, "model": 2}
     for fn in (elastic.plan_mesh, mesh_mod.make_host_mesh):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
