@@ -91,8 +91,9 @@ Phases, one output line each (JSON where it helps):
    decode steps, the same limits as StarCoder2-3B's over the record's
    vocab columns, the argmax over the full row), (c)
    ``repro_torch.launch.serve`` with ``Model.init``'s weights at batch 8
-   x 512 + 64 (pixtral 1,536, recurrentgemma 2,048) at full depth (V3: 3
-   dense MLA layers + 1 MoE layer of 256 experts, ``--layers 4``), (b)
+   x 512 + 64 (pixtral 1,536, recurrentgemma 2,048) at the serve depth
+   (``ZOO_SERVE_LAYERS``: whisper's whole 6 + 6; V3's 3 dense MLA layers
+   + 1 MoE layer of 256 experts; the deeper stacks' first 8 layers), (b)
    decode against forward over prompt + 2 at that depth on weights of the
    parity distribution drawn on the card (the MoE configs at capacity
    factor 4, no assignment dropped), and (d) V3's full-width MoE layer:
@@ -106,7 +107,7 @@ Phases, one output line each (JSON where it helps):
    record.npz``: 3 steps' loss and grad norm within 1e-4, every leaf's
    step-0 gradient norm within 1e-3 and > 0, every leaf's update norm
    within 1e-2), ``repro_torch.launch.train`` at full width and depth in
-   bf16 (batch 8 x 128, 20 steps, the final ~30 GB checkpoint on the
+   bf16 (batch 8 x 128, 12 steps, the final ~30 GB checkpoint on the
    disk with the most room: finite losses falling, steady step seconds,
    tokens/s, peak device bytes, the idle share of two traced steps, no
    ``flash_attention`` launch), and at 4 layers a crash at step 6 and a
@@ -186,12 +187,26 @@ Phases, one output line each (JSON where it helps):
    wire record's script (``serve_wire_record.json``) on stdin, its
    responses against the same script run in this process and against the
    reference's recorded responses;
-11. a ``{"kernels": [...]}`` line: per kernel its launches on the main
+11. the dry run (``repro_torch.launch.dryrun``): ``run_cell`` of
+   StarCoder2-3B decode_32k on the (16, 16) production mesh of meta
+   entries and ``dryrun_lasana.run`` of one Algorithm-1 tick of 2^20 LIF
+   circuits on it with the committed artifact, their per-device numbers,
+   roofline terms and seconds, the card's allocated bytes unchanged and
+   no kernel launched across them (``dryrun``); then the dry run held to
+   the card (``dryrun_check``): StarCoder2-3B at full width and depth in
+   bf16 on a (1, 1) mesh, the prefill at batch 8 x 512 and one decode
+   step against an 8 x 512 cache, and one tick of 2^20 LIF circuits on
+   one entry: argument bytes equal to the tensors placed on the card, the
+   peak live bytes within 20% of ``max_memory_allocated`` over the step
+   with the arguments resident, the roofline's time beside the step's
+   and ``network_tick``'s (reported);
+12. a ``{"kernels": [...]}`` line: per kernel its launches on the main
    paths (summed, and by run), its largest difference from the plain
    version, its time, the plain version's time, its lower bound on
-   this card and, where one exists, a library call's time
+   this card (reckoned by the kernel's ``work`` function, as the dry run
+   reckons it) and, where one exists, a library call's time
    (crossbar-width times of the head kernels beside the LIF ones);
-12. ``{"ok": true, "device": {...}}`` as the last line.
+13. ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` adds, to each main-path line, the device time by kernel of
 one more steady run under ``torch.profiler`` (for the stream phase: one
@@ -230,15 +245,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 ART = ROOT / "src" / "repro_torch" / "artifacts"
 sys.path.insert(0, str(ROOT / "src"))
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-# unfused fp32 operations: 132 SMs x 128 lanes x 1.98 GHz, one a lane a
-# cycle. PEAK_FP32_FLOPS counts a fused multiply-add as two operations; the
-# golden kernels, built with --fmad=false, have none
-SM_CLOCK_HZ = 1.98e9
-PEAK_FP32_UNFUSED_OPS = 132 * 128 * SM_CLOCK_HZ
+# the H100's published peaks and clock, and each kernel's work, come from
+# the port (launch/roofline.py, the kernels' ``work`` functions): the
+# kernels' bound columns and the dry run reckon from one source
 
 N_MAIN = 12800          # layer-1 neurons on the main path (100 x 128)
 N_RAGGED = 12837        # not a multiple of any block size
@@ -268,6 +277,8 @@ MIXED_IMAGES = 64
 MIXED_TICKS = 30
 LIF_KNOBS = (0.58, 0.5, 0.5, 0.5)   # examples/snn_mnist.py's per-layer knobs
 RTOL = 1e-5
+# timed calls a kernel time's median takes; each rides behind ~50 ms of
+# spinning (BUSY_CYCLES), so the reps cost the run ~0.05 s each
 REPS = 25
 BUSY_CYCLES = 100_000_000   # ~50 ms of spinning at the H100's clocks
 T_STEPS = 100
@@ -331,7 +342,13 @@ SERVE_ARGS = ("--arch", LM_ARCH, "--batch", "8", "--prompt-len", "512",
 # ZOO_RECORDS), decode against forward and launch.serve at the serve depth
 ZOO_ARCHS = ("whisper-base", "mamba2-1.3b", "recurrentgemma-2b",
              "deepseek-moe-16b", "pixtral-12b", "deepseek-v3-671b")
-ZOO_SERVE_LAYERS = {"deepseek-v3-671b": 4}   # 3 dense MLA + 1 MoE layer
+# the serve depth (the config's own where not named): DeepSeek-V3's 3
+# dense MLA + 1 MoE layer; the deep stacks cut to 8 layers, which keeps
+# every layer kind (recurrentgemma's pattern twice and a third period's
+# first two) and the run inside its time limit
+ZOO_SERVE_LAYERS = {"deepseek-v3-671b": 4, "mamba2-1.3b": 8,
+                    "recurrentgemma-2b": 8, "deepseek-moe-16b": 8,
+                    "pixtral-12b": 8}
 ZOO_SERVE_PROMPT = {"pixtral-12b": 1536, "recurrentgemma-2b": 2048}
 ZOO_SERVE_BATCH, ZOO_SERVE_PROMPT_LEN, ZOO_SERVE_GEN = 8, 512, 64
 # configs whose every (decoder) layer's attention is the kernel's function
@@ -576,7 +593,14 @@ def fail(msg: str):
     raise RuntimeError(msg)
 
 
+T_START = time.perf_counter()
+
+
 def line(obj) -> None:
+    """One output line; a phase's line also says when it was printed
+    (``t_s``, seconds since the script started)."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 2)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -626,37 +650,33 @@ def compare(got, want, name, mask=None):
     return float(err.max(initial=0.0))
 
 
-def bound_ms(n_bytes: float, n_flops: float, peak_flops=PEAK_FP32_FLOPS):
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over their peak (fp32 unless given)."""
-    t_b, t_f = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+def bound(work):
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    for a kernel's ``ops.Work`` (``launch/roofline.py:bound_ms``)."""
+    from repro_torch.launch import roofline
+    return roofline.bound_ms(work)
 
 
-# --- operation counts (fp32; a fused multiply-add counts 2) ---------------
+def sm_clock_hz() -> float:
+    from repro_torch.launch import roofline
+    return roofline.SM_CLOCK_HZ
 
-# one LIF substep (lif_step.cu loop body): update 2, clamp 2, threshold 2,
-# compare 1, refractory 2, adaptation 2, first spike 1, static energy
-# 2+1+3, integration energy 5, accumulate 2
-LIF_FLOPS_PER_SUBSTEP = 27
-LIF_FLOPS_SETUP = 25
-# the substep's serial chain: (v + dv) * decay, clamp (2), the threshold
-# compare and the reset select, ~4 cycles each on the card's fp32 pipes
+
+def heads_bound(x, stacks):
+    """The bound of one ``mlp_surrogate_heads`` call on ``x`` (N, F) and
+    its ten stacked arrays."""
+    from repro_torch.kernels import mlp_surrogate
+    n, f = x.shape
+    p, _, h1 = stacks[4].shape
+    return bound(mlp_surrogate.heads_work(n, f, p, h1, stacks[6].shape[2],
+                                          sum(a.numel() for a in stacks)))
+
+
+# the LIF substep's serial chain: (v + dv) * decay, clamp (2), the
+# threshold compare and the reset select, ~4 cycles each on the card's
+# fp32 pipes (an estimate beside the bound, not a bound)
 LIF_CHAIN_OPS = 6
 FP32_LATENCY_CYCLES = 4
-
-
-def mlp_head_flops(f, h1, h2):
-    """Standardize, three layers with bias and relu, destandardize."""
-    return 2 * f + 2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2) + 4
-
-
-def head_flops(fam, f, h1, h2):
-    if fam == "mean":
-        return 3
-    if fam == "linear":
-        return 2 * f + 2 * f + 4
-    return mlp_head_flops(f, h1, h2)
 
 
 # --- phase 3: each kernel against its plain version -------------------------
@@ -825,16 +845,14 @@ def check_lif(torch, np, dev, times):
         lif_against_plain(torch, circ, tag, got, args, out)
         if n == N_RAGGED:
             continue
-        n_bytes = n * (3 + 3 + 4) * 4 + n * (3 + 3) * 4 + n
-        ops = n * (LIF_FLOPS_SETUP + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-        bound, by = bound_ms(n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
-        out["bound_ms_by_shape"][n] = bound
+        ms, by = bound(lif_scan.work(n, circ.n_substeps))
+        out["bound_ms_by_shape"][n] = ms
         if n == N_MAIN:
             out["spiking_share"] = float(got["spiked"].float().mean())
             out["ms"] = times["lif_step"][n]
             out["plain_ms"] = time_ms(
                 lambda: lif_scan._period_math(circ, *args), torch)
-            out["bound_ms"], out["bound_by"] = bound, by
+            out["bound_ms"], out["bound_by"] = ms, by
     for fields in LIF_GENERIC:
         gen = LIFNeuron(**fields)
         for n in N_GENERIC_LIF:
@@ -847,7 +865,7 @@ def check_lif(torch, np, dev, times):
     # an estimate, not a bound and not a reading: the dependent fp32 chain
     # of one period, any N (left out of the kernels line)
     out["chain_ms"] = (circ.n_substeps * LIF_CHAIN_OPS * FP32_LATENCY_CYCLES
-                       / SM_CLOCK_HZ * 1e3)
+                       / sm_clock_hz() * 1e3)
     return out
 
 
@@ -938,14 +956,6 @@ def check_quot(torch, np, dev):
     return out
 
 
-# one crossbar row (crossbar_step.cu): target 4 per input + 8, resistive
-# power 6 per input, one exp and a division; each substep 14 (update 3,
-# capacitor power 5, energy 4, settle test 2)
-XBAR_FLOPS_PER_INPUT = 10
-XBAR_FLOPS_SETUP = 20
-XBAR_FLOPS_PER_SUBSTEP = 14
-
-
 def xbar_rows(np, n, seed):
     """Crossbar rows as the engine drives them: DAC volts (70% analog
     levels, 30% full-swing digital), ternary weights with a zero bias
@@ -977,15 +987,11 @@ def settle_margin(torch, circ, state, v, w):
 
 
 def xbar_bound(n, fused=True):
-    """(bound ms, by) of ``n`` crossbar rows: the fused period or the
-    target alone, unfused fp32 operations."""
-    if fused:
-        return bound_ms(n * (32 + 33 + 1) * 4 + n * (3 * 4 + 1),
-                        n * (XBAR_FLOPS_SETUP + 32 * XBAR_FLOPS_PER_INPUT
-                             + 64 * XBAR_FLOPS_PER_SUBSTEP),
-                        PEAK_FP32_UNFUSED_OPS)
-    return bound_ms(n * (32 + 33) * 4 + n * 8, n * (4 * 32 + 8),
-                    PEAK_FP32_UNFUSED_OPS)
+    """(bound ms, by) of ``n`` crossbar rows of 32 inputs: the fused
+    period or the target alone (``crossbar_mvm.work``)."""
+    from repro_torch.core.circuits import CrossbarRow
+    from repro_torch.kernels import crossbar_mvm
+    return bound(crossbar_mvm.work(n, 32, CrossbarRow().n_substeps, fused))
 
 
 def narrow_rows(torch, v, w, state, n_in):
@@ -1199,10 +1205,9 @@ def check_mlp_heads(torch, np, dev, surs, times):
             if f == 41:
                 single["ms_bf16"] = times["mlp_surrogate"]["torch.bfloat16"]
                 single["plan"] = mlp_surrogate.single_plan(f, h1, h2)
-            flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
-            n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
-            single[f"bound_ms{key}"], single["bound_by"] = bound_ms(
-                n_bytes, flops)
+            single[f"bound_ms{key}"], single["bound_by"] = bound(
+                mlp_surrogate.single_work(n, f, h1, h2,
+                                          sum(a.numel() for a in w)))
             if not key:
                 single["shape"] = f"x ({n}, {f}), H1={h1}, H2={h2}"
             continue
@@ -1210,15 +1215,16 @@ def check_mlp_heads(torch, np, dev, surs, times):
         h2 = args[7].shape[2]
         out["ms"] += time_ms(lambda: fn(*args), torch)
         out["plain_ms"] += time_ms(lambda: plain[fn](*args), torch)
-        work[kind][0] += n * p * mlp_head_flops(f, h1, h2)
-        work[kind][1] += (n * f + sum(a.numel() for a in args[1:])
-                          + p * n) * 4
+        w = mlp_surrogate.heads_work(n, f, p, h1, h2,
+                                     sum(a.numel() for a in args[1:]))
+        work[kind][0] += w.flops
+        work[kind][1] += w.bytes
         work[kind][2].append(f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}")
     for kind, (flops, n_bytes, shapes) in work.items():
         heads[kind]["shape"] = "; ".join(shapes) + \
             " (one launch each, times summed)"
-        heads[kind]["bound_ms"], heads[kind]["bound_by"] = bound_ms(
-            n_bytes, flops)
+        heads[kind]["bound_ms"], heads[kind]["bound_by"] = bound(
+            ops.Work(flops, n_bytes))
     heads["lif"]["digests"] = {k: v[:12] for k, v in digests.items()}
     wide = {}
     for p, f, h1, h2 in WIDE_HEADS:
@@ -1233,9 +1239,7 @@ def check_mlp_heads(torch, np, dev, surs, times):
                    x, *stacks), torch),
                "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
                    x, *stacks), torch)}
-        res["bound_ms"], res["bound_by"] = bound_ms(
-            (x.numel() + sum(a.numel() for a in stacks) + p * N_MAIN) * 4,
-            N_MAIN * p * mlp_head_flops(f, h1, h2))
+        res["bound_ms"], res["bound_by"] = heads_bound(x, stacks)
         heads["lif"]["max_abs_err"] = max(heads["lif"]["max_abs_err"],
                                           res["max_abs_err"])
         wide[tag] = res
@@ -1489,14 +1493,9 @@ def tick_timing(torch, mk, args, kw, o_hat):
     else:
         fired = ch & (torch.abs(o_hat - o) > 0.02)
     n_ch, n_st, n_tr = (int(m.sum()) for m in (ch, stale, fired))
-    f_row = x.shape[1] + 2 + params.shape[1] + 1
-    fa = [head_flops(fm, f_row, h1, h2) for fm in ly.a_fams]
-    ft = [head_flops(fm, f_row + 2, h1, h2) for fm in ly.t_fams]
-    flops = n_ch * sum(fa) + n_st * sum(fa[:2]) + n_tr * sum(ft)
-    weights = sum(a.numel() for s in pk.values() for a in s.values())
-    n_bytes = n * (3 * 4 + 4 * (x.shape[1] + params.shape[1]) + 1) \
-        + n * 5 * 4 + weights * 4
-    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, flops)
+    res["bound_ms"], res["bound_by"] = bound(mk.work(
+        pk, ly, circuit, n, x.shape[1], params.shape[1],
+        rows=(n_ch, n_st, n_tr)))
     res["rows"] = {"changed": n_ch, "stale": n_st, "output_changed": n_tr}
     return res
 
@@ -1584,9 +1583,6 @@ def check_lif_chunk(torch, np, dev, times):
             continue
         key = f"n={n} T={t_steps}"
         out["ms_by_shape"][key] = times["lif_chunk"][n]
-        ops = t_steps * n * (LIF_FLOPS_SETUP
-                             + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-        n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
         if (n, t_steps) == (N_TRAIN, T_TRAIN):
             run_v = lambda: lif_scan.lif_chunk(state, x, params, circ=circ,
                                                record_v=True)
@@ -1600,15 +1596,15 @@ def check_lif_chunk(torch, np, dev, times):
             out["v_seq_equals_lif_step_states"] = True
             vkey = f"{key} v_seq"
             out["ms_by_shape"][vkey] = time_ms(run_v, torch)
-            out["bound_ms_by_shape"][vkey] = bound_ms(
-                n_bytes + t_steps * n * 4, ops, PEAK_FP32_UNFUSED_OPS)[0]
-        bound, by = bound_ms(n_bytes, ops, PEAK_FP32_UNFUSED_OPS)
-        out["bound_ms_by_shape"][key] = bound
+            out["bound_ms_by_shape"][vkey] = bound(lif_scan.work(
+                n, circ.n_substeps, t_steps, record_v=True))[0]
+        ms, by = bound(lif_scan.work(n, circ.n_substeps, t_steps))
+        out["bound_ms_by_shape"][key] = ms
         # an estimate, not a bound and not a reading: the dependent fp32
         # chain of T periods, any N (left out of the kernels line)
         out["chain_ms_by_shape"][key] = (
             t_steps * circ.n_substeps * LIF_CHAIN_OPS * FP32_LATENCY_CYCLES
-            / SM_CLOCK_HZ * 1e3)
+            / sm_clock_hz() * 1e3)
         if n == N_MAIN:
             out["spiking_share"] = float(got[4].float().mean())
             out["ms"] = times["lif_chunk"][n]
@@ -1620,7 +1616,7 @@ def check_lif_chunk(torch, np, dev, times):
             out["lif_step_x64_ms"] = time_ms(lambda: [
                 lif_scan.lif_step(state, x[k], params, circ=circ)
                 for k in range(t_steps)], torch)
-            out["bound_ms"], out["bound_by"] = bound, by
+            out["bound_ms"], out["bound_by"] = ms, by
             out["chain_ms"] = out["chain_ms_by_shape"][key]
     for fields in LIF_GENERIC:
         gen = LIFNeuron(**fields)
@@ -1720,21 +1716,14 @@ def check_network_tick_chunk(torch, np, dev, cases, ns=(N_MAIN, N_RAGGED),
             out[f"network_tick_x{t_steps}_ms"] = time_ms(lambda: seq_launch(
                 mk, pk, v, o, t_last, params, ch, x, ts, kw), torch)
             # the work this data needs, tick by tick from the launches
-            h1, h2 = pk["a"]["w0"].shape[2], pk["a"]["w1"].shape[2]
-            fa = [head_flops(fm, 10, h1, h2) for fm in ly.a_fams]
-            ft = [head_flops(fm, 12, h1, h2) for fm in ly.t_fams]
-            flops, prev_tl = 0, t_last
+            rows, prev_tl = [], t_last
             for k in range(t_steps):
-                n_ch = int(ch[k].sum())
-                n_st = int((ch[k] & (prev_tl < ts[k] - clock)).sum())
-                n_tr = int((ch[k] & (seq[k][1] > 0.75)).sum())
-                flops += n_ch * sum(fa) + n_st * sum(fa[:2]) + n_tr * sum(ft)
+                rows.append((int(ch[k].sum()),
+                             int((ch[k] & (prev_tl < ts[k] - clock)).sum()),
+                             int((ch[k] & (seq[k][1] > 0.75)).sum())))
                 prev_tl = seq[k][2]
-            weights = sum(a.numel() for s_ in pk.values()
-                          for a in s_.values())
-            n_bytes = (n * (3 + 4) * 4 + t_steps * n * (1 + 3 * 4) + t_steps
-                       * 4 + n * 3 * 4 + t_steps * n * 3 * 4 + weights * 4)
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops)
+            out["bound_ms"], out["bound_by"] = bound(
+                mk.chunk_work(pk, ly, n, t_steps, rows=rows))
     return out
 
 
@@ -1865,10 +1854,8 @@ def flash_timing(torch, flash_attn, q, k, v, g, heads=24, plain=False):
                   for t in (q, k_rep, v_rep))
     out["library_ms"] = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
                                 torch)
-    flops = 2 * d * s * (s + 1) * bh
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, flops,
-                                                PEAK_BF16_FLOPS)
+    out["bound_ms"], out["bound_by"] = bound(flash_attn.work(
+        tuple(q.shape), tuple(k.shape), q.dtype, g))
     return out
 
 
@@ -2390,14 +2377,13 @@ def mlp_train_shapes(torch, np, dev, bank, ds, smi):
         h1, h2 = w[0].shape[1], w[2].shape[1]
         got = mlp_surrogate.mlp_surrogate(x, *w)
         err = compare(got, mlp_surrogate.mlp_plain(x, *w), f"{tag} mlp")
-        flops = n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2))
-        n_bytes = (n * f + sum(a.numel() for a in w) + n) * 4
-        bound, by = bound_ms(n_bytes, flops)
+        ms, by = bound(mlp_surrogate.single_work(
+            n, f, h1, h2, sum(a.numel() for a in w)))
         res[f"{tag} x ({n}, {f})"] = {
             "ms": time_ms(lambda: mlp_surrogate.mlp_surrogate(x, *w), torch),
             "plain_ms": time_ms(lambda: mlp_surrogate.mlp_plain(x, *w),
                                 torch),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "bound_ms": ms, "bound_by": by, "max_abs_err": err,
             "plan": mlp_surrogate.single_plan(f, h1, h2)}
     line({"phase": "train_kernel_shapes", "kernel": "mlp_surrogate",
           "nvidia_smi": smi, "shapes": res})
@@ -3043,7 +3029,7 @@ def mesh_record_diff(np, got, want, name) -> dict:
 LM_TRAIN_REL = 1e-4           # loss and grad_norm against the JAX record
 LM_TRAIN_GRAD_REL = 1e-3      # each leaf's gradient norm at step 0
 LM_TRAIN_UPDATE_REL = 1e-2    # each leaf's update norm after the 3 steps
-LM_TRAIN_STEPS = 20           # steps of the full-depth launcher run
+LM_TRAIN_STEPS = 12           # steps of the full-depth launcher run
 LM_TRAIN_TAIL = 5             # steps averaged at each end of the run
 LM_RESUME_LAYERS = 4          # the crash-and-resume run's depth
 LM_RESUME_REL = 1e-2          # resumed losses vs the uninterrupted run's
@@ -3051,7 +3037,7 @@ LM_PROFILE_STEPS = 2          # steady steps traced for the idle share
 # beyond the launcher's defaults: the parity weights' distribution (from
 # Model.init's the clipped updates sit below Adam's eps and a bf16 model
 # does not move; ROADMAP caveat 4) and a 2-step warmup, with which the
-# 20 steps fall (the defaults' 20-step warmup moved the means by 0.03)
+# steps fall (the defaults' 20-step warmup moved the means by 0.03)
 LM_TRAIN_ARGS = ("--init", "parity", "--warmup", "2")
 # the record's AdamW (tests/test_torch_fixtures.py LM_TRAIN_OPT)
 LM_TRAIN_OPT = dict(lr=1e-4, warmup_steps=2, total_steps=10)
@@ -3185,7 +3171,8 @@ def lm_train_runs(torch, np, dev, surs, profile):
 def lm_train_full(torch, np, dev, ckpt_dir):
     """``repro_torch.launch.train``'s ``train()`` on StarCoder2-3B at full
     width and depth, bf16, batch 8 x 128 (the launcher's defaults, with
-    ``LM_TRAIN_ARGS``' weights and warmup), 20 steps into ``ckpt_dir``
+    ``LM_TRAIN_ARGS``' weights and warmup), ``LM_TRAIN_STEPS`` steps into
+    ``ckpt_dir``
     (the final save ~30 GB): finite losses falling, steady step seconds, tokens/s,
     peak device bytes, the idle share of two traced steady steps, no
     ``flash_attention`` launch."""
@@ -4436,9 +4423,7 @@ def heads_at_dse_shape(torch, np, sur, eng):
     n, f = ws.tr.shape
     p, _, h1 = s["w0"].shape
     h2 = s["w1"].shape[2]
-    bound, by = bound_ms(
-        (n * f + sum(a.numel() for a in args[1:]) + p * n) * 4,
-        n * p * mlp_head_flops(f, h1, h2))
+    ms, by = heads_bound(ws.tr, args[1:])
     return {"shape": f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}",
             "plan": mlp_surrogate.plan(p, f, h1, h2),
             "max_abs_err": compare(got, want, "mlp_surrogate_heads dse"),
@@ -4446,7 +4431,7 @@ def heads_at_dse_shape(torch, np, sur, eng):
                           torch),
             "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
                 *args), torch),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": ms, "bound_by": by}
 
 
 def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
@@ -4474,16 +4459,13 @@ def layer_kernel_shapes(torch, np, dev, surs, stim, smi):
                                  (new_state, obs["output"], obs["energy"],
                                   obs["latency"], obs["v_seq"]),
                                  (want[0], *want[1:4], want[5])))
-    ops_ = t_steps * n * (LIF_FLOPS_SETUP
-                          + circ.n_substeps * LIF_FLOPS_PER_SUBSTEP)
-    n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 4 * 4 + 1)
-    bound, by = bound_ms(n_bytes, ops_, PEAK_FP32_UNFUSED_OPS)
+    ms, by = bound(lif_scan.work(n, circ.n_substeps, t_steps, record_v=True))
     chunk = {f"n={n} T={t_steps} v_seq": {
         "max_abs_err": err, "ms": time_ms(run, torch),
         # 100 x 64 substeps of PyTorch ops at 200,000 rows: one call
         "plain_ms": time_ms(lambda: lif_scan.chunk_plain(
             circ, state, x, params, True), torch, reps=1),
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": ms, "bound_by": by,
         "main_path": "simulate.run_golden('lif'), one launch a run"}}
     tick = tick_at_shapes(torch, np, dev, surs["lif"],
                           (PROP_N, SCALING_NS[-1]),
@@ -4951,9 +4933,7 @@ def heads_at_serve_shapes(torch, np, dev, sur):
             torch.cuda.synchronize()
             err = compare(got, want, f"mlp_surrogate_heads serve {tag}")
             out["max_abs_err"] = max(out["max_abs_err"], err)
-            bound, by = bound_ms(
-                (n * f + sum(a.numel() for a in stacks) + p * n) * 4,
-                n * p * mlp_head_flops(f, h1, h2))
+            ms, by = heads_bound(x, stacks)
             out[tag] = {
                 "shape": f"x ({n}, {f}), P={p}, H1={h1}, H2={h2}",
                 "max_abs_err": err,
@@ -4961,7 +4941,7 @@ def heads_at_serve_shapes(torch, np, dev, sur):
                     *args), torch),
                 "plain_ms": time_ms(lambda: mlp_surrogate.mlp_heads_plain(
                     *args), torch),
-                "bound_ms": bound, "bound_by": by}
+                "bound_ms": ms, "bound_by": by}
     return out
 
 
@@ -5560,6 +5540,224 @@ def server_runs(torch, np, dev, smi, lane_res):
     return total
 
 
+# --- the dry run and its reckoning against the card -----------------------
+
+DRYRUN_CELL = ("starcoder2-3b", "decode_32k")   # a production cell, (16, 16)
+DRYRUN_TICK_N = 1 << 20      # dryrun_lasana's circuits
+DRYRUN_PEAK_REL = 0.2        # the dry run's peak against the card's
+DRYRUN_PROMPT = 512          # the lm_serve phase's batch 8 x 512
+DRYRUN_BATCH = 8
+
+
+def tensor_bytes(tensors) -> int:
+    """Bytes of ``tensors`` (each distinct tensor once)."""
+    seen = {}
+    for t in tensors:
+        seen[(t.data_ptr(), tuple(t.shape))] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def dryrun_phase(torch, dev, surs, smi):
+    """Phase dryrun: ``run_cell`` of a production cell (StarCoder2-3B
+    decode_32k on the (16, 16) meta mesh) and ``dryrun_lasana.run`` of one
+    tick of 2^20 LIF circuits on it with the committed artifact: each
+    record's per-device numbers, roofline terms and seconds; the card's
+    allocation unchanged across the phase, its peak never above it, and
+    no kernel launched."""
+    import gc
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, dryrun_lasana
+    # earlier phases' garbage is collected first: a collection inside the
+    # phase would free card memory the dry run never held
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    alloc = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rec = dryrun.run_cell(*DRYRUN_CELL, multi_pod=False, out_dir=out,
+                              force=True)
+    if rec["status"] != "ok":
+        fail(f"dryrun {rec['cell']}: {rec.get('error')}")
+    t_cell = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tick = dryrun_lasana.run(surs["lif"], n=DRYRUN_TICK_N, out_dir=None)
+    t_tick = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    after, peak = (torch.cuda.memory_allocated(dev),
+                   torch.cuda.max_memory_allocated(dev))
+    if after != alloc or peak != alloc:
+        fail(f"dryrun: the card's allocation moved from {alloc} to "
+             f"{after} bytes (peak {peak})")
+    if ops.LAUNCHES != before:
+        fail(f"dryrun launched kernels: {before} -> {ops.LAUNCHES}")
+
+    def brief(r):
+        return {"cell": r["cell"], "n_devices": r["n_devices"],
+                "memory": r["memory"], "cost": r["cost"],
+                "collectives": r["collectives"], "kernels": r["kernels"],
+                "roofline": r["roofline"], "lower_s": r["lower_s"]}
+    return {"cell": {**brief(rec), "runs": rec["runs"],
+                     "model_flops_total": rec["model_flops_total"],
+                     "seconds": t_cell},
+            "tick": {**brief(tick), "seconds": t_tick},
+            "allocated_bytes": alloc, "peak_bytes": peak,
+            "allocation_unchanged": True,
+            "launches_unchanged": True, "card": smi}
+
+
+def dryrun_lm_check(torch, dev, kind):
+    """The dry run of StarCoder2-3B at full width and depth (bf16) on a
+    (1, 1) mesh against the same step on the card: prefill at batch 8 x
+    512, or one decode step against an 8 x 512 cache (the prompt's 511
+    tokens prefilled, the step at position 511, as the dry run's decode
+    cell steps at its last slot)."""
+    from repro_torch import tree as tr
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import train_rules
+    cfg = lm_config()
+    mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+    shape = ShapeConfig(kind, DRYRUN_PROMPT, DRYRUN_BATCH, kind)
+    lw = dryrun.lower(cfg, shape, mesh, train_rules(mesh))
+    d = lw.device
+    model = Model(cfg)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    params = model.init(gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (DRYRUN_BATCH, DRYRUN_PROMPT),
+                           dtype=torch.int32, device=dev, generator=gen)
+    with torch.no_grad():
+        if kind == "prefill":
+            args = [*tr.leaves(params), tokens]
+            step = lambda: model.prefill(               # noqa: E731
+                params, {"tokens": tokens}, max_seq=DRYRUN_PROMPT)
+        else:
+            _, cache = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                     max_seq=DRYRUN_PROMPT)
+            tok = tokens[:, -1:].contiguous()
+            del tokens
+            args = [*tr.leaves(params), *tr.leaves(cache["stacks"]), tok]
+            step = lambda: model.decode(                # noqa: E731
+                params, {"stacks": cache["stacks"],
+                         "pos": DRYRUN_PROMPT - 1}, tok)
+        arg_bytes = tensor_bytes(args)
+        step()                           # warm: the timed call builds nothing
+        torch.cuda.synchronize(dev)
+        resident = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        if kind == "decode":
+            cache["stacks"] = None
+    if arg_bytes != d.argument_bytes:
+        fail(f"dryrun_check {kind}: argument bytes {d.argument_bytes} "
+             f"reckoned, {arg_bytes} placed on the card")
+    rel = abs(d.peak_live_bytes - peak) / peak
+    if rel > DRYRUN_PEAK_REL:
+        fail(f"dryrun_check {kind}: peak {d.peak_live_bytes} reckoned, "
+             f"{peak} on the card ({rel:.3f} > {DRYRUN_PEAK_REL})")
+    from repro_torch.launch import roofline as rf
+    roof = rf.roofline(d.cost.cost_analysis(),
+                       rf.CollectiveStats({}, {}, d.cost.wire_bytes),
+                       model_flops_total=rf.model_flops(cfg, shape),
+                       n_devices=1)
+    bound_s = max(roof.compute_s, roof.memory_s, roof.collective_s)
+    del params, args
+    return {"shape": f"batch {DRYRUN_BATCH} x {DRYRUN_PROMPT}",
+            "argument_bytes": d.argument_bytes, "placed_bytes": arg_bytes,
+            "allocated_for_arguments": resident,
+            "peak_live_bytes": d.peak_live_bytes, "card_peak_bytes": peak,
+            "peak_rel": rel, "flops": d.cost.flops, "bytes": d.cost.bytes,
+            "roofline": roof.as_dict(), "roofline_s": bound_s,
+            "step_s": wall, "share_of_roofline": bound_s / wall,
+            "dry_run_s": lw.trace_s}
+
+
+def dryrun_tick_check(torch, dev, surs):
+    """One Algorithm-1 tick of 2^20 LIF circuits on one mesh entry: the
+    dry run (``lower_distributed_step``) against the same tick on the
+    card, and the tick's roofline beside ``network_tick``'s time."""
+    from repro_torch.core.distributed import (_tick_body,
+                                              lower_distributed_step)
+    from repro_torch.core.wrapper import LasanaState
+    from repro_torch.kernels import tick_megakernel as mk
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.mesh import make_mesh
+    n, sur = DRYRUN_TICK_N, surs["lif"]
+    mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+    d = hlo_cost.per_device(lower_distributed_step(
+        sur, mesh, n, 3, 4, clock_ns=5.0, spiking=True))
+    gen = torch.Generator(device=dev).manual_seed(27)
+    state = LasanaState(
+        v=torch.rand(n, device=dev, generator=gen),
+        o=torch.zeros(n, device=dev),
+        t_last=torch.zeros(n, device=dev),
+        params=torch.rand(n, 4, device=dev, generator=gen))
+    changed = torch.rand(n, device=dev, generator=gen) < 0.5
+    x = torch.rand(n, 3, device=dev, generator=gen)
+    t = torch.full((1,), 10.0, device=dev)
+    sur_arrays = [a for p in sur.params.values() for a in p.values()]
+    arg_bytes = tensor_bytes([*state, changed, x, t, *sur_arrays])
+    body = _tick_body(clock_ns=5.0, spiking=True)
+    with torch.no_grad():
+        # a warm call grows network_tick's cached park scratch: the step's
+        # peak is its arguments plus what it allocates above them
+        body(sur, state, changed, x, t)
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = body(sur, state, changed, x, t)
+        torch.cuda.synchronize(dev)
+        peak = arg_bytes + torch.cuda.max_memory_allocated(dev) - start
+        del out
+        pack, layout = mk.pack_heads(sur)
+        kernel_ms = time_ms(lambda: mk.network_tick(
+            pack, state.v, state.o, state.t_last, state.params, changed, x,
+            t[0], None, circuit="lif", clock_ns=5.0, layout=layout,
+            spiking=True), torch)
+    if arg_bytes != d.argument_bytes:
+        fail(f"dryrun_check tick: argument bytes {d.argument_bytes} "
+             f"reckoned, {arg_bytes} placed on the card")
+    rel = abs(d.peak_live_bytes - peak) / peak
+    if rel > DRYRUN_PEAK_REL:
+        fail(f"dryrun_check tick: peak {d.peak_live_bytes} reckoned, {peak} "
+             f"on the card ({rel:.3f} > {DRYRUN_PEAK_REL})")
+    roof = rf.roofline(d.cost.cost_analysis(),
+                       rf.CollectiveStats({}, {}, d.cost.wire_bytes),
+                       model_flops_total=1.0, n_devices=1)
+    tick_bound = bound(mk.work(pack, layout, "lif", n, 3, 4))
+    return {"n": n, "argument_bytes": d.argument_bytes,
+            "placed_bytes": arg_bytes, "peak_live_bytes": d.peak_live_bytes,
+            "card_peak_bytes": peak, "peak_rel": rel,
+            "roofline": roof.as_dict(),
+            "roofline_s": max(roof.compute_s, roof.memory_s),
+            "network_tick_ms": kernel_ms,
+            "network_tick_bound_ms": tick_bound[0],
+            "network_tick_bound_by": tick_bound[1]}
+
+
+def dryrun_check(torch, dev, surs, smi):
+    """Phase dryrun_check: the dry run's reckoning held to the card on
+    cells one H100 runs: argument bytes equal, peak within 20%; the
+    roofline's time beside the measured one (reported)."""
+    out = {kind: dryrun_lm_check(torch, dev, kind)
+           for kind in ("prefill", "decode")}
+    out["tick"] = dryrun_tick_check(torch, dev, surs)
+    return {**out, "limit_peak_rel": DRYRUN_PEAK_REL, "card": smi}
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -5711,6 +5909,11 @@ def main() -> int:
         add_counts(launches, run_name, counts)
     line({"phase": "server_done",
           "seconds": time.perf_counter() - t_server})
+
+    t_dry = time.perf_counter()
+    line({"phase": "dryrun", **dryrun_phase(torch, dev, surs, smi)})
+    line({"phase": "dryrun_check", **dryrun_check(torch, dev, surs, smi),
+          "seconds": time.perf_counter() - t_dry})
 
     meta = {
         "crossbar_target": ("src/repro_torch/kernels/csrc/crossbar_step.cu",

@@ -15,8 +15,9 @@ while spikes, outputs and event counts are batch-local and identical.
 
 The surrogate is an argument of the step, replicated on every shard's
 device, so retrained surrogates of equal structure reuse the step.
-``abstract_sim_inputs`` / ``lower_distributed_step`` (the dry run) wait
-for the dry-run slice (ROADMAP §A).
+:func:`abstract_sim_inputs` / :func:`lower_distributed_step` are the dry
+run of one tick (``launch/dryrun_lasana.py``): the tick's body run on
+meta tensors, one mesh entry after another, under ``launch/hlo_cost.py``.
 """
 
 from __future__ import annotations
@@ -160,12 +161,10 @@ def _join(outs, spec, dev):
 
 # --- the sharded Algorithm-1 tick -----------------------------------------------
 
-def _sharded_step(mesh: Mesh, *, clock_ns: float, spiking: bool = False,
-                  vdd: float = 1.5, fused: bool = True,
-                  fused_kernel: bool | None = None):
-    """One Algorithm-1 tick over the mesh; the surrogate is argument 0,
-    replicated. The per-shard body is exactly ``lasana_step``, so on the
-    card ``network_tick`` launches shard-local on N / shards circuits."""
+def _tick_body(*, clock_ns: float, spiking: bool = False, vdd: float = 1.5,
+               fused: bool = True, fused_kernel: bool | None = None):
+    """One shard's tick: ``lasana_step`` on its circuits -> (state, its
+    energy sum, its spike count)."""
 
     def body(surrogate, state, changed, x, t):
         if isinstance(t, torch.Tensor) and t.dim() == 1:
@@ -177,7 +176,17 @@ def _sharded_step(mesh: Mesh, *, clock_ns: float, spiking: bool = False,
         # spike counts are integers: an fp32 sum loses whole events past
         # 2^24 a tick
         return new_state, e.sum(), (o > 0.5 * vdd).sum(dtype=torch.int32)
+    return body
 
+
+def _sharded_step(mesh: Mesh, *, clock_ns: float, spiking: bool = False,
+                  vdd: float = 1.5, fused: bool = True,
+                  fused_kernel: bool | None = None):
+    """One Algorithm-1 tick over the mesh; the surrogate is argument 0,
+    replicated. The per-shard body is exactly ``lasana_step``, so on the
+    card ``network_tick`` launches shard-local on N / shards circuits."""
+    body = _tick_body(clock_ns=clock_ns, spiking=spiking, vdd=vdd,
+                      fused=fused, fused_kernel=fused_kernel)
     state_spec = LasanaState(v=0, o=0, t_last=0, params=0)
     return shard_over_batch(body, mesh,
                             in_specs=(None, 0, 0, 0, None),
@@ -224,3 +233,78 @@ def make_distributed_step(mesh, _legacy_mesh=None, *, clock_ns: float,
         return fn(as_surrogate(surrogate), state, changed, x, t)
 
     return step
+
+
+# --- the dry run ----------------------------------------------------------------
+
+def abstract_sim_inputs(n_circuits: int, n_in: int, n_params: int):
+    """One tick's inputs as meta tensors (the reference's ``:172-183``):
+    ``(state, changed, x, t)`` for ``n_circuits`` circuits."""
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    state = LasanaState(v=meta((n_circuits,)), o=meta((n_circuits,)),
+                        t_last=meta((n_circuits,)),
+                        params=meta((n_circuits, n_params)))
+    return (state, meta((n_circuits,), torch.bool),
+            meta((n_circuits, n_in)), meta((1,)))
+
+
+def _meta_copy(surrogate):
+    """The surrogate's arrays on the meta device, tensors of their own."""
+    from repro_torch.core.surrogate import Surrogate
+    return Surrogate(surrogate.manifest,
+                     {p: {k: torch.empty(a.shape, dtype=a.dtype,
+                                         device="meta")
+                          for k, a in d.items()}
+                      for p, d in surrogate.params.items()},
+                     surrogate.fit_info)
+
+
+def lower_distributed_step(surrogate, mesh: Mesh, n_circuits: int,
+                           n_in: int, n_params: int, *, clock_ns: float,
+                           spiking: bool = False, vdd: float = 1.5,
+                           fused: bool = True,
+                           fused_kernel: bool | None = None):
+    """The dry run of one sharded tick (the reference's ``:186-203``,
+    where ``.lower()`` + ``.compile()`` and their analyses stand): each
+    mesh entry's block of :func:`abstract_sim_inputs` and its own meta
+    copy of the surrogate (the reference's replicated weights) are its
+    arguments, ``_tick_body`` runs on them entry by entry under
+    ``hlo_cost.counting`` (the kernels' dry-run route: ``network_tick``
+    records its work and launches nothing), and the energy and spike sums
+    are all-reduced over the mesh, the reference's ``psum``. Returns
+    ``{entry: hlo_cost.EntryStats}``; ``hlo_cost.per_device`` gives the
+    device's figures. ``mesh`` may hold any devices: the run is on meta
+    tensors whatever they are."""
+    from repro_torch.core import collectives
+    from repro_torch.launch import hlo_cost
+    surrogate = as_surrogate(surrogate)
+    body = _tick_body(clock_ns=clock_ns, spiking=spiking, vdd=vdd,
+                      fused=fused, fused_kernel=fused_kernel)
+    n_dev = mesh.size
+    if n_circuits % n_dev:
+        raise ValueError(f"{n_circuits} circuits not divisible by mesh size "
+                         f"{n_dev}")
+    per = n_circuits // n_dev
+    args = [(_meta_copy(surrogate), *abstract_sim_inputs(per, n_in,
+                                                         n_params))
+            for _ in range(n_dev)]
+    counter = hlo_cost.Counter()
+    for e, (sur, state, changed, x, t) in enumerate(args):
+        counter.arguments((a, e) for a in [*state, changed, x, t] + [
+            a for d in sur.params.values() for a in d.values()])
+    outs = []
+    with hlo_cost.counting(counter), torch.no_grad():
+        for e, a in enumerate(args):
+            with counter.at(e):
+                outs.append(body(*a))
+        energy = collectives.all_reduce_sum([o[1] for o in outs],
+                                            ["meta"] * n_dev,
+                                            at=list(range(n_dev)))
+        spikes = collectives.all_reduce_sum([o[2] for o in outs],
+                                            ["meta"] * n_dev,
+                                            at=list(range(n_dev)))
+    result = [(t, e) for e, o in enumerate(outs) for t in o[0]] + [
+        (t, e) for e, t in enumerate(energy)] + [
+        (t, e) for e, t in enumerate(spikes)]
+    return counter.stats(result)

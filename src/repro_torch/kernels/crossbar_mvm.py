@@ -10,7 +10,9 @@ as the reference's XLA reductions do. :func:`crossbar_target` and
 :func:`crossbar_step` run them on CPU tensors and launch the two entry
 points of ``csrc/crossbar_step.cu`` — a persistent grid walking row tiles
 (:func:`plan`), one thread a row — on CUDA tensors; every launch counts as
-one ``crossbar_target``.
+one ``crossbar_target``. :func:`work` reckons a call's operations and
+bytes from its shapes; in ``ops.dry_run`` both entry points take meta
+tensors and record it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,41 @@ SMALL_TILE_ROWS = 32
 # resident blocks an SM holds at 128-row tiles (35 KB of shared memory each)
 BLOCKS_PER_SM = 6
 ALIGN = 16          # bytes: v and w arrive by 16-byte asynchronous copies
+
+
+# one crossbar row (crossbar_step.cu): target 4 per input + 8, resistive
+# power 6 per input, one exp and a division; each substep 14 (update 3,
+# capacitor power 5, energy 4, settle test 2)
+FLOPS_PER_INPUT = 10
+FLOPS_SETUP = 20
+FLOPS_PER_SUBSTEP = 14
+
+
+def work(n: int, n_in: int, n_substeps: int, fused: bool = True) -> ops.Work:
+    """``n`` rows of ``n_in`` inputs: the fused period (``crossbar_step``)
+    or the target alone (``crossbar_target``), unfused fp32 operations;
+    bytes of v, w (and the state) read and of the outputs written."""
+    if fused:
+        return ops.Work(
+            n * (FLOPS_SETUP + n_in * FLOPS_PER_INPUT
+                 + n_substeps * FLOPS_PER_SUBSTEP),
+            n * (n_in + n_in + 1 + 1) * 4 + n * (3 * 4 + 1), "fp32_unfused")
+    return ops.Work(n * (4 * n_in + 8), n * (n_in + n_in + 1) * 4 + n * 8,
+                    "fp32_unfused")
+
+
+def _dry(circ, v, fused, state=None):
+    """The dry-run route: meta outputs of the kernel's shapes, its work
+    recorded, nothing launched."""
+    n, n_in = v.shape
+    ops.record_work("crossbar_target", work(n, n_in, circ.n_substeps, fused))
+    f32 = dict(dtype=torch.float32, device="meta")
+    if not fused:
+        return torch.empty(n, **f32), torch.empty(n, **f32)
+    new_state = torch.empty_like(state, device="meta")
+    return (new_state, new_state[:, 0], torch.empty(n, **f32),
+            torch.empty(n, **f32), torch.empty(n, dtype=torch.bool,
+                                               device="meta"))
 
 
 def target_plain(circ: CrossbarRow, v, w):
@@ -195,6 +232,8 @@ def crossbar_target(v, w, *, circ: CrossbarRow | None = None):
     """v (N, n_in) volts, w (N, n_in + 1) row weights and bias -> (v_tgt
     (N,), tau (N,) ns)."""
     circ = circ or CrossbarRow()
+    if ops.dry_route(v, w):
+        return _dry(circ, v, False)
     if v.device.type == "cpu" and w.device.type == "cpu":
         return target_plain(circ, v, w)
     return _launch_target(circ, v, w)
@@ -205,7 +244,9 @@ def crossbar_step(state, v_in, params, *, circ: CrossbarRow | None = None):
     (N, n_in + 1) -> ``(new_state, {"output", "energy", "latency",
     "spiked"})``."""
     circ = circ or CrossbarRow()
-    if all(t.device.type == "cpu" for t in (state, v_in, params)):
+    if ops.dry_route(state, v_in, params):
+        res = _dry(circ, v_in, True, state)
+    elif all(t.device.type == "cpu" for t in (state, v_in, params)):
         res = step_plain(circ, state, v_in, params)
     else:
         res = _launch_step(circ, state, v_in, params)

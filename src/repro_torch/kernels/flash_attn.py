@@ -16,6 +16,9 @@ and counted apart in ``ops.LAUNCHES``: bf16 with D in ``TC_HEAD_DIMS``
 runs on the tensor cores (``wgmma``: fp32 logits of exact bf16 products,
 scaled after the product, P split into bf16 hi + lo for ``@ v``), every
 other case (fp32, D = 8) on the fp32 cores.
+
+:func:`work` reckons a call's operations and bytes from its shapes; in
+``ops.dry_run`` the entry point takes meta tensors and records it.
 """
 
 from __future__ import annotations
@@ -59,6 +62,21 @@ def _check(q, k, v, groups: int):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention takes bf16 or fp32 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def work(q_shape, kv_shape, dtype, groups: int = 1) -> ops.Work:
+    """One causal call on q (BH, S, D) and k / v (BH / G, S, D): the two
+    products over the causal half, S (S + 1) / 2 scores a row (2 D
+    operations each, twice), at the tensor cores' bf16 peak or the fp32
+    peak; q, k and v read and the output written."""
+    bh, s, d = q_shape
+    size = torch.empty((), dtype=dtype).element_size()
+    kv = 1
+    for x in kv_shape:
+        kv *= x
+    return ops.Work(2 * d * s * (s + 1) * bh,
+                    (2 * bh * s * d + 2 * kv) * size,
+                    "bf16" if dtype == torch.bfloat16 else "fp32")
 
 
 def attention_plain(q, k, v, groups: int = 1):
@@ -120,6 +138,10 @@ def flash_attention(q, k, v, *, groups: int = 1):
     """Causal attention. q (BH, S, D), k and v (BH / groups, S, D), bf16 or
     fp32, D in ``HEAD_DIMS`` -> (BH, S, D) in q's dtype."""
     _check(q, k, v, groups)
+    if ops.dry_route(q, k, v):
+        ops.record_work(route(q.dtype, q.shape[2]), work(
+            tuple(q.shape), tuple(k.shape), q.dtype, groups))
+        return torch.empty_like(q, device="meta")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_plain(q, k, v, groups)
     return _launch(q, k, v, groups)

@@ -13,6 +13,10 @@ for bit. Asked with ``record_v=True``, it also returns each tick's
 end-of-period ``V_mem`` (``v_seq`` (T, N), the golden simulation's
 exposed state), which is ``new_state[:, 0]`` after t + 1 ``lif_step``
 calls.
+
+:func:`work` reckons a call's operations and bytes from its shapes (the
+bound of ``chip_smoke.py``'s kernel line and the dry run's count); in
+``ops.dry_run`` both entry points take meta tensors and record it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,46 @@ import torch
 
 from repro_torch.core.circuits import LIFNeuron
 from repro_torch.kernels import _build, ops
+
+
+# one LIF substep (lif_step.cu loop body): update 2, clamp 2, threshold 2,
+# compare 1, refractory 2, adaptation 2, first spike 1, static energy
+# 2+1+3, integration energy 5, accumulate 2
+FLOPS_PER_SUBSTEP = 27
+FLOPS_SETUP = 25
+
+
+def work(n: int, n_substeps: int, t_steps: int | None = None,
+         record_v: bool = False) -> ops.Work:
+    """One ``lif_step`` over ``n`` neurons (``t_steps`` None) or one
+    ``lif_chunk`` of ``t_steps`` periods: unfused fp32 operations (the
+    kernels are built with --fmad=false); bytes of state, inputs and
+    params read and of the state and observables written (``spiked`` one
+    byte), and ``v_seq`` with ``record_v``."""
+    per = FLOPS_SETUP + n_substeps * FLOPS_PER_SUBSTEP
+    if t_steps is None:
+        return ops.Work(n * per, n * (3 + 3 + 4) * 4 + n * (3 + 3) * 4 + n,
+                        "fp32_unfused")
+    n_bytes = n * (3 + 4 + 3) * 4 + t_steps * n * (3 * 4 + 3 * 4 + 1)
+    if record_v:
+        n_bytes += t_steps * n * 4
+    return ops.Work(t_steps * n * per, n_bytes, "fp32_unfused")
+
+
+def _dry(name, circ, state, lead, record_v=False):
+    """The dry-run route: meta outputs of the kernel's shapes, its work
+    recorded, nothing launched."""
+    n = state.shape[0]
+    t_steps = lead[0] if lead else None
+    ops.record_work(name, work(n, circ.n_substeps, t_steps, record_v))
+    meta = dict(device="meta")
+    outs = [torch.empty_like(state, **meta)] + [
+        torch.empty((*lead, n), dtype=torch.float32, **meta)
+        for _ in range(3)] + [torch.empty((*lead, n), dtype=torch.bool,
+                                          **meta)]
+    if record_v:
+        outs.append(torch.empty((*lead, n), dtype=torch.float32, **meta))
+    return tuple(outs)
 
 
 def _period_math(circ: LIFNeuron, st, xx, pp):
@@ -139,7 +183,9 @@ def lif_step(state, x, params, *, circ: LIFNeuron | None = None):
     """One clock period for N neurons. state (N,3), x (N,3), params (N,4)
     -> ``(new_state, {"output", "energy", "latency", "spiked"})``."""
     circ = circ or LIFNeuron()
-    if all(t.device.type == "cpu" for t in (state, x, params)):
+    if ops.dry_route(state, x, params):
+        res = _dry("lif_step", circ, state, ())
+    elif all(t.device.type == "cpu" for t in (state, x, params)):
         res = _period_math(circ, state, x, params)
     else:
         res = _launch(circ, state, x, params)
@@ -184,7 +230,9 @@ def lif_chunk(state, x_seq, params, *, circ: LIFNeuron | None = None,
     "spiked"})`` with (T, N) observables (``spiked`` bool); ``record_v``
     adds ``"v_seq"``, each tick's end-of-period V_mem (T, N)."""
     circ = circ or LIFNeuron()
-    if all(t.device.type == "cpu" for t in (state, x_seq, params)):
+    if ops.dry_route(state, x_seq, params):
+        res = _dry("lif_chunk", circ, state, (x_seq.shape[0],), record_v)
+    elif all(t.device.type == "cpu" for t in (state, x_seq, params)):
         res = chunk_plain(circ, state, x_seq, params, record_v)
     else:
         res = _launch_chunk(circ, state, x_seq, params, record_v)

@@ -15,6 +15,11 @@ products without the standardizer, the head staged in two groups so that
 the first layer starts before the second layer's weights land, fp32 or
 bf16 rows read as they are); a head too wide for it runs through the
 heads' kernel at P = 1.
+
+:func:`heads_work` and :func:`single_work` reckon a call's operations
+and bytes from its shapes (:func:`head_flops` per row and head, shared
+with the tick's reckoning); in ``ops.dry_run`` both entry points take
+meta tensors and record them.
 """
 
 from __future__ import annotations
@@ -25,6 +30,38 @@ import functools
 import torch
 
 from repro_torch.kernels import _build, ops
+
+
+def mlp_head_flops(f: int, h1: int, h2: int) -> int:
+    """One row through one standardized head: standardize, three layers
+    with bias and relu, destandardize (fp32, a multiply-add counts 2)."""
+    return 2 * f + 2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2) + 4
+
+
+def head_flops(fam: str, f: int, h1: int, h2: int) -> int:
+    """One row through one head of family ``fam``."""
+    if fam == "mean":
+        return 3
+    if fam == "linear":
+        return 2 * f + 2 * f + 4
+    return mlp_head_flops(f, h1, h2)
+
+
+def heads_work(n: int, f: int, p: int, h1: int, h2: int,
+               array_elems: int) -> ops.Work:
+    """``mlp_surrogate_heads`` over (n, f) rows and P heads whose ten
+    stacked arrays hold ``array_elems`` floats: every row through every
+    head; x and the arrays read, the (P, n) outputs written."""
+    return ops.Work(n * p * mlp_head_flops(f, h1, h2),
+                    (n * f + array_elems + p * n) * 4)
+
+
+def single_work(n: int, f: int, h1: int, h2: int,
+                array_elems: int) -> ops.Work:
+    """``mlp_surrogate`` over (n, f) rows, its six arrays holding
+    ``array_elems`` floats (no standardizer)."""
+    return ops.Work(n * (2 * (f * h1 + h1 * h2 + h2) + 2 * (h1 + h2)),
+                    (n * f + array_elems + n) * 4)
 
 
 def mlp_heads_plain(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
@@ -135,6 +172,12 @@ def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     ``w1`` (P, F, H1), ``b1`` (P, H1), ``w2`` (P, H1, H2), ``b2`` (P, H2),
     ``w3`` (P, H2, 1), ``b3`` (P, 1). Any N; nothing is padded."""
     args = (x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
+    if ops.dry_route(*args):
+        n, f = x.shape
+        p, _, h1 = w1.shape
+        ops.record_work("mlp_surrogate_heads", heads_work(
+            n, f, p, h1, w2.shape[2], sum(a.numel() for a in args[1:])))
+        return torch.empty((p, n), dtype=torch.float32, device="meta")
     if all(a.device.type == "cpu" for a in args):
         return mlp_heads_plain(*args)
     return _launch(*args)
@@ -175,6 +218,11 @@ def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
     w1 (F, H1), b1 (H1,), w2 (H1, H2), b2 (H2,), w3 (H2, 1), b3 (1,) ->
     (N,) fp32."""
     args = (x, w1, b1, w2, b2, w3, b3)
+    if ops.dry_route(*args):
+        n, f = x.shape
+        ops.record_work("mlp_surrogate", single_work(
+            n, f, w1.shape[1], w2.shape[1], sum(a.numel() for a in args[1:])))
+        return torch.empty((n,), dtype=torch.float32, device="meta")
     if all(a.device.type == "cpu" for a in args):
         return mlp_plain(*args)
     return _launch_single(*args)

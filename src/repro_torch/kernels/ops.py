@@ -12,10 +12,21 @@ other.
 routes of ``flash_attention`` apart), and nothing else: a caller resets
 it (:func:`reset_launches`), drives a path, and reads it to show that the
 path went through the kernels.
+
+The dry run (``launch/dryrun.py``) takes a third route. Inside
+:func:`dry_run`, an entry point given meta tensors returns meta outputs
+of the kernel's shapes and dtypes, records the kernel's :class:`Work`
+(reckoned from the shapes by the ``work`` function beside its wrapper)
+with the context's sink, and launches nothing: no counter moves, and the
+plain version never runs on meta tensors (plain attention would build the
+(S, S) logits the kernel never holds). Outside the context meta tensors
+are refused as before.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 
 import torch
@@ -34,6 +45,47 @@ def count_launch(name: str) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What one kernel call must do: ``flops`` operations at the peak of
+    their ``rate`` (``"bf16"``, ``"fp32"`` or ``"fp32_unfused"``, the keys
+    of ``launch.roofline.RATES``) and ``bytes`` moved — each input read
+    once, each output written once."""
+    flops: int
+    bytes: int
+    rate: str = "fp32"
+
+
+_DRY_SINKS: list = []
+
+
+@contextlib.contextmanager
+def dry_run(sink=None):
+    """Inside, kernel entry points take meta tensors: each returns meta
+    outputs and calls ``sink(name, work)`` (when given) instead of
+    launching."""
+    _DRY_SINKS.append(sink)
+    try:
+        yield
+    finally:
+        _DRY_SINKS.pop()
+
+
+def dry_route(*tensors) -> bool:
+    """Whether an entry point takes the dry-run route: inside
+    :func:`dry_run` with any argument on the meta device."""
+    return bool(_DRY_SINKS) and any(
+        isinstance(t, torch.Tensor) and t.device.type == "meta"
+        for t in tensors)
+
+
+def record_work(name: str, work: Work) -> None:
+    """Hand one dry-run kernel call's work to the innermost sink."""
+    sink = _DRY_SINKS[-1]
+    if sink is not None:
+        sink(name, work)
 
 
 def fused_kernel_enabled(override: bool | None = None) -> bool:

@@ -28,6 +28,14 @@ Routes are decided from shapes alone, the same on every device:
 refuses, so an engine given wider heads takes the stacked-dispatch tick
 (whose MLP groups launch ``mlp_surrogate_heads``), and a stream whose pack
 the chunk kernel refuses takes one ``network_tick`` launch per tick.
+
+:func:`work` and :func:`chunk_work` reckon a call's operations and bytes
+from its shapes and the rows the data sends through each stage. In
+``ops.dry_run`` both entry points take meta tensors, return meta outputs
+and record the work of the worst case, every row changed, stale and
+firing: the reference's ``hlo_cost`` likewise takes the costlier branch
+of a ``lax.cond``, and the kernel's stage skips are block-wide votes on
+data a meta tensor does not hold.
 """
 
 from __future__ import annotations
@@ -52,6 +60,55 @@ _STACK_KEYS = ("x_mu", "x_sd", "y_mu", "y_sd",
                "w0", "b0", "w1", "b1", "w2", "b2", "scale")
 # csrc/network_tick.cu row kinds: LifRow::kCode, XbarRow::kCode
 _CIRCUIT_CODE = {"lif": 0, "crossbar": 1}
+
+
+# --- the work of a call ------------------------------------------------------
+
+def _stage_flops(layout, circuit: str, n_in: int, n_params: int, h1: int,
+                 h2: int) -> tuple:
+    """(one row's active heads, its idle heads, its transition heads), in
+    operations."""
+    from repro_torch.kernels.mlp_surrogate import head_flops
+    f_row = n_in + 2 + n_params + 1
+    fa = [head_flops(fm, f_row, h1, h2) for fm in layout.a_fams]
+    ft = [head_flops(fm, f_row + 2, h1, h2) for fm in layout.t_fams]
+    return sum(fa), sum(fa[:2]), sum(ft)
+
+
+def _pack_elems(pack) -> int:
+    return sum(a.numel() for s in pack.values() for a in s.values())
+
+
+def work(pack, layout, circuit: str, n: int, n_in: int, n_params: int,
+         rows=None) -> ops.Work:
+    """One ``network_tick`` over ``n`` rows: the active heads on each
+    changed row, the idle heads on each stale one and the transition heads
+    where the output changed (``rows`` = (changed, stale, output changed)
+    counts, every row by default); state, inputs, params, the mask and the
+    pack read, the five outputs written."""
+    h1, h2 = pack["a"]["w0"].shape[2], pack["a"]["w1"].shape[2]
+    act, idle, tr = _stage_flops(layout, circuit, n_in, n_params, h1, h2)
+    n_ch, n_st, n_tr = (n, n, n) if rows is None else rows
+    return ops.Work(n_ch * act + n_st * idle + n_tr * tr,
+                    n * (3 * 4 + 4 * (n_in + n_params) + 1) + n * 5 * 4
+                    + _pack_elems(pack) * 4)
+
+
+def chunk_work(pack, layout, n: int, t_steps: int, rows=None) -> ops.Work:
+    """One ``network_tick_chunk`` of ``t_steps`` LIF ticks over ``n``
+    rows: ``rows`` a (changed, stale, output changed) count per tick
+    (every row every tick by default); the state and params read once,
+    each tick's mask, inputs and time read and its three sequences
+    written, the state written once."""
+    circ = get_circuit("lif")
+    h1, h2 = pack["a"]["w0"].shape[2], pack["a"]["w1"].shape[2]
+    act, idle, tr = _stage_flops(layout, "lif", circ.n_inputs,
+                                 circ.n_params, h1, h2)
+    rows = [(n, n, n)] * t_steps if rows is None else rows
+    flops = sum(c * act + s * idle + f * tr for c, s, f in rows)
+    return ops.Work(flops, n * (3 + 4) * 4 + t_steps * n * (1 + 3 * 4)
+                    + t_steps * 4 + n * 3 * 4 + t_steps * n * 3 * 4
+                    + _pack_elems(pack) * 4)
 
 
 # --- the kernels' layout rule -------------------------------------------------
@@ -624,6 +681,12 @@ def network_tick(pack, v, o, t_last, params, changed, x, t, known, *,
     kw = dict(circuit=circuit, clock_ns=clock_ns, out_eps=out_eps,
               spiking=spiking, vdd=vdd, annotate=annotate, layout=layout)
     tensors = (v, o, t_last, params, changed, x)
+    if ops.dry_route(*tensors):
+        n = v.shape[0]
+        ops.record_work("network_tick", work(pack, layout, circuit, n,
+                                             x.shape[1], params.shape[1]))
+        return tuple(torch.empty((n,), dtype=torch.float32, device="meta")
+                     for _ in range(5))
     if all(a.device.type == "cpu" for a in tensors):
         return _tick_arrays(pack["a"], pack["t"], v, o, t_last, params,
                             changed, x, t, known_out=known if annotate
@@ -642,6 +705,13 @@ def network_tick_chunk(pack, v, o, t_last, params, changed_seq, x_seq, t_seq,
     plain ticks."""
     kw = dict(out_eps=out_eps, spiking=spiking, vdd=vdd, layout=layout)
     tensors = (v, o, t_last, params, changed_seq, x_seq, t_seq)
+    if ops.dry_route(*tensors):
+        t_steps, n = changed_seq.shape
+        ops.record_work("network_tick_chunk",
+                        chunk_work(pack, layout, n, t_steps))
+        f32 = dict(dtype=torch.float32, device="meta")
+        return (*(torch.empty((n,), **f32) for _ in range(3)),
+                *(torch.empty((t_steps, n), **f32) for _ in range(3)))
     if all(a.device.type == "cpu" for a in tensors):
         st, o_seq, e_seq, l_seq = chunk_plain(
             pack, circuit, LasanaState(v=v, o=o, t_last=t_last,

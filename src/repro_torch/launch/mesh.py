@@ -20,8 +20,9 @@ names), so the engine cache keys on them as the reference's does: two
 meshes over the same devices share engines, and a mesh that is gone can
 never be mistaken for a new one.
 
-``make_production_mesh`` (the reference's 16x16 TPU pods) waits for the
-dry-run slice (ROADMAP §A).
+:func:`make_production_mesh` is the reference's production mesh with
+every entry on torch's meta device: the dry run (``launch/dryrun.py``)
+runs its steps there and allocates nothing.
 """
 
 from __future__ import annotations
@@ -76,6 +77,15 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({dict(self.shape)}, "
                 f"devices={[str(d) for d in self.flat()]})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's ``make_production_mesh`` (``launch/mesh.py:16``):
+    (16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")`` with ``multi_pod``, every entry on the meta device."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, ["meta"] * int(np.prod(shape)))
 
 
 def make_mesh(shape, axes, devices=None) -> Mesh:

@@ -41,6 +41,28 @@ of the cache's positions and all kv heads; a decode step gathers every
 query head onto each shard, each shard takes the softmax statistics of its
 slice (max, sum, weighted values), and the shards merge them by
 log-sum-exp in shard order (:func:`_lse_merge`).
+
+The two switches of ``--rule-opt`` (reference ``sharding.py:138-146``,
+``models/attention.py:54-62, 111``):
+
+- ``qk_dim_fallback`` splits ``head_dim`` over the model axis where the
+  head counts do not divide it. Every shard then holds every query head
+  and its slice of each head's features: q and k are gathered whole for
+  rope and cut again, each shard takes the logits' partial sum over its
+  slice, the partial logits are all-reduced before the softmax, each
+  shard weights its slice of v, and the partial ``wo`` products are
+  all-reduced (:func:`_gqa_full_qk`, :func:`_gqa_decode_qk`). Where only
+  the kv heads fail to divide (the query heads split as usual), each
+  shard projects its slice of ``head_dim`` of every kv head and the
+  slices are gathered (:func:`_kv_by_slices`, as for replicated kv heads
+  without the switch in a prefill or a train step; a decode step
+  projects replicated kv heads whole on every shard).
+- ``seq_parallel_attn`` (the group's ``q_seq``) splits the queries over
+  the model axis instead: each shard gathers every head's q, k and v,
+  attends its contiguous block of query rows against the whole K/V,
+  the blocks are all-gathered along the sequence, and each shard
+  projects its own heads through its ``wo`` (partial sums all-reduced)
+  (:func:`_gqa_full_seq`). Decode has one query row and is unaffected.
 """
 
 from __future__ import annotations
@@ -160,7 +182,7 @@ def takes_flash(q, k, v, *, causal: bool, window: int, cross: bool) -> bool:
 
 def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
              window: int = 0, kv_x=None, kv_positions=None, return_kv=False,
-             kv_pick: slice | None = None):
+             kv_pick: slice | None = None, kv=None):
     """Attention over a whole sequence: x (B, S, d) -> (B, S, d) (and the
     post-rope (k, v), each (B, T, KVH, Dh), with ``return_kv``).
     ``kv_x`` (B, T, d) makes it cross-attention (no rope, no mask).
@@ -171,13 +193,15 @@ def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
 
     The head counts are those of ``params``' leaves (a tensor-parallel
     shard's); ``kv_pick`` selects the kv heads the query heads attend with
-    (all by default); ``return_kv`` returns every kv head computed."""
+    (all by default); ``return_kv`` returns every kv head computed;
+    ``kv`` the (k, v) projections (before rope) computed already."""
     h, dh = params["wq"].shape[1], params["wq"].shape[2]
     cross = kv_x is not None
     src = kv_x if cross else x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("btd,dhk->bthk", src, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", src, params["wv"])
+    k, v = kv if kv is not None else (
+        torch.einsum("btd,dhk->bthk", src, params["wk"]),
+        torch.einsum("btd,dhk->bthk", src, params["wv"]))
     if not cross and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions if kv_positions is None else kv_positions,
@@ -210,7 +234,7 @@ def gqa_full(params, x, positions, cfg: ModelConfig, *, causal=True,
 
 
 def gqa_decode(params, x, cache: dict, pos: int, cfg: ModelConfig, *,
-               window: int = 0, kv_pick: slice | None = None):
+               window: int = 0, kv_pick: slice | None = None, kv=None):
     """One-token decode: x (B, 1, d) at absolute position ``pos`` against
     cache {'k', 'v': (B, Tbuf, KVH, Dh), 'kpos': (Tbuf,) absolute
     positions (-1 = empty)}. The new K/V go to slot ``pos % Tbuf`` of the
@@ -218,13 +242,15 @@ def gqa_decode(params, x, cache: dict, pos: int, cfg: ModelConfig, *,
     ``window`` positions count, so a ring buffer of that length serves any
     context. Returns (y, the same cache dict's tensors). Head counts and
     ``kv_pick`` as in :func:`gqa_full`: every kv head computed is
-    written, the picked ones attended."""
+    written, the picked ones attended; ``kv`` the new token's (k, v)
+    projections computed already."""
     h, dh = params["wq"].shape[1], params["wq"].shape[2]
     k, v, kpos = cache["k"], cache["v"], cache["kpos"]
     write = pos % k.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])      # S == 1
-    k_new = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v_new = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k_new, v_new = kv if kv is not None else (
+        torch.einsum("bsd,dhk->bshk", x, params["wk"]),
+        torch.einsum("bsd,dhk->bshk", x, params["wv"]))
     if cfg.rope_theta > 0:
         p = torch.full(x.shape[:2], pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, p, cfg.rope_theta)
@@ -405,10 +431,17 @@ def gqa_full_tp(ps, hs, positions, cfg: ModelConfig, group, *, causal=True,
     partial sums all-reduced. Lists over the shards: ``ps``, ``hs``,
     ``positions``, ``kv_xs``. Returns the outputs (and each shard's
     computed (k, v) with ``return_kv``)."""
+    kw = dict(causal=causal, window=window, kv_xs=kv_xs, return_kv=return_kv)
+    if _dh_split(cfg, ps[0], "wq"):
+        return _gqa_full_qk(ps, hs, positions, cfg, group, **kw)
+    kvs = _kv_by_slices(cfg, ps, hs if kv_xs is None else kv_xs, group)
+    if getattr(group, "q_seq", False) and group.size > 1 \
+            and hs[0].shape[1] % group.size == 0:
+        return _gqa_full_seq(ps, hs, positions, cfg, group, kvs=kvs, **kw)
     picks = _picks(cfg, ps)
     outs = [gqa_full(p, h, pos, cfg, causal=causal, window=window,
                      kv_x=None if kv_xs is None else kv_xs[j],
-                     return_kv=return_kv, kv_pick=picks[j])
+                     return_kv=return_kv, kv_pick=picks[j], kv=kvs[j])
             for j, (p, h, pos) in enumerate(zip(ps, hs, positions))]
     ys = group.reduce([o[0] if return_kv else o for o in outs],
                       _head_split(cfg, ps[0])[0])
@@ -421,13 +454,22 @@ def gqa_decode_tp(ps, hs, caches, pos: int, cfg: ModelConfig, group, *,
                   window: int = 0):
     """:func:`gqa_decode` on each shard's heads and its cache (its kv
     heads, or all of them), partial sums all-reduced."""
+    if _dh_split(cfg, ps[0], "wq"):
+        return _gqa_decode_qk(ps, hs, caches, pos, cfg, group, window=window)
+    # replicated kv heads are projected whole on every shard: one token's
+    # projection is too small for two gathers a layer to pay for
+    kvs = _kv_by_slices(cfg, ps, hs, group) if _dh_split(
+        cfg, ps[0], "wk") else [None] * len(ps)
     picks = _picks(cfg, ps)
-    ys = [gqa_decode(p, h, c, pos, cfg, window=window, kv_pick=picks[j])[0]
+    ys = [gqa_decode(p, h, c, pos, cfg, window=window, kv_pick=picks[j],
+                     kv=kvs[j])[0]
           for j, (p, h, c) in enumerate(zip(ps, hs, caches))]
     return group.reduce(ys, _head_split(cfg, ps[0])[0])
 
 
 def cross_decode_tp(ps, hs, xks, xvs, cfg: ModelConfig, group):
+    if _dh_split(cfg, ps[0], "wq"):
+        return _cross_decode_qk(ps, hs, xks, xvs, cfg, group)
     picks = _picks(cfg, ps)
     ys = [cross_decode(p, h, xk, xv, cfg, kv_pick=picks[j])
           for j, (p, h, xk, xv) in enumerate(zip(ps, hs, xks, xvs))]
@@ -516,6 +558,7 @@ def gqa_decode_kvseq(ps, hs, caches, pos: int, cfg: ModelConfig, group, *,
     new k / v go to the slot's owner, every shard attends all heads over
     its slice, the slices merge by log-sum-exp, and each shard projects
     its own heads' context through its ``wo``."""
+    _no_dh_split(cfg, ps[0], "kv_seq_sharding")
     q_split = _head_split(cfg, ps[0])[0]
     dh = cfg.head_dim
     qs, ks, vs = _kvseq_project(ps, hs, pos, cfg, group)
@@ -543,12 +586,224 @@ def _project_own(ps, hs, ctx, q_split: bool, group):
 def cross_decode_kvseq(ps, hs, xks, xvs, cfg: ModelConfig, group):
     """Cross-attention of one token against encoder K/V cut by position
     over the shards (every kv head on each), merged by log-sum-exp."""
+    _no_dh_split(cfg, ps[0], "kv_seq_sharding")
     q_split = _head_split(cfg, ps[0])[0]
     qs = _all_heads(group, [torch.einsum("bsd,dhk->bshk", h, p["wq"])
                             for p, h in zip(ps, hs)], q_split)
     ctx = _kvseq_attend(group, qs, xks, xvs, [None] * len(ps),
                         cfg.head_dim)
     return _project_own(ps, hs, ctx, q_split, group)
+
+
+# --- the dry run's switches: head_dim or the queries over the model axis -----
+
+def _dh_split(cfg: ModelConfig, p, key: str) -> bool:
+    """Whether a shard's ``key`` leaf holds a slice of ``head_dim``
+    (``qk_dim_fallback``)."""
+    return p[key].shape[2] != cfg.head_dim
+
+
+def _no_dh_split(cfg: ModelConfig, p, what: str) -> None:
+    if any(_dh_split(cfg, p, k) for k in ("wq", "wk", "wv")):
+        raise NotImplementedError(f"{what} with head_dim split over the "
+                                  "model axis (qk_dim_fallback)")
+
+
+def _kv_by_slices(cfg: ModelConfig, ps, srcs, group) -> list:
+    """Each shard's (k, v) of every kv head, computed a slice of
+    ``head_dim`` a shard and gathered, where the kv heads do not split
+    over the shards (they are replicated, or ``qk_dim_fallback`` cut their
+    ``head_dim``): each shard projects 1/n of them, as the reference's
+    partitioner splits the replicated product, instead of all. None per
+    shard where the kv heads split (each shard projects its own)."""
+    n = group.size
+    dh = cfg.head_dim
+    split = _dh_split(cfg, ps[0], "wk")
+    if n == 1 or dh % n or (not split and _head_split(cfg, ps[0])[1]) or (
+            not split and not _head_split(cfg, ps[0])[0]):
+        return [None] * len(ps)
+    w = dh // n
+
+    def cut(p, key, j):
+        return p[key] if split else p[key][:, :, j * w:(j + 1) * w]
+    ks = [torch.einsum("btd,dhk->bthk", x, cut(p, "wk", j))
+          for j, (p, x) in enumerate(zip(ps, srcs))]
+    vs = [torch.einsum("btd,dhk->bthk", x, cut(p, "wv", j))
+          for j, (p, x) in enumerate(zip(ps, srcs))]
+    return list(zip(group.gather(ks, 3), group.gather(vs, 3)))
+
+
+def _own_slice(xs, n: int, dim: int = -1) -> list:
+    """Shard ``j``'s ``j``-th slice of a whole tensor, per shard."""
+    return [x.chunk(n, dim=dim)[j] for j, x in enumerate(xs)]
+
+
+def _qk_project(ps, hs, kv_src, cfg: ModelConfig, group, q_pos, k_pos):
+    """q, k and v of every head, each shard's slice of ``head_dim``, after
+    rope (q and k gathered whole to rotate, then cut again); also k and v
+    whole."""
+    n = group.size
+    qs = [torch.einsum("bsd,dhk->bshk", h, p["wq"]) for p, h in zip(ps, hs)]
+    ks = [torch.einsum("btd,dhk->bthk", x, p["wk"])
+          for p, x in zip(ps, kv_src)]
+    vs = [torch.einsum("btd,dhk->bthk", x, p["wv"])
+          for p, x in zip(ps, kv_src)]
+    k_whole = group.gather(ks, 3)
+    if q_pos is not None and cfg.rope_theta > 0:
+        q_whole = [apply_rope(q, pos, cfg.rope_theta)
+                   for q, pos in zip(group.gather(qs, 3), q_pos)]
+        k_whole = [apply_rope(k, pos, cfg.rope_theta)
+                   for k, pos in zip(k_whole, k_pos)]
+        qs, ks = _own_slice(q_whole, n), _own_slice(k_whole, n)
+    return qs, ks, vs, k_whole
+
+
+def _partial_attend(group, qs, ks, vs, scale: float, masks):
+    """Softmax attention from per-shard ``head_dim`` slices: q (B, c, KVH,
+    G, d_j), k (B, T, KVH, d_j), v (B, T, KVH, d_j); the logits' partial
+    sums all-reduced (fp32), each shard weighting its slice of v ->
+    (B, c, KVH, G, d_j) per shard. ``masks`` an additive (B, 1, 1, c, T)
+    bias or a (T,) validity per shard, or None."""
+    parts = [torch.einsum("bckgd,btkd->bkgct", q, k).float()
+             for q, k in zip(qs, ks)]
+    logits = group.sum(parts)
+    out = []
+    for lg, v, m in zip(logits, vs, masks):
+        lg = lg * scale
+        if m is not None:
+            lg = lg + m if m.dtype != torch.bool else torch.where(m, lg,
+                                                                  NEG_INF)
+        w = torch.softmax(lg, dim=-1).to(v.dtype)
+        out.append(torch.einsum("bkgct,btkd->bckgd", w, v))
+    return out
+
+
+def _gqa_full_qk(ps, hs, positions, cfg: ModelConfig, group, *, causal,
+                 window, kv_xs, return_kv):
+    """Whole-sequence attention with ``head_dim`` split (every head on
+    every shard), query chunk by query chunk as :func:`_chunked_attn`."""
+    n = group.size
+    cross = kv_xs is not None
+    src = kv_xs if cross else hs
+    k_pos = None if cross else positions
+    qs, ks, vs, k_whole = _qk_project(ps, hs, src, cfg, group,
+                                      None if cross else positions, k_pos)
+    b, s, h, d_j = qs[0].shape
+    kvh = ks[0].shape[2]
+    if cross:
+        causal, window = False, 0
+        k_pos = [torch.arange(x.shape[1], dtype=torch.int32,
+                              device=x.device)[None, :] for x in src]
+    c = _pick_chunk(s, DEFAULT_Q_CHUNK)
+    scale = _inv_sqrt(cfg.head_dim)
+    outs = [[] for _ in range(n)]
+    for i in range(0, s, c):
+        masks = [_mask_bias(pos.expand(b, s)[:, i:i + c], kp, causal=causal,
+                            window=window)[:, None, None]
+                 for pos, kp in zip(positions, k_pos)]
+        qc = [q[:, i:i + c].reshape(b, -1, kvh, h // kvh, d_j) for q in qs]
+        for j, o in enumerate(_partial_attend(group, qc, ks, vs, scale,
+                                              masks)):
+            outs[j].append(o)
+    ys = [torch.einsum("bshk,hkd->bsd", torch.cat(o, dim=1).reshape(
+        b, s, h, d_j), p["wo"]) for o, p in zip(outs, ps)]
+    ys = group.reduce(ys, True)
+    if return_kv:
+        return ys, list(zip(k_whole, group.gather(vs, 3)))
+    return ys
+
+
+def _gqa_decode_qk(ps, hs, caches, pos: int, cfg: ModelConfig, group, *,
+                   window: int = 0):
+    """One decode step with ``head_dim`` split: the new k / v gathered
+    whole into every shard's cache (each holds every kv head), the
+    logits' partial sums over the shards' slices all-reduced."""
+    n = group.size
+    at = [torch.full(h.shape[:2], pos, dtype=torch.int32, device=h.device)
+          for h in hs]
+    qs, _, vs, k_whole = _qk_project(ps, hs, hs, cfg, group, at, at)
+    v_whole = group.gather(vs, 3)
+    b, _, h, d_j = qs[0].shape
+    for c, k, v in zip(caches, k_whole, v_whole):
+        write = pos % c["k"].shape[1]
+        c["k"][:, write] = k[:, 0].to(c["k"].dtype)
+        c["v"][:, write] = v[:, 0].to(c["v"].dtype)
+        c["kpos"][write] = pos
+    kvh = caches[0]["k"].shape[2]
+    outs = _partial_attend(
+        group, [q.reshape(b, 1, kvh, h // kvh, d_j) for q in qs],
+        _own_slice([c["k"] for c in caches], n),
+        _own_slice([c["v"] for c in caches], n), 1.0 / math.sqrt(cfg.head_dim),
+        [_valid(c["kpos"], pos, window) for c in caches])
+    ys = [torch.einsum("bshk,hkd->bsd", o.reshape(b, 1, h, d_j), p["wo"])
+          for o, p in zip(outs, ps)]
+    return group.reduce(ys, True)
+
+
+def _cross_decode_qk(ps, hs, xks, xvs, cfg: ModelConfig, group):
+    """One token's cross-attention with ``head_dim`` split, against the
+    whole encoder K/V each shard holds."""
+    n = group.size
+    qs = [torch.einsum("bsd,dhk->bshk", h, p["wq"]) for p, h in zip(ps, hs)]
+    b, _, h, d_j = qs[0].shape
+    kvh = xks[0].shape[2]
+    outs = _partial_attend(
+        group, [q.reshape(b, 1, kvh, h // kvh, d_j) for q in qs],
+        _own_slice(xks, n), _own_slice(xvs, n),
+        1.0 / math.sqrt(cfg.head_dim), [None] * n)
+    ys = [torch.einsum("bshk,hkd->bsd", o.reshape(b, 1, h, d_j).to(x.dtype),
+                       p["wo"]) for o, p, x in zip(outs, ps, hs)]
+    return group.reduce(ys, True)
+
+
+def _gqa_full_seq(ps, hs, positions, cfg: ModelConfig, group, *, causal,
+                  window, kv_xs, return_kv, kvs):
+    """Whole-sequence attention with the queries split over the shards:
+    every head's q, k and v gathered onto each shard, each shard's block
+    of query rows attended against the whole K/V, the blocks gathered
+    along the sequence, each shard's own heads through its ``wo``."""
+    n = group.size
+    cross = kv_xs is not None
+    src = kv_xs if cross else hs
+    q_split, kv_split = _head_split(cfg, ps[0])
+    qs, ks, vs = [], [], []
+    for p, h, x, pos, kv in zip(ps, hs, src, positions, kvs):
+        q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+        k, v = kv if kv is not None else (
+            torch.einsum("btd,dhk->bthk", x, p["wk"]),
+            torch.einsum("btd,dhk->bthk", x, p["wv"]))
+        if not cross and cfg.rope_theta > 0:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    qa = _all_heads(group, qs, q_split)
+    ka = _all_heads(group, ks, kv_split)
+    va = _all_heads(group, vs, kv_split)
+    b, s, h, dh = qa[0].shape
+    kvh = ka[0].shape[2]
+    rows = s // n
+    blocks = []
+    for j, (q, k, v, pos) in enumerate(zip(qa, ka, va, positions)):
+        lo = j * rows
+        q_pos = pos.expand(b, s)[:, lo:lo + rows]
+        if cross:
+            k_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                 device=k.device)[None, :]
+        else:
+            k_pos = pos
+        blocks.append(_chunked_attn(
+            q[:, lo:lo + rows].reshape(b, rows, kvh, h // kvh, dh), k, v,
+            q_pos, k_pos, _inv_sqrt(dh), causal=causal and not cross,
+            window=0 if cross else window))
+    whole = group.gather(blocks, 1)
+    own = _own_heads([o.reshape(b, s, h, dh) for o in whole], q_split, n)
+    ys = group.reduce([torch.einsum("bshk,hkd->bsd", o, p["wo"])
+                       for o, p in zip(own, ps)], q_split)
+    if return_kv:
+        return ys, list(zip(ks, vs))
+    return ys
 
 
 def _mla_split(cfg: ModelConfig, p) -> bool:

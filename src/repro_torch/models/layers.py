@@ -138,7 +138,21 @@ def embed_tp(ps, tokens, vocab: int, group):
 
 def unembed_tp(ps, hs, cfg: ModelConfig, group):
     """Vocab-parallel logits, gathered over the vocab onto the row's
-    first shard (the loss and the returned logits read them there)."""
+    first shard (the loss and the returned logits read them there). A
+    vocab the shards do not split (every shard holds all of it) is cut
+    into blocks of ceil(V / n) columns all the same, each shard computing
+    one, as the reference's partitioner splits a replicated product."""
+    n = group.size
+    w0 = ps[0]["embedding"] if cfg.tie_embeddings else ps[0]["lm_head"]
+    if n > 1 and w0.shape[0 if cfg.tie_embeddings else 1] == cfg.vocab:
+        c = -(-cfg.vocab // n)
+        parts = []
+        for j, (p, h) in enumerate(zip(ps, hs)):
+            lo, hi = min(j * c, cfg.vocab), min((j + 1) * c, cfg.vocab)
+            w = p["embedding"][lo:hi].T if cfg.tie_embeddings \
+                else p["lm_head"][:, lo:hi]
+            parts.append(torch.einsum("...d,dv->...v", h, w).float())
+        return collectives.all_gather(parts, -1, [group.devices[0]])[0]
     parts = [unembed(p, h, cfg) for p, h in zip(ps, hs)]
     if parts[0].shape[-1] == cfg.vocab:
         return parts[0]

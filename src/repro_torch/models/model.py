@@ -177,26 +177,70 @@ class Rows:
         flat = mesh.flat()
         self.groups = [collectives.Group(flat[r * self.m:(r + 1) * self.m])
                        for r in range(self.n)]
+        # the rows that compute; the dry run (launch/dryrun.py) runs one
+        # and lets it stand for the rest, which run the same program on
+        # slices of the same shapes
+        self.live = list(range(self.n))
 
     def entries(self, r: int) -> range:
         return range(r * self.m, (r + 1) * self.m)
 
+    def kept(self) -> list | None:
+        """The live rows' mesh entries, or None where every row
+        computes."""
+        if len(self.live) == self.n:
+            return None
+        return [e for r in self.live for e in self.entries(r)]
+
+    def map(self, fn, rows=None) -> list:
+        """``fn(r)`` for every row (or each of ``rows``): computed for the
+        live rows, the first one's result (detached: a stand-in passes no
+        gradient back) standing for each other row's."""
+        want = range(self.n) if rows is None else rows
+        done = {r: fn(r) for r in want if r in self.live}
+        if len(done) == len(want):
+            return [done[r] for r in want]
+        stand_in = tr.tree_map(
+            lambda t: t.detach() if isinstance(t, torch.Tensor) else t,
+            next(iter(done.values())))
+        return [done.get(r, stand_in) for r in want]
+
 
 def _gather_over_rows(t_entry, pl: shd.Placement, e: int, k: int,
-                      dim: int, dev):
+                      dim: int, dev, kept=None):
     """Entry ``e``'s block of a leaf with dim ``k`` whole over the data
     axes that split it: the blocks of the entries that differ from ``e``
-    only on those axes, all-gathered along ``dim``."""
+    only on those axes, all-gathered along ``dim``. Where only the
+    entries ``kept`` compute (``Rows.kept``, on meta), ``e``'s own block
+    stands in for each other peer's: the gather's adjoint then hands
+    ``e`` the gradient pieces that those peers' own gathers would have
+    sent it, one for each, as in the run where every row computes."""
     axes = pl.dim_axes(k)
     if "model" in axes:
         raise NotImplementedError(f"{pl}: dim {k} split over {axes}")
-    mine = pl.coords(e)
-    peers = [i for i in range(pl.mesh.size)
-             if all(c == mine[a] for a, c in pl.coords(i).items()
-                    if a not in axes)]
-    peers.sort(key=lambda i: pl.block(i)[k])
-    return collectives.all_gather([t_entry(i) for i in peers], dim,
-                                  [dev])[0]
+    peers = _peers(pl.mesh.devices.shape, pl.mesh.axis_names, axes, e)
+    return collectives.all_gather(
+        [t_entry(i if kept is None or i in kept else e) for i in peers],
+        dim, [dev], at=[e])[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def _peers(shape: tuple, names: tuple, axes: tuple, e: int) -> tuple:
+    """The mesh entries that differ from ``e`` only on ``axes``, in the
+    order of the block they hold along a dim split over ``axes`` (major
+    axis first)."""
+    table = shd._coords(shape, names)
+    mine = table[e]
+    sizes = dict(zip(names, shape))
+    peers = [i for i, c in enumerate(table)
+             if all(v == mine[a] for a, v in c.items() if a not in axes)]
+
+    def block(i):
+        b = 0
+        for a in axes:
+            b = b * sizes[a] + table[i][a]
+        return b
+    return tuple(sorted(peers, key=block))
 
 
 class PlacedView:
@@ -207,6 +251,8 @@ class PlacedView:
     def __init__(self, rows: Rows):
         self.rows = rows
         self._unbound: dict = {}
+        kept = rows.kept()
+        self._kept = None if kept is None else set(kept)
 
     def _layers(self, leaf: shd.Sharded) -> list:
         key = id(leaf)
@@ -251,7 +297,7 @@ class PlacedView:
             k = dp_dims[0]
             out.append(_gather_over_rows(block, pl, e, k,
                                          k - (layer is not None),
-                                         pl.devices[e]))
+                                         pl.devices[e], self._kept))
         return out
 
     def shards(self, tree, r: int, layer=None) -> list:
@@ -288,16 +334,14 @@ class Model:
         self.rules = rules if rules is not None or mesh is None \
             else shd.train_rules(mesh)
         self.rows = None
-        if mesh is not None:
-            for logical, switch in (("attn_q_seq", "seq_parallel_attn"),
-                                    ("qk_dim", "qk_dim_fallback")):
-                axes = shd._entry_axes(self.rules.mesh_axes(logical))
-                if any(mesh.shape.get(a, 1) > 1 for a in axes):
-                    raise NotImplementedError(
-                        f"{switch}: {logical!r} over {axes} is not ported "
-                        "yet (the dry-run slice, ROADMAP §A)")
-            if mesh.size > 1:
-                self.rows = Rows(mesh)
+        if mesh is not None and mesh.size > 1:
+            self.rows = Rows(mesh)
+            # seq_parallel_attn: attention splits its queries over the
+            # model axis (attention._gqa_full_seq)
+            axes = shd._entry_axes(self.rules.mesh_axes("attn_q_seq"))
+            q_seq = "model" in axes and mesh.shape.get("model", 1) > 1
+            for g in self.rows.groups:
+                g.q_seq = q_seq
 
     @property
     def sharded(self) -> bool:
@@ -676,11 +720,10 @@ class Model:
         rows = range(len(mids))
         groups = self.rows.groups
         if kind != "attn_moe":
-            return [tfm.ffn_tp(ps[r], mids[r], cfg, kind, groups[r])[0]
-                    for r in rows], None
-        h2 = [[rmsnorm(p["ln2"], x, cfg.norm_eps) for p, x in zip(ps[r],
-                                                                 mids[r])]
-              for r in rows]
+            return self.rows.map(lambda r: tfm.ffn_tp(
+                ps[r], mids[r], cfg, kind, groups[r])[0]), None
+        h2 = self.rows.map(lambda r: [rmsnorm(p["ln2"], x, cfg.norm_eps)
+                                      for p, x in zip(ps[r], mids[r])])
         experts = [[p["moe"] for p in ps[r]] for r in rows]
         n = len(mids) if inputs.split else 1   # rows that split the batch
         b, s = mids[0][0].shape[:2]
@@ -688,14 +731,14 @@ class Model:
         g = n_moe_groups if tokens % n_moe_groups == 0 else 1
         dev = self.mesh.flat()[0]
         if g % n == 0:
-            outs, loads = [], []
-            for r in rows:
+            def route(r):
                 ys, ld = moe_mod.moe_ffn_tp(experts[r], h2[r], cfg,
                                             groups[r], n_groups=g // n,
                                             load=True)
-                outs.append([x + y for x, y in zip(mids[r], ys)])
-                loads.append(ld)
-            return outs, moe_mod.balance_loss(loads[:n], tokens, cfg, dev)
+                return [x + y for x, y in zip(mids[r], ys)], ld
+            outs, loads = zip(*self.rows.map(route))
+            return list(outs), moe_mod.balance_loss(list(loads[:n]), tokens,
+                                                    cfg, dev)
         whole = [collectives.all_gather([h2[r][j] for r in rows], 0,
                                         [h2[0][j].device])[0]
                  for j in range(self.rows.m)]
@@ -703,10 +746,12 @@ class Model:
                                     n_groups=g, load=True)
         # a one-part reduce_scatter: row 0's output cut into the rows'
         # slices, each onto its row's shard
-        cut = [collectives.reduce_scatter([y], 0, [mids[r][j].device
-                                                   for r in rows])
+        cut = [collectives.reduce_scatter(
+            [y], 0, [mids[r][j].device for r in rows],
+            at=[r * self.rows.m + j for r in rows])
                for j, y in enumerate(ys)]
-        return ([[x + c[r] for x, c in zip(mids[r], cut)] for r in rows],
+        return (self.rows.map(lambda r: [x + c[r]
+                                         for x, c in zip(mids[r], cut)]),
                 moe_mod.balance_loss([ld], tokens, cfg, dev))
 
     def _rows_hidden(self, view, params, inputs, n_moe_groups: int):
@@ -715,11 +760,13 @@ class Model:
         rows."""
         cfg = self.cfg
         rows = range(self.rows.n)
-        embs, xs = zip(*[self._row_embed(view, params, inputs, r)
-                         for r in rows])
+        embs, xs = zip(*self.rows.map(
+            lambda r: self._row_embed(view, params, inputs, r)))
         xs = [list(x) for x in xs]
-        positions = [[self._positions(x) for x in xr] for xr in xs]
-        enc = [self._row_encode(view, params, inputs, r) for r in rows]
+        positions = self.rows.map(lambda r: [self._positions(x)
+                                             for x in xs[r]])
+        enc = self.rows.map(lambda r: self._row_encode(view, params, inputs,
+                                                       r))
         aux = torch.zeros((), dtype=torch.float32,
                           device=self.mesh.flat()[0])
         m = self.rows.m
@@ -728,19 +775,18 @@ class Model:
                 view.prepare(params[st.name])
             for i, kind in enumerate(st.kinds):
                 def body(*flat, _i=i, _kind=kind, _st=st):
-                    mids = []
-                    for r in rows:
-                        mids.append(tfm.layer_apply_tp(
-                            self._layer_params(view, params, _st, r, _i),
-                            list(flat[r * m:(r + 1) * m]), positions[r], cfg,
-                            _kind, self.rows.groups[r], enc_outs=enc[r],
-                            ffn=False))
+                    mids = self.rows.map(lambda r: tfm.layer_apply_tp(
+                        self._layer_params(view, params, _st, r, _i),
+                        list(flat[r * m:(r + 1) * m]), positions[r], cfg,
+                        _kind, self.rows.groups[r], enc_outs=enc[r],
+                        ffn=False))
                     if _kind == "mamba2":
                         return (*[x for xr in mids for x in xr],
                                 torch.zeros_like(aux))
                     outs, a = self._ffn_rows(
-                        [self._layer_params(view, params, _st, r, _i)
-                         for r in rows], _kind, mids, inputs, n_moe_groups)
+                        self.rows.map(lambda r: self._layer_params(
+                            view, params, _st, r, _i)),
+                        _kind, mids, inputs, n_moe_groups)
                     a = torch.zeros_like(aux) if a is None else a.to(
                         aux.device)
                     return (*[x for xr in outs for x in xr], a)
@@ -748,11 +794,9 @@ class Model:
                     *[x for xr in xs for x in xr])
                 xs = [list(flat[r * m:(r + 1) * m]) for r in rows]
                 aux = aux + a
-        hs = []
-        for r in rows:
-            norms = view.leaf(params["final_norm"], r)
-            hs.append([rmsnorm(w, x, cfg.norm_eps)
-                       for w, x in zip(norms, xs[r])])
+        hs = self.rows.map(lambda r: [
+            rmsnorm(w, x, cfg.norm_eps)
+            for w, x in zip(view.leaf(params["final_norm"], r), xs[r])])
         return hs, aux, embs
 
     def _forward_placed(self, params, batch, n_moe_groups: int):
@@ -770,12 +814,13 @@ class Model:
         view = PlacedView(self.rows)
         hs, aux, embs = self._rows_hidden(view, params, inputs, n_moe_groups)
         rows = range(self.rows.n) if inputs.split else [0]
-        parts = []
-        for r in rows:
+
+        def ce(r):
             labels = self._row(inputs, "labels", r)[0]
             nll, n = self._ce(unembed_tp(embs[r], hs[r], cfg,
                                          self.rows.groups[r]), labels)
-            parts.append({"nll": nll, "n": n})
+            return {"nll": nll, "n": n}
+        parts = self.rows.map(ce, rows)
         if cfg.mtp_depth:
             for r, p in zip(rows, self._mtp_rows(view, params, inputs, embs,
                                                  hs, n_moe_groups)):
@@ -792,9 +837,10 @@ class Model:
         runs over every row, as the stacks' layers do."""
         cfg = self.cfg
         rows = range(self.rows.n)
-        mtp = [view.shards(params["mtp"], r) for r in rows]
-        mids = []
-        for r in rows:
+        mtp = self.rows.map(lambda r: view.shards(params["mtp"], r))
+        kind = "attn_moe" if cfg.moe is not None else "attn_dense"
+
+        def mid(r):
             group = self.rows.groups[r]
             e_next = [e.to(self.dtype) for e in embed_tp(
                 embs[r], [t[:, 1:] for t in self._row(inputs, "tokens", r)],
@@ -803,22 +849,21 @@ class Model:
                 [rmsnorm(m["norm_h"], h[:, :-1], cfg.norm_eps),
                  rmsnorm(m["norm_e"], e, cfg.norm_eps)], dim=-1), m["proj"])
                 for m, h, e in zip(mtp[r], hs[r], e_next)]
-            kind = "attn_moe" if cfg.moe is not None else "attn_dense"
-            mids.append(tfm.layer_apply_tp(
+            return tfm.layer_apply_tp(
                 [m["layer"] for m in mtp[r]], xs,
                 [self._positions(x) for x in xs], cfg, kind, group,
-                ffn=False))
+                ffn=False)
+        mids = self.rows.map(mid)
         ys, _ = self._ffn_rows([[m["layer"] for m in mtp[r]] for r in rows],
                                kind, mids, inputs, n_moe_groups)
-        out = []
-        for r in (rows if inputs.split else [0]):
+        def ce(r):
             h_mtp = [rmsnorm(m["final_norm"], y, cfg.norm_eps)
                      for m, y in zip(mtp[r], ys[r])]
             labels = self._row(inputs, "labels", r)[0]
             nll, n = self._ce(unembed_tp(embs[r], h_mtp, cfg,
                                          self.rows.groups[r]), labels[:, 1:])
-            out.append({"mtp_nll": nll, "mtp_n": n})
-        return out
+            return {"mtp_nll": nll, "mtp_n": n}
+        return self.rows.map(ce, rows if inputs.split else [0])
 
     def _seq_split(self, placements) -> set:
         """Names of a layer's cache leaves cut by position over the model
@@ -838,11 +883,13 @@ class Model:
         pls = self.cache_placements(b, max_seq, cache_dtype)
         view = PlacedView(self.rows)
         rows = range(self.rows.n)          # each row fills its own cache
-        embs, xs = zip(*[self._row_embed(view, params, inputs, r)
-                         for r in rows])
+        embs, xs = zip(*self.rows.map(
+            lambda r: self._row_embed(view, params, inputs, r)))
         xs = [list(x) for x in xs]
-        positions = [[self._positions(x) for x in xr] for xr in xs]
-        enc = [self._row_encode(view, params, inputs, r) for r in rows]
+        positions = self.rows.map(lambda r: [self._positions(x)
+                                             for x in xs[r]])
+        enc = self.rows.map(lambda r: self._row_encode(view, params, inputs,
+                                                       r))
         entries = [list(self.rows.entries(r)) for r in rows]
         stacks = {}
         for st in self.stacks:
@@ -853,19 +900,20 @@ class Model:
             for i, kind in enumerate(st.kinds):
                 split = self._seq_split(pls[st.name] if st.scan
                                         else pls[st.name][i])
-                mids, layer_caches = [], [None] * self.mesh.size
-                for r in rows:
-                    x, cs = tfm.layer_prefill_tp(
-                        self._layer_params(view, params, st, r, i), xs[r],
-                        positions[r], cfg, kind, self.rows.groups[r],
-                        max_seq=max_seq, enc_outs=enc[r],
-                        cache_dtype=cache_dtype, seq_split=split, ffn=False)
-                    mids.append(x)
+                layer_caches = [None] * self.mesh.size
+                done = self.rows.map(lambda r, _i=i, _kind=kind, _st=st,
+                                     _split=split: tfm.layer_prefill_tp(
+                    self._layer_params(view, params, _st, r, _i), xs[r],
+                    positions[r], cfg, _kind, self.rows.groups[r],
+                    max_seq=max_seq, enc_outs=enc[r],
+                    cache_dtype=cache_dtype, seq_split=_split, ffn=False))
+                mids = [x for x, _ in done]
+                for r, (_, cs) in zip(rows, done):
                     for e, c in zip(entries[r], cs):
                         layer_caches[e] = c
                 xs = mids if kind == "mamba2" else self._ffn_rows(
-                    [self._layer_params(view, params, st, r, i)
-                     for r in rows], kind, mids, inputs, 1)[0]
+                    self.rows.map(lambda r, _i=i, _st=st: self._layer_params(
+                        view, params, _st, r, _i)), kind, mids, inputs, 1)[0]
                 if not st.scan:
                     per_layer.append({
                         k: shd.Sharded(pl, [c[k] for c in layer_caches])
@@ -881,12 +929,12 @@ class Model:
             stacks[st.name] = per_layer if not st.scan else {
                 k: shd.Sharded(pl, [c[k] for c in stacked])
                 for k, pl in pls[st.name].items()}
-        logits = []
-        for r in rows:
+        def last(r):
             norms = view.leaf(params["final_norm"], r)
             hs = [rmsnorm(w, x[:, -1:], cfg.norm_eps)
                   for w, x in zip(norms, xs[r])]
-            logits.append(unembed_tp(embs[r], hs, cfg, self.rows.groups[r]))
+            return unembed_tp(embs[r], hs, cfg, self.rows.groups[r])
+        logits = self.rows.map(last)
         pos = inputs.parts["tokens"][0].shape[1]
         return self._gather_rows(inputs, logits), {"stacks": stacks,
                                                    "pos": pos}
@@ -896,35 +944,35 @@ class Model:
         pos = int(cache["pos"])
         inputs = self.place_inputs({"tokens": tokens})
         view = PlacedView(self.rows)
-        rows = range(self.rows.n)          # each row steps its own cache
-        embs = [view.shards(params["embed"], r) for r in rows]
-        xs = [[self._add_positions(x.to(self.dtype), pos)
-               for x in embed_tp(embs[r], self._row(inputs, "tokens", r),
-                                 cfg.vocab, self.rows.groups[r])]
-              for r in rows]
+        embs = self.rows.map(lambda r: view.shards(params["embed"], r))
+        xs = self.rows.map(lambda r: [
+            self._add_positions(x.to(self.dtype), pos)
+            for x in embed_tp(embs[r], self._row(inputs, "tokens", r),
+                              cfg.vocab, self.rows.groups[r])])
         for st in self.stacks:
             for i, kind in enumerate(st.kinds):
                 leaves = cache["stacks"][st.name] if st.scan \
                     else cache["stacks"][st.name][i]
                 split = self._seq_split({k: t.placement
                                          for k, t in leaves.items()})
-                mids = []
-                for r in rows:
-                    cs = [{k: (t.shards[e][i] if st.scan else t.shards[e])
-                           for k, t in leaves.items()}
+                def step(r, _i=i, _kind=kind, _st=st, _leaves=leaves,
+                         _split=split):
+                    cs = [{k: (t.shards[e][_i] if _st.scan else t.shards[e])
+                           for k, t in _leaves.items()}
                           for e in self.rows.entries(r)]
-                    mids.append(tfm.layer_decode_tp(
-                        self._layer_params(view, params, st, r, i), xs[r],
-                        cs, pos, cfg, kind, self.rows.groups[r],
-                        seq_split=split, ffn=False))
+                    return tfm.layer_decode_tp(
+                        self._layer_params(view, params, _st, r, _i), xs[r],
+                        cs, pos, cfg, _kind, self.rows.groups[r],
+                        seq_split=_split, ffn=False)
+                mids = self.rows.map(step)
                 xs = mids if kind == "mamba2" else self._ffn_rows(
-                    [self._layer_params(view, params, st, r, i)
-                     for r in rows], kind, mids, inputs, 1)[0]
-        logits = []
-        for r in rows:
+                    self.rows.map(lambda r, _i=i, _st=st: self._layer_params(
+                        view, params, _st, r, _i)), kind, mids, inputs, 1)[0]
+        def last(r):
             norms = view.leaf(params["final_norm"], r)
             hs = [rmsnorm(w, x, cfg.norm_eps) for w, x in zip(norms, xs[r])]
-            logits.append(unembed_tp(embs[r], hs, cfg, self.rows.groups[r]))
+            return unembed_tp(embs[r], hs, cfg, self.rows.groups[r])
+        logits = self.rows.map(last)
         return self._gather_rows(inputs, logits), {"stacks": cache["stacks"],
                                                    "pos": pos + 1}
 

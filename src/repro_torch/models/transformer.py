@@ -359,6 +359,8 @@ def layer_prefill_tp(ps, xs, positions, cfg: ModelConfig, kind: str, group,
         for key, w in (("xk", "wk"), ("xv", "wv")):
             parts = [torch.einsum("btd,dhk->bthk", e, p[w]).to(cache_dtype)
                      for e, p in zip(enc_outs, xps)]
+            if attn._dh_split(cfg, xps[0], w):   # qk_dim_fallback
+                parts = group.gather(parts, 3)
             if "xk" in seq_split:
                 parts = _by_position(group, parts, n,
                                      attn._head_split(cfg, xps[0])[1])

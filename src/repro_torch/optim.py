@@ -87,10 +87,16 @@ def _sq_sum(t: torch.Tensor) -> torch.Tensor:
 
 def _leaf_sq_sum(x) -> torch.Tensor:
     """A leaf's sum of squares; a placed leaf's blocks each counted once
-    (the first holder of each), summed in block order."""
+    (the first holder of each), summed in block order; blocks that a
+    view of the placement sees at one entry (``sharding.through``) are
+    summed there once and take part once each."""
     if not isinstance(x, Sharded):
         return _sq_sum(x)
-    parts = [_sq_sum(x.shards[g[0]]) for g in x.placement.replicas()]
+    sums: dict = {}
+    for g in x.placement.replicas():
+        if g[0] not in sums:
+            sums[g[0]] = _sq_sum(x.shards[g[0]])
+    parts = [sums[g[0]] for g in x.placement.replicas()]
     return collectives.all_reduce_sum(parts, [x.device])[0]
 
 

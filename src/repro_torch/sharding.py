@@ -23,14 +23,18 @@ so that it holds its own channels of each. A placed tensor is a
 :class:`Sharded` (its placement and one tensor per mesh entry, in
 row-major mesh order); on a mesh of one entry it is the plain tensor.
 
-The two switches that only the dry run reaches, ``qk_dim_fallback`` and
-``seq_parallel_attn``, are not ported: a placement that would split
-``qk_dim`` or ``attn_q_seq`` over a mesh axis raises, naming the switch.
+The two switches of ``train_rules`` that the dry run's ``--rule-opt``
+reaches (reference ``:138-146``): ``qk_dim_fallback`` maps ``qk_dim``
+(``head_dim``) onto the model axis, which a weight takes where its head
+count does not divide the axis; ``seq_parallel_attn`` maps
+``attn_q_seq``, the rows of attention's query chunks. How attention runs
+under each is in ``models/attention.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Any, Mapping, Sequence
 
@@ -43,8 +47,12 @@ from repro_torch.launch.mesh import Mesh
 
 LogicalAxis = str | None
 
-# logical axes that only the dry run's switches map onto a mesh axis
-_SWITCHES = {"qk_dim": "qk_dim_fallback", "attn_q_seq": "seq_parallel_attn"}
+
+@functools.lru_cache(maxsize=64)
+def _coords(shape: tuple, names: tuple) -> tuple:
+    """Every mesh entry's ``{axis: index}``, in row-major order."""
+    return tuple(dict(zip(names, (int(x) for x in idx)))
+                 for idx in np.ndindex(*shape))
 
 
 def _entry_axes(entry) -> tuple:
@@ -113,8 +121,9 @@ class Placement:
         return self.mesh.flat()
 
     def coords(self, i: int) -> dict:
-        idx = np.unravel_index(i, self.mesh.devices.shape)
-        return dict(zip(self.mesh.axis_names, (int(x) for x in idx)))
+        """Mesh entry ``i``'s index along each axis (a shared dict: read
+        it, do not change it)."""
+        return _coords(self.mesh.devices.shape, self.mesh.axis_names)[i]
 
     def block(self, i: int) -> tuple:
         """Mesh entry ``i``'s block index along each dim."""
@@ -261,6 +270,47 @@ def map_tensors(fn, tree, *rest):
     return tr.tree_map(one, tree, *rest)
 
 
+class _Through:
+    """A placement seen through the mesh entries of some data rows
+    (``keep``, whole rows in mesh order, the ``model`` axis last): a mesh
+    of ``len(keep)`` entries. Its replica groups are the placement's,
+    renumbered, an entry of another row seen as the first kept row's
+    entry of the same model shard (whose block has the same shape): the
+    groups keep their number, and a block outside the kept rows is seen
+    as a kept one."""
+
+    def __init__(self, pl: Placement, keep):
+        self._pl, self._pos = pl, {e: i for i, e in enumerate(keep)}
+        self.mesh = type("Through", (), {"size": len(keep)})()
+
+    def replicas(self) -> list:
+        m = self._pl.mesh.shape.get("model", 1)
+        out = []
+        for g in self._pl.replicas():
+            seen: list = []
+            for i in g:
+                j = self._pos.get(i, i % m)
+                if j not in seen:
+                    seen.append(j)
+            out.append(seen)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._pl, name)
+
+
+def through(tree, keep):
+    """``tree`` with each placed leaf cut to the shards of the mesh
+    entries ``keep`` (the same tensors): what the entries of the data
+    rows that compute (``Model.rows.live``) update. ``keep`` None leaves
+    the tree as it is."""
+    if keep is None:
+        return tree
+    return tr.tree_map(lambda x: Sharded(_Through(x.placement, keep),
+                                         [x.shards[i] for i in keep])
+                       if isinstance(x, Sharded) else x, tree)
+
+
 def tensors(leaf) -> list:
     """A leaf's tensors: its shards, or the plain tensor."""
     return leaf.shards if isinstance(leaf, Sharded) else [leaf]
@@ -345,13 +395,6 @@ class ShardingRules:
         ``shape``: mesh axes that do not divide a dim are dropped)."""
         spec = (self.spec_for_shape(mesh, logical_spec, shape)
                 if shape is not None else self.spec(logical_spec))
-        for logical, entry in zip(logical_spec, spec):
-            if logical in _SWITCHES and any(
-                    mesh.shape[a] > 1 for a in _entry_axes(entry)):
-                raise NotImplementedError(
-                    f"{_SWITCHES[logical]}: splitting {logical!r} over "
-                    f"{entry!r} is not ported yet (the dry-run slice, "
-                    "ROADMAP §A)")
         return Placement(mesh, spec, shape, segments=segments,
                          logical=tuple(logical_spec))
 

@@ -104,33 +104,49 @@ def placed_loss_and_grads(model: Model, params, batch, *,
     leaf's gradient summed over the entries that hold the same block
     (its replicas), so every entry holds its block's whole gradient, in a
     tensor of its own (the update and the int8 compression write the
-    gradients in place, entry by entry)."""
+    gradients in place, entry by entry).
+
+    Where only some data rows compute (``model.rows.live``: the dry run,
+    on meta tensors, lets one row stand for the rest), gradients are
+    taken for the live rows' entries alone and all-reduced into them,
+    each other member of a replica group taking part with its parameter
+    shard in place of its gradient (of the same shape and dtype); the
+    grads come back seen through those entries (``sharding.through``)."""
+    keep = model.rows.kept()
+    live = range(model.mesh.size) if keep is None else keep
     flat, treedef = tr.flatten(params)
-    leaves = [[t.detach().requires_grad_() for t in x.shards] for x in flat]
+    leaves = [list(x.shards) for x in flat]
+    for ts in leaves:
+        for i in live:
+            ts[i] = ts[i].detach().requires_grad_()
     gp = tr.unflatten(treedef, [shd.Sharded(x.placement, ts)
                                 for x, ts in zip(flat, leaves)])
     with torch.enable_grad():
         parts = model.loss_parts(gp, batch, n_moe_groups=n_moe_groups)
         loss, metrics = model.combine_loss(parts, parts["n"],
                                            parts.get("mtp_n"))
-        every = [t for ts in leaves for t in ts]
-        got = torch.autograd.grad(loss, every, allow_unused=True)
+        got = torch.autograd.grad(
+            loss, [ts[i] for ts in leaves for i in live], allow_unused=True)
     it = iter(got)
     grads = []
     for x, ts in zip(flat, leaves):
-        g = [torch.zeros_like(t) if (gt := next(it)) is None else gt
-             for t in ts]
+        g = {i: torch.zeros_like(ts[i]) if (gt := next(it)) is None else gt
+             for i in live}
         for group in x.placement.replicas():
-            if len(group) > 1:
+            mine = [i for i in group if i in g]
+            if len(group) > 1 and mine:
                 summed = collectives.all_reduce_sum(
-                    [g[i] for i in group], [ts[i].device for i in group])
+                    [g.get(i, ts[i]) for i in group],
+                    [ts[i].device for i in mine], at=mine)
                 taken = set()
-                for i, t in zip(group, summed):
+                for i, t in zip(mine, summed):
                     g[i] = t.clone() if id(t) in taken else t
                     taken.add(id(t))
-        grads.append(shd.Sharded(x.placement, g))
+        grads.append(shd.Sharded(x.placement, [g.get(i, t) for i, t in
+                                               enumerate(ts)]))
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tr.unflatten(treedef, grads)
+    return (loss.detach(), metrics,
+            shd.through(tr.unflatten(treedef, grads), keep))
 
 
 # --- the train step --------------------------------------------------------------
@@ -141,8 +157,11 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     are (B, S), or (M, B/M, S) with ``num_microbatches`` M > 1, as numpy
     arrays or tensors; the state's tensors are updated in place. A model
     on a mesh of several entries trains a placed state
-    (:func:`jit_train_step`)."""
+    (:func:`jit_train_step`); where only some of its data rows compute
+    (``model.rows.live``), the optimizer updates their entries
+    (``sharding.through``)."""
     loss_grads = placed_loss_and_grads if model.sharded else loss_and_grads
+    keep = model.rows.kept() if model.sharded else None
 
     def grads_of(params, mb):
         return loss_grads(model, params, mb, n_moe_groups=n_moe_groups)
@@ -172,12 +191,14 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             del g_acc
             loss = loss_sum * inv
             metrics = {"loss": loss}
-        _, opt_state, opt_metrics = optimizer.update(
-            grads, state["opt"], params, state["step"])
+        # in place: the state's tensors are the updated ones
+        _, _, opt_metrics = optimizer.update(
+            grads, shd.through(state["opt"], keep),
+            shd.through(params, keep), state["step"])
         del grads
         metrics = {**metrics, **opt_metrics}
         new_state = {"step": state["step"] + 1, "params": params,
-                     "opt": opt_state}
+                     "opt": state["opt"]}
         return new_state, {k: v for k, v in metrics.items() if v.dim() == 0}
 
     return train_step

@@ -69,11 +69,15 @@ def test_no_jax_or_reference_imports_in_the_port():
     "optim.py", "tree.py", "train/step.py",
     "checkpoint/__init__.py", "checkpoint/manager.py", "launch/train.py",
     # tensor-parallel placement
-    "core/collectives.py"])
+    "core/collectives.py",
+    # the dry run, its cost model and the roofline
+    "launch/hlo_cost.py", "launch/roofline.py", "launch/dryrun.py",
+    "launch/dryrun_lasana.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
     """The modules of the streaming, LM serve (the whole zoo), training,
     layer-runner, exploration, serving, batch-parallel and LM-training
-    slices and the collectives of tensor-parallel placement, one by one
+    slices, the collectives of tensor-parallel placement and the dry run's
+    modules, one by one
     (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function

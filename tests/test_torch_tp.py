@@ -1,9 +1,10 @@
 """Tensor-parallel placement in the port (``repro_torch/sharding.py``,
 ``core/collectives.py``, ``models/params.py``): every leaf's resolved
 spec and shard shape against the reference's ``spec_for_shape``, split /
-gather, the sharded init, the switches that wait for the dry run, and
+gather, the sharded init, the dry run's two switches, and
 the collectives."""
 
+import dataclasses
 import types
 
 import numpy as np
@@ -160,23 +161,35 @@ def test_sharded_init_is_the_unsharded_init(arch, shape):
 
 
 def test_dry_run_switches_raise_by_name():
+    """The dry run's two switches place what they name: ``qk_dim`` takes
+    the model axis where the heads do not divide it, ``attn_q_seq`` the
+    query rows; a model takes either. The one combination attention does
+    not take, kv_seq-sharded caches with head_dim split, raises by name."""
     mesh = _mesh((1, 2))
     cfg = reduced_config("starcoder2-3b")
     for switch in ("qk_dim_fallback", "seq_parallel_attn"):
-        rules = shd.train_rules(mesh, **{switch: True})
-        with pytest.raises(NotImplementedError, match=switch):
-            Model(cfg, mesh=mesh, rules=rules)
+        Model(cfg, mesh=mesh, rules=shd.train_rules(mesh, **{switch: True}))
     rules = shd.train_rules(mesh, qk_dim_fallback=True)
-    # three heads do not divide the model axis: qk_dim would take it
-    with pytest.raises(NotImplementedError, match="qk_dim_fallback"):
-        rules.sharding(mesh, ("embed", "heads", "qk_dim"), (8, 3, 4))
+    # three heads do not divide the model axis: qk_dim takes it
+    pl = rules.sharding(mesh, ("embed", "heads", "qk_dim"), (8, 3, 4))
+    assert pl.spec == ("data", None, "model") and pl.shard_shape == (8, 3, 2)
     rules = shd.train_rules(mesh, seq_parallel_attn=True)
-    with pytest.raises(NotImplementedError, match="seq_parallel_attn"):
-        rules.sharding(mesh, ("batch", "attn_q_seq", None), (2, 8, 4))
+    pl = rules.sharding(mesh, ("batch", "attn_q_seq", None), (2, 8, 4))
+    assert pl.spec == ("data", "model") and pl.shard_shape == (2, 4, 4)
     # on a one-entry model axis neither switch splits anything
     one = _mesh((2, 1))
     Model(cfg, mesh=one, rules=shd.train_rules(one, qk_dim_fallback=True,
                                                seq_parallel_attn=True))
+    wide = _mesh((1, 4))
+    rules = shd.train_rules(wide, qk_dim_fallback=True, kv_seq_sharding=True)
+    qk = dataclasses.replace(cfg, d_model=48, n_heads=6, n_kv_heads=2,
+                             dtype="float32")
+    model = Model(qk, mesh=wide, rules=rules)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, qk.vocab, (2, 8), dtype=torch.int32)
+    _, cache = model.prefill(params, {"tokens": tokens}, max_seq=12)
+    with pytest.raises(NotImplementedError, match="kv_seq_sharding"):
+        model.decode(params, cache, tokens[:, :1])
 
 
 def test_collectives_sum_in_shard_order_and_their_adjoints():
