@@ -43,7 +43,13 @@ Phases, one output line each (JSON where it helps):
    D = 8, counted apart; and at the other zoo configs' serve prefills
    (deepseek-moe-16b q 128 x 512 x 128, pixtral-12b 256 x 1,536 x 128 G =
    4, whisper-base 64 x 512 x 64), each timed beside the plain version
-   and SDPA;
+   and SDPA; then the program audit (``audit`` lines): every entrypoint of
+   ``repro_torch.analysis.jaxpr_audit`` built on the card and run at 1, 2
+   and 3 ticks under sync debug mode "error", free of findings, its
+   launches per tick and fixed equal to the frozen ``kernels`` row of
+   ``program_budgets.json`` and its dispatches to the CPU's, with the
+   CUDA kernels per tick that ``torch.profiler`` sees beside the frozen
+   CPU count of aten ops;
 4. drive the main paths through ``repro_torch.lasana.simulate``, each run
    with the kernel launch counters reset before it and read after it, a
    second (steady) run enqueued with host synchronisation forbidden, and
@@ -233,7 +239,9 @@ result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import json
 import pathlib
 import statistics
@@ -1973,6 +1981,93 @@ def check_flash_attention(torch, np, dev):
         del tq, tk, tv
     out["tp_shard_shapes"] = tp
     return out
+
+
+# --- phase 3b: the static gates on the card ----------------------------------
+
+@contextlib.contextmanager
+def no_sync(torch):
+    """Host synchronisation forbidden inside: any synchronising call
+    raises (sync debug mode "error")."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def device_kernels(torch, build) -> dict:
+    """CUDA operations per tick and fixed of one audit entrypoint in
+    ``torch.profiler``: every device event (kernels, copies, fills) of
+    its runs at 1, 2 and 3 ticks, each profiled alone. A session has been
+    seen to lose events now and then, so counts that are not affine in
+    the ticks are measured once more, then reported as they are."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def once(n):
+        entry = build(n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            entry.fn(*entry.args)
+            torch.cuda.synchronize()
+        return sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+
+    for _ in range(2):
+        k1, k2, k3 = (once(n) for n in (1, 2, 3))
+        if k3 - k2 == k2 - k1 and k1 >= k2 - k1:
+            return {"cuda_kernels_per_tick": k2 - k1,
+                    "cuda_kernels_fixed": 2 * k1 - k2}
+    return {"cuda_kernels_per_tick": "not measured",
+            "cuda_kernels_at_1_2_3_ticks": [k1, k2, k3]}
+
+
+def audit_runs(torch, dev, smi):
+    """The program audit on the card: every entrypoint registered by
+    ``repro_torch.analysis.jaxpr_audit``, built on the card and run at 1,
+    2 and 3 ticks (b = 2), each run under sync debug mode "error", with
+    ``ops.LAUNCHES`` read just before and just after it. Fails on any
+    finding (dispatch and kernel ceilings, a write to the
+    caller's carries, an fp64 output, a host sync, counts not linear in
+    the ticks), unless ``ops.LAUNCHES`` per tick and fixed equal the
+    frozen ``kernels`` row exactly, and on any drift that
+    ``jaxpr_audit.compare_budgets`` finds on the card (the dispatches,
+    kernel calls and writes of the CPU's frozen rows). Each entry's line
+    reports, beside the frozen CPU count of aten ops per tick, the card's
+    own count and the CUDA kernels per tick in ``torch.profiler``
+    (reported, not held). These are fixtures, not a main path: their
+    launches stay on the ``audit`` lines and out of the ``kernels`` line."""
+    from repro_torch.analysis import jaxpr_audit as ja
+    t0 = time.perf_counter()
+    frozen = ja.load_budgets()
+    registered = ja.registered_entrypoints()
+    if set(registered) != set(frozen):
+        fail(f"audit: registered {sorted(registered)} != frozen "
+             f"{sorted(frozen)}")
+    with ja.pinned_env():
+        ctx = ja.build_context(dev)
+        for name, builder in sorted(registered.items()):
+            build = functools.partial(builder, ctx)
+            m, findings = ja.audit_entry(name, build,
+                                         around=lambda: no_sync(torch))
+            want = frozen[name]
+            findings += ja.compare_budgets({name: m.budget_row()},
+                                           {name: want}, dev)
+            if findings:
+                fail(f"audit {name}: " + "; ".join(map(str, findings)))
+            if m.launches != want["kernels"]:
+                fail(f"audit {name}: launches {m.launches}, frozen "
+                     f"{want['kernels']}")
+            line({"phase": "audit", "entry": name, "launches": m.launches,
+                  "dispatches": m.dispatches, "writes": m.writes,
+                  "cpu_ops_per_tick_frozen": want["ops"],
+                  "card_ops_per_tick": m.ops,
+                  **device_kernels(torch, build),
+                  "sync_debug_mode": "error", "nvidia_smi": smi})
+    line({"phase": "audit_done", "entries": len(frozen),
+          "seconds": time.perf_counter() - t0})
 
 
 # --- phase 4: the main path -------------------------------------------------
@@ -3757,8 +3852,6 @@ def zoo_decode_vs_forward(torch, np, dev, arch, model, params, total):
     the whole batch (no assignment dropped, counted) twice: with their own
     routers (reported, not held: the two runs route apart) and with the
     routers zeroed (held; restored after)."""
-    import os
-
     from repro_torch.data.lm_data import SyntheticCorpus
     from repro_torch.kernels import ops
     from repro_torch.models import moe
@@ -3795,26 +3888,21 @@ def zoo_decode_vs_forward(torch, np, dev, arch, model, params, total):
     if cfg.moe is None:
         dec_fwd, finite, counts = gap()
     else:
-        env = os.environ.get("REPRO_MOE_CF")
         real_dispatch = moe._dispatch_indices
         routers = [t for path, t in prm.leaves(params)
                    if path.endswith("/router")]
         saved = [t.clone() for t in routers]
-        os.environ["REPRO_MOE_CF"] = ample_cf(cfg)
         moe._dispatch_indices = counted_dispatch
         try:
-            own = gap()[0]
-            for t in routers:
-                t.zero_()
-            dec_fwd, finite, counts = gap()
+            with ops.env_override({"REPRO_MOE_CF": ample_cf(cfg)}):
+                own = gap()[0]
+                for t in routers:
+                    t.zero_()
+                dec_fwd, finite, counts = gap()
         finally:
             for t, keep in zip(routers, saved):
                 t.copy_(keep)
             moe._dispatch_indices = real_dispatch
-            if env is None:
-                os.environ.pop("REPRO_MOE_CF", None)
-            else:
-                os.environ["REPRO_MOE_CF"] = env
     if any(drops):
         fail(f"{arch} decode vs forward: capacity factor {ample_cf(cfg)} "
              f"dropped {sum(drops)} assignments")
@@ -3839,8 +3927,7 @@ def v3_moe_layer(torch, np, dev, cfg, params):
     at the config's factor against the same selection and dispatch run on
     the CPU on the card's scores (equal); and the output at ample capacity
     against the dense mixture of the selected experts' FFNs."""
-    import os
-
+    from repro_torch.kernels import ops
     from repro_torch.models import moe
     p = {k: v[0] for k, v in params["moe_layers"]["moe"].items()}
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3870,20 +3957,13 @@ def v3_moe_layer(torch, np, dev, cfg, params):
     # ample capacity: the dispatch against the dense mixture
     xs = x.reshape(-1, cfg.d_model)[:V3_MOE_AMPLE_TOKENS[1]].reshape(
         *V3_MOE_AMPLE_TOKENS, cfg.d_model)
-    env = os.environ.get("REPRO_MOE_CF")
-    os.environ["REPRO_MOE_CF"] = ample_cf(cfg)
-    try:
+    with ops.env_override({"REPRO_MOE_CF": ample_cf(cfg)}):
         y, _ = moe.moe_ffn(p, xs, cfg)
         xs_flat = xs.reshape(1, -1, cfg.d_model)
         w2, ids2, _ = moe._routing(p, xs_flat, cfg)
         dropped_ample = int((~moe._dispatch_indices(
             ids2[0].reshape(-1), m.n_experts, moe.capacity(
                 xs_flat.shape[1], cfg))[1]).sum())
-    finally:
-        if env is None:
-            os.environ.pop("REPRO_MOE_CF", None)
-        else:
-            os.environ["REPRO_MOE_CF"] = env
     t = xs_flat[0]
     contrib = torch.zeros((t.shape[0], m.top_k, cfg.d_model),
                           dtype=t.dtype, device=dev)
@@ -5480,7 +5560,6 @@ def server_wire(torch, np, dev, smi):
     JAX record of the reference's responses (output spike counts >= 99%
     equal, energy within 1%, ``ticks`` and ``ok`` equal)."""
     import io
-    import os
 
     import repro_torch.lasana as lasana
     from repro_torch.kernels import ops
@@ -5488,9 +5567,7 @@ def server_wire(torch, np, dev, smi):
     rec = json.loads(WIRE_RECORD.read_text())
     text = "".join(json.dumps(o) + "\n" for o in wire_ops(np, rec["script"]))
     widths = ",".join(str(w) for w in rec["slot_widths"])
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                               if p]))
+    env = ops.child_env(ROOT / "src")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.serve", "--slot-widths", widths,
@@ -5859,6 +5936,7 @@ def main() -> int:
     for name, c in checks.items():
         line({"phase": "kernel_check", "kernel": name, **c})
 
+    audit_runs(torch, dev, smi)
     launches = {}
     for runs in (snn_runs, wide_runs, xbar_runs, mixed_runs, stream_runs,
                  mesh_runs, lm_runs, zoo_runs, lm_train_runs, tp_runs):

@@ -613,7 +613,8 @@ class DSEEngine:
         return ws
 
     def _tile_eval(self, surrogate, v_dd, tile, ws: _Workspace):
-        """(C,) per-candidate tile energy/latency, fetched as float64."""
+        """(2, C) float32 per-candidate tile energy and latency, on the
+        device (the caller fetches them once)."""
         n, n_in = self.n_samples, self._circ.n_inputs
         c = v_dd.shape[0]
         f = ws.act.shape[1] - 1
@@ -640,8 +641,7 @@ class DSEEngine:
         # (and 32-wide row segments) settle in parallel, so energy scales
         # with area while the settle latency stays the macro's
         area = torch.square(tile.float() / TILE)
-        res = torch.stack([e32 * area, l32]).cpu().numpy()
-        return res[0].astype(np.float64), res[1].astype(np.float64)
+        return torch.stack([e32 * area, l32])
 
     # -- public evaluation ---------------------------------------------------
     def evaluate(self, candidates: CandidateSpec, surrogates,
@@ -665,7 +665,8 @@ class DSEEngine:
                                device=self.device)
         t0 = time.perf_counter()
         ws = self._program(sur, c) if compiled else self._setup(c)
-        e_tile, l_tile = self._tile_eval(sur, v_dd, tile, ws)
+        res = self._tile_eval(sur, v_dd, tile, ws).cpu().numpy()
+        e_tile, l_tile = res[0].astype(np.float64), res[1].astype(np.float64)
         wall = time.perf_counter() - t0
 
         tt = _tile_table(candidates)

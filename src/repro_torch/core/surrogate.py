@@ -276,6 +276,7 @@ class Surrogate:
 
     @property
     def device(self) -> torch.device:
+        """The device every parameter array of this surrogate lies on."""
         return next(iter(next(iter(self.params.values())).values())).device
 
     def to(self, device) -> "Surrogate":
@@ -291,6 +292,7 @@ class Surrogate:
     def predict(self, pname: str, feats):
         """Prediction of head ``pname`` in physical units (energies in
         joules) on raw ``(x, v, tau, params[, o_prev, o_new])`` rows."""
+        ops.record_dispatch("predict")
         feats = _augment(self.manifest.circuit, torch.as_tensor(
             feats, dtype=torch.float32, device=self.device))
         y = FAMILY_PREDICT[self.manifest.family_of(pname)](
@@ -324,6 +326,7 @@ class Surrogate:
         query sits within rounding distance of two table rows may resolve
         to the other, equally near row. Returns ``{variant: {pname: (N,)
         predictions}}`` in physical units."""
+        ops.record_dispatch("predict_heads")
         mats = {"idle": feats_idle, "act": feats_act, "tr": feats_tr}
         mats = {v: torch.as_tensor(m, dtype=torch.float32, device=self.device)
                 for v, m in mats.items() if m is not None}
@@ -514,6 +517,7 @@ class SurrogateLibrary:
         return tuple((k, self._by_kind[k]) for k in sorted(self._by_kind))
 
     def to(self, device) -> "SurrogateLibrary":
+        """This library with every surrogate on ``device``."""
         return SurrogateLibrary({k: s.to(device) for k, s in self.items()})
 
     def __repr__(self):

@@ -13,6 +13,13 @@ routes of ``flash_attention`` apart), and nothing else: a caller resets
 it (:func:`reset_launches`), drives a path, and reads it to show that the
 path went through the kernels.
 
+The program auditor (``repro_torch.analysis.jaxpr_audit``) hooks in here
+too: inside :func:`dispatch_scope` the surrogate entry points report
+their dispatches (:func:`record_dispatch`) and every kernel entry point
+below records ``kernel:<name>`` on every route, so that a CPU run counts
+the calls the card would launch (routes come from shapes alone). Outside
+a scope the hooks are one attribute check.
+
 The dry run (``launch/dryrun.py``) takes a third route. Inside
 :func:`dry_run`, an entry point given meta tensors returns meta outputs
 of the kernel's shapes and dtypes, records the kernel's :class:`Work`
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 
 import torch
@@ -132,6 +140,87 @@ def fault_plan_path():
     return os.environ.get("REPRO_FAULT_PLAN") or None
 
 
+@contextlib.contextmanager
+def env_override(values: dict):
+    """Set the environment variables ``values`` for the block, then put
+    each back as it was (unset where it was unset): the program auditor's
+    pinned knobs, and a caller that runs one configuration under a knob
+    of its own. Knobs are still read only by the functions above."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def child_env(src) -> dict:
+    """The environment of a child Python process that must import the
+    package under ``src``: this process's, with ``src`` first on
+    ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(src)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+# --- the program auditor's hooks (see the module docstring) -------------------
+
+_DISPATCH_SCOPE = None
+_KERNEL_DEPTH = 0
+
+
+def record_dispatch(name: str) -> None:
+    """Report one surrogate dispatch (a no-op outside an audit)."""
+    if _DISPATCH_SCOPE is not None:
+        _DISPATCH_SCOPE.append(name)
+
+
+@contextlib.contextmanager
+def dispatch_scope():
+    """Collect the ``record_dispatch`` names and ``kernel:<name>`` calls
+    made under it. Yields the live list; scopes nest by save and restore,
+    so an audit inside an audit never counts twice."""
+    global _DISPATCH_SCOPE
+    prev, log = _DISPATCH_SCOPE, []
+    _DISPATCH_SCOPE = log
+    try:
+        yield log
+    finally:
+        _DISPATCH_SCOPE = prev
+
+
+def in_kernel() -> bool:
+    """Whether an audited call is inside a kernel entry point (the
+    auditor counts a plain version's ops as the kernel's, not the
+    host's)."""
+    return _KERNEL_DEPTH > 0
+
+
+def _kernel_entry(fn):
+    """Mark ``fn`` a kernel entry point: inside a :func:`dispatch_scope`
+    each call records ``kernel:<fn name>`` and runs with
+    :func:`in_kernel` true."""
+    name = "kernel:" + fn.__name__
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        global _KERNEL_DEPTH
+        if _DISPATCH_SCOPE is None:
+            return fn(*args, **kwargs)
+        _DISPATCH_SCOPE.append(name)
+        _KERNEL_DEPTH += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _KERNEL_DEPTH -= 1
+    return entry
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another. Raises when CUDA is asked for (explicitly or by default)
@@ -186,12 +275,14 @@ def same_cuda_device(*tensors) -> torch.device:
     return dev
 
 
+@_kernel_entry
 def lif_step(state, x, params, *, circ=None):
     """One golden LIF clock period: ``(new_state (N, 3), obs)``."""
     from repro_torch.kernels import lif_scan
     return lif_scan.lif_step(state, x, params, circ=circ)
 
 
+@_kernel_entry
 def lif_chunk(state, x_seq, params, *, circ=None, record_v=False):
     """T golden LIF clock periods in one launch: ``(new_state (N, 3),
     obs)`` with (T, N) observables (and ``v_seq``, each tick's V_mem, with
@@ -201,24 +292,28 @@ def lif_chunk(state, x_seq, params, *, circ=None, record_v=False):
                               record_v=record_v)
 
 
+@_kernel_entry
 def crossbar_target(v, w, *, circ=None):
     """Crossbar rows' DC target and pole: ``(v_tgt (N,), tau (N,))``."""
     from repro_torch.kernels import crossbar_mvm
     return crossbar_mvm.crossbar_target(v, w, circ=circ)
 
 
+@_kernel_entry
 def crossbar_step(state, x, params, *, circ=None):
     """One golden crossbar-row clock period: ``(new_state (N, 1), obs)``."""
     from repro_torch.kernels import crossbar_mvm
     return crossbar_mvm.crossbar_step(state, x, params, circ=circ)
 
 
+@_kernel_entry
 def mlp_surrogate(x, w1, b1, w2, b2, w3, b3):
     """(N, F) -> (N,): one fused 3-layer ReLU MLP in fp32."""
     from repro_torch.kernels import mlp_surrogate
     return mlp_surrogate.mlp_surrogate(x, w1, b1, w2, b2, w3, b3)
 
 
+@_kernel_entry
 def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     """(N, F) + P stacked 3-layer MLP heads -> (P, N) physical units."""
     from repro_torch.kernels import mlp_surrogate
@@ -226,18 +321,21 @@ def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
         x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
 
 
+@_kernel_entry
 def network_tick(*args, **kwargs):
     """One whole LASANA tick (idle -> act -> transition) as ONE kernel."""
     from repro_torch.kernels import tick_megakernel
     return tick_megakernel.network_tick(*args, **kwargs)
 
 
+@_kernel_entry
 def network_tick_chunk(*args, **kwargs):
     """A whole chunk of LASANA ticks as ONE time-looped kernel launch."""
     from repro_torch.kernels import tick_megakernel
     return tick_megakernel.network_tick_chunk(*args, **kwargs)
 
 
+@_kernel_entry
 def flash_attention(q, k, v):
     """Causal attention: q (B, H, S, D), k and v (B, KVH, S, D) with KVH
     dividing H -> (B, H, S, D). Head h attends to KV head h // (H / KVH)."""

@@ -433,8 +433,9 @@ def megakernel_step(pack, circuit, state, changed, x, t, clock_ns, *,
                     known_out=None, vdd: float = 1.5, layout: PackLayout):
     """One whole LASANA tick through the megakernel path; drop-in for
     ``wrapper.lasana_step`` given a pack. Returns ``(new_state, e, l, o)``."""
+    ops.record_dispatch("megakernel_step")
     annotate = known_out is not None
-    v, o, tl, e, l = network_tick(
+    v, o, tl, e, l = ops.network_tick(
         pack, state.v, state.o, state.t_last, state.params, changed, x, t,
         known_out, circuit=circuit, clock_ns=clock_ns, layout=layout,
         out_eps=out_eps, spiking=spiking, vdd=vdd, annotate=annotate)
@@ -470,7 +471,7 @@ def megakernel_chunk(pack, circuit, state, changed_seq, x_seq, t_seq,
     """A whole chunk of standalone ticks: ``(new_state, o_seq, e_seq,
     l_seq)`` with ``(T, N)`` sequences. ``changed_seq`` (T, N) bool,
     ``x_seq`` (T, N, n_in), ``t_seq`` (T,) tick times."""
-    v, o, tl, o_seq, e_seq, l_seq = network_tick_chunk(
+    v, o, tl, o_seq, e_seq, l_seq = ops.network_tick_chunk(
         pack, state.v, state.o, state.t_last, state.params, changed_seq,
         x_seq, t_seq, circuit=circuit, clock_ns=clock_ns, layout=layout,
         out_eps=out_eps, spiking=spiking, vdd=vdd)

@@ -11,8 +11,6 @@ monolithic run. Content keys are the reference's digests; the counters of
 a lane run are the reference's.
 """
 
-import ast
-import pathlib
 import time
 
 import numpy as np
@@ -93,7 +91,8 @@ def test_plan_rejects_what_the_reference_rejects():
 def test_env_plan_read_through_ops(tmp_path, monkeypatch):
     """``REPRO_FAULT_PLAN`` reaches the active plan through
     ``ops.fault_plan_path`` (an empty value is no plan), and no module of
-    the port but ``kernels/ops.py`` reads the environment."""
+    the port but ``kernels/ops.py`` touches the environment (the
+    program auditor's ``check_env_discipline``)."""
     from repro_torch.kernels import ops
     from repro_torch.resilience import faults
     path = _plans({"lane.step": {"at": [0]}})[1].save(
@@ -109,15 +108,8 @@ def test_env_plan_read_through_ops(tmp_path, monkeypatch):
         assert faults.active_plan() is None
     monkeypatch.setenv("REPRO_FAULT_PLAN", "")
     assert ops.fault_plan_path() is None and faults.active_plan() is None
-    port = pathlib.Path(ops.__file__).resolve().parents[1]
-    readers = []
-    for f in sorted(port.rglob("*.py")):
-        for node in ast.walk(ast.parse(f.read_text())):
-            if (isinstance(node, ast.Attribute) and node.attr in
-                    ("environ", "getenv") and getattr(node.value, "id",
-                                                      None) == "os"):
-                readers.append(f.relative_to(port).as_posix())
-    assert set(readers) == {"kernels/ops.py"}
+    from repro_torch.analysis import jaxpr_audit
+    assert jaxpr_audit.check_env_discipline() == []
 
 
 def test_hooks_do_nothing_without_a_plan():

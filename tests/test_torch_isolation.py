@@ -72,12 +72,16 @@ def test_no_jax_or_reference_imports_in_the_port():
     "core/collectives.py",
     # the dry run, its cost model and the roofline
     "launch/hlo_cost.py", "launch/roofline.py", "launch/dryrun.py",
-    "launch/dryrun_lasana.py"])
+    "launch/dryrun_lasana.py",
+    # the static gates
+    "analysis/__init__.py", "analysis/__main__.py",
+    "analysis/jaxpr_audit.py", "analysis/thread_lint.py",
+    "analysis/api_surface.py"])
 def test_streaming_modules_import_neither_jax_nor_reference(module):
     """The modules of the streaming, LM serve (the whole zoo), training,
     layer-runner, exploration, serving, batch-parallel and LM-training
-    slices, the collectives of tensor-parallel placement and the dry run's
-    modules, one by one
+    slices, the collectives of tensor-parallel placement, the dry run's
+    modules and the static gates (``repro_torch.analysis``), one by one
     (``core/events.py`` keeps its own copy of the reference's pure
     numpy module, whose package would import jax): no
     ``jax`` and no ``repro`` import, not even a lazy one inside a function
@@ -181,6 +185,14 @@ def test_port_runs_with_jax_and_reference_unimportable():
                       out)
             assert json.loads(out.getvalue())["stats"]["surrogates"] == {
                 "lif": [1]}
+        from repro_torch.analysis import api_surface, jaxpr_audit
+        from repro_torch.analysis import thread_lint
+        assert thread_lint.run_lint() == [] and api_surface.check_api() == []
+        with jaxpr_audit.pinned_env():
+            _, found = jaxpr_audit.audit_entry(
+                "network_mono_kernel", lambda n: jaxpr_audit.
+                _entry_network_mono_kernel(jaxpr_audit.build_context("cpu"), n))
+        assert found == []
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

@@ -11,9 +11,9 @@ record (``assert_request_parity``), or an error of the same type. The
 ``stats()`` reports have the same keys and equal counters. Everything
 counted runs unthreaded through ``run_until_idle``; a threaded test
 waits on handles with a timeout and closes its server in ``finally``.
-The reference's thread lint (``repro.analysis.thread_lint``) runs over
-the port's server, scheduler and store with its own tables and the
-torch host syncs added to its blocking calls.
+The port's thread lint (``repro_torch.analysis.thread_lint``, the
+reference's lint with torch's host syncs among its blocking calls) runs
+over the port's server, scheduler and store with its own tables.
 """
 
 import copy
@@ -969,26 +969,23 @@ def test_slot_programs_load_the_route_libraries(monkeypatch,
 
 # --- the thread lint --------------------------------------------------------------------
 
-def _lint(source, ref_file, filename, monkeypatch):
-    from repro.analysis import thread_lint
-    monkeypatch.setattr(thread_lint, "BLOCKING_CALLS",
-                        thread_lint.BLOCKING_CALLS | {"synchronize", "item",
-                                                      "cpu", "tolist"})
+def _lint(source, module, filename):
+    from repro_torch.analysis import thread_lint
     return thread_lint.lint_source(
-        source, thread_lint.LINT_TABLE[f"src/repro/serve/{ref_file}"],
+        source, thread_lint.LINT_TABLE[f"src/repro_torch/serve/{module}"],
         filename)
 
 
 @pytest.mark.parametrize("module", ["server.py", "scheduler.py",
                                     "store.py"])
-def test_thread_lint_finds_nothing_in_the_port(monkeypatch, module):
-    """The reference's locking-discipline tables hold for the port's
-    classes, with torch's host syncs counted as blocking calls."""
+def test_thread_lint_finds_nothing_in_the_port(module):
+    """The locking-discipline tables hold for the port's classes, with
+    torch's host syncs counted as blocking calls."""
     path = fx.ROOT / "src" / "repro_torch" / "serve" / module
-    assert _lint(path.read_text(), module, str(path), monkeypatch) == []
+    assert _lint(path.read_text(), module, str(path)) == []
 
 
-def test_thread_lint_flags_a_host_sync_under_the_lock(monkeypatch):
+def test_thread_lint_flags_a_host_sync_under_the_lock():
     """The gate bites: a port-style server that synchronises the card
     while holding its lock is flagged."""
     src = pathlib.Path(fx.ROOT / "src" / "repro_torch" / "serve" /
@@ -1000,6 +997,6 @@ def test_thread_lint_flags_a_host_sync_under_the_lock(monkeypatch):
         "            torch.cuda.synchronize()\n"
         "            depth = sum(len(q) for q in self._queues.values())\n")
     assert bad != src
-    findings = _lint(bad, "server.py", "server.py", monkeypatch)
+    findings = _lint(bad, "server.py", "server.py")
     assert [f.check for f in findings] == ["blocking-under-lock"]
     assert "synchronize" in findings[0].message
