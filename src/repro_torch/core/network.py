@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core.circuits import (CrossbarRow, LIFNeuron, get_circuit,
                                        row_sum)
 from repro_torch.core.surrogate import (SurrogateLibrary, as_surrogate,
@@ -521,32 +522,49 @@ class SlotPrograms:
     compile_seconds: float         # 0.0 when every runner was cached
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.nbytes for t in tensors if t is not None)
+
+
 class PendingRun:
     """A run enqueued on the device: its records are device tensors until
-    :meth:`result` waits for them and builds the :class:`NetworkRun`."""
+    :meth:`result` waits for them (on ``event``, recorded behind the run
+    on the card) and builds the :class:`NetworkRun`. ``call`` is the id
+    of the dispatch's trace spans."""
 
-    def __init__(self, engine, b, t0, compile_s, out):
+    def __init__(self, engine, b, t0, compile_s, out, event, call):
         self._engine, self._b, self._t0 = engine, b, t0
         self._compile_s, self._out = compile_s, out
+        self._event, self._call = event, call
 
     def result(self) -> NetworkRun:
         eng, spec = self._engine, self._engine.spec
         primary, out_seq, hidden, e_tl, l_tl, ev_tl, flush = self._out
-        to_np = lambda a: a.cpu().numpy()
-        outputs = to_np(primary)          # the first fetch waits for the run
-        run = NetworkRun(
-            backend=eng.backend, mode=eng.mode, outputs=outputs,
-            out_spikes=(to_np(out_seq) if spec.circuits[-1] == "lif"
-                        else None),
-            layer_spikes=[to_np(h) for h in hidden]
-            if eng.record_hidden else None,
-            energy=to_np(e_tl), latency=to_np(l_tl),
-            events=to_np(ev_tl).astype(np.int64), flush_energy=to_np(flush),
-            n_circuits=np.asarray([l.n_circuits(self._b)
-                                   for l in spec.layers]),
-            clock_ns=eng.clock_ns, wall_seconds=time.time() - self._t0,
-            circuits=spec.circuits, compile_seconds=self._compile_s)
-        return run
+        last_lif = spec.circuits[-1] == "lif"
+        with trace.span("run.result", self._call):
+            with trace.span("run.wait"):
+                if self._event is not None:
+                    self._event.synchronize()
+            with trace.span("run.fetch"):
+                records = [primary, out_seq if last_lif else None, *hidden,
+                           e_tl, l_tl, ev_tl, flush]
+                host = [None if t is None else t.cpu().numpy()
+                        for t in records]
+                trace.count("records.bytes", _nbytes(records))
+                outputs, out_spikes = host[:2]
+                layers = host[2:2 + len(hidden)]
+                energy, latency, events, flush_e = host[2 + len(hidden):]
+                return NetworkRun(
+                    backend=eng.backend, mode=eng.mode, outputs=outputs,
+                    out_spikes=out_spikes,
+                    layer_spikes=layers if eng.record_hidden else None,
+                    energy=energy, latency=latency,
+                    events=events.astype(np.int64), flush_energy=flush_e,
+                    n_circuits=np.asarray([l.n_circuits(self._b)
+                                           for l in spec.layers]),
+                    clock_ns=eng.clock_ns,
+                    wall_seconds=time.perf_counter() - self._t0,
+                    circuits=spec.circuits, compile_seconds=self._compile_s)
 
 
 # --- the engine ----------------------------------------------------------------
@@ -737,25 +755,32 @@ class NetworkEngine:
     def dispatch(self, inputs, *, surrogates=None) -> PendingRun:
         """Enqueue a whole run on the device and return at once; the tick
         loop makes no host synchronisation (inputs and surrogates already
-        on the device stay there)."""
-        x = torch.as_tensor(inputs, dtype=torch.float32, device=self.device)
-        if x.dim() == 2:
-            x = x[None]
-        if x.shape[-1] != self.spec.layers[0].fan_in:
-            raise ValueError(f"input width {x.shape[-1]} != layer-0 fan_in "
-                             f"{self.spec.layers[0].fan_in}")
-        t_steps, b, _ = x.shape
-        self._check_mesh_batch(b)
-        banks = self._runtime_banks(surrogates)
-        key = self._program_key("mono", b, t_steps, banks)
-        hid = 1 if self.record_hidden else []
-        runner, compile_s = self._compiled(key, lambda: self._sharded(
-            lambda eng, bl: eng._build_sim(bl, t_steps), b, banks,
-            in_specs=(1, 0, None),
-            out_specs=(0, 1, hid, "sum", "max", "sum", "sum")))
-        t0 = time.time()
-        carries = [self._init_carry(i, b) for i in range(self.spec.n_layers)]
-        return PendingRun(self, b, t0, compile_s, runner(x, carries, banks))
+        on the device stay there); on the card an event recorded behind
+        the run is what :meth:`PendingRun.result` waits on."""
+        with trace.span("engine.dispatch") as call:
+            x = torch.as_tensor(inputs, dtype=torch.float32,
+                                device=self.device)
+            if x.dim() == 2:
+                x = x[None]
+            if x.shape[-1] != self.spec.layers[0].fan_in:
+                raise ValueError(f"input width {x.shape[-1]} != layer-0 "
+                                 f"fan_in {self.spec.layers[0].fan_in}")
+            t_steps, b, _ = x.shape
+            self._check_mesh_batch(b)
+            banks = self._runtime_banks(surrogates)
+            key = self._program_key("mono", b, t_steps, banks)
+            hid = 1 if self.record_hidden else []
+            runner, compile_s = self._compiled(key, lambda: self._sharded(
+                lambda eng, bl: eng._build_sim(bl, t_steps), b, banks,
+                in_specs=(1, 0, None),
+                out_specs=(0, 1, hid, "sum", "max", "sum", "sum")))
+            t0 = time.perf_counter()
+            carries = [self._init_carry(i, b)
+                       for i in range(self.spec.n_layers)]
+            with trace.span("engine.enqueue"):
+                out = runner(x, carries, banks)
+            return PendingRun(self, b, t0, compile_s, out, self._event(),
+                              call.id)
 
     def run_stream(self, stimulus, *, chunk_ticks: Optional[int] = None,
                    surrogates=None) -> NetworkRun:
@@ -845,7 +870,9 @@ class NetworkEngine:
         chunks = _iter_chunks(stimulus, chunk_ticks, spec.layers[0].fan_in,
                               skip_ticks=(resume_from.k0
                                           if resume_from is not None else 0))
-        cur = next(chunks, None)
+        i = 0                          # the index of chunk ``cur``
+        with trace.span("stream.block", i):
+            cur = next(chunks, None)
         if cur is None:
             raise ValueError("streaming run needs at least one stimulus "
                              "tick" + (" past the checkpoint offset"
@@ -871,38 +898,40 @@ class NetworkEngine:
             if resume_from is not None:
                 acc.update(resume_from.acc_run)
 
-        mark = time.time()             # segment boundary for the wall split
+        mark = time.perf_counter()     # segment boundary for the wall split
         comp_seg = 0.0                 # build seconds in the current segment
         n_circuits = np.asarray([l.n_circuits(b) for l in spec.layers])
 
         def finalize(pend, flush):
             nonlocal mark, comp_seg
-            host, snap, event, comp_s, k_end = pend
-            if event is not None:
-                event.synchronize()    # this chunk's copies, not the device
-            primary, out_seq, e_tl, l_tl, ev_tl, *hidden = host
-            now = time.time()
-            wall = max(now - mark - comp_seg, 0.0)
-            mark, comp_seg = now, 0.0
-            run = NetworkRun(
-                backend=self.backend, mode=self.mode,
-                outputs=primary.numpy(),
-                out_spikes=out_seq.numpy() if last_lif else None,
-                layer_spikes=[h.numpy() for h in hidden]
-                if self.record_hidden else None,
-                energy=e_tl.numpy(), latency=l_tl.numpy(),
-                events=ev_tl.numpy().astype(np.int64), flush_energy=flush,
-                n_circuits=n_circuits, clock_ns=self.clock_ns,
-                wall_seconds=wall, circuits=spec.circuits,
-                compile_seconds=comp_s)
-            if acc is not None:
-                acc.update(run)
-                if snap is not None:
-                    leaves, prev = snap
-                    run.checkpoint = self._make_checkpoint(
-                        [np.array(a.numpy()) for a in leaves],
-                        [np.array(a.numpy()) for a in prev], k_end,
-                        int(chunk_ticks), b, acc)
+            host, snap, event, comp_s, k_end, idx = pend
+            with trace.span("stream.wait", idx):
+                if event is not None:
+                    event.synchronize()    # this chunk's copies only
+            with trace.span("stream.convert", idx):
+                primary, out_seq, e_tl, l_tl, ev_tl, *hidden = host
+                now = time.perf_counter()
+                wall = max(now - mark - comp_seg, 0.0)
+                mark, comp_seg = now, 0.0
+                run = NetworkRun(
+                    backend=self.backend, mode=self.mode,
+                    outputs=primary.numpy(),
+                    out_spikes=out_seq.numpy() if last_lif else None,
+                    layer_spikes=[h.numpy() for h in hidden]
+                    if self.record_hidden else None,
+                    energy=e_tl.numpy(), latency=l_tl.numpy(),
+                    events=ev_tl.numpy().astype(np.int64),
+                    flush_energy=flush, n_circuits=n_circuits,
+                    clock_ns=self.clock_ns, wall_seconds=wall,
+                    circuits=spec.circuits, compile_seconds=comp_s)
+                if acc is not None:
+                    acc.update(run)
+                    if snap is not None:
+                        leaves, prev = snap
+                        run.checkpoint = self._make_checkpoint(
+                            [np.array(a.numpy()) for a in leaves],
+                            [np.array(a.numpy()) for a in prev], k_end,
+                            int(chunk_ticks), b, acc)
             return run
 
         pending = None                 # the previous chunk's host copies
@@ -910,7 +939,8 @@ class NetworkEngine:
         try:
             while cur is not None:
                 faults.stall("chunk.stall")
-                x_chunk = self._upload(cur)
+                with trace.span("stream.upload", i):
+                    x_chunk = self._upload(cur)
                 if x_chunk.shape[1] != b:
                     raise ValueError(
                         f"stimulus chunk batch {x_chunk.shape[1]} "
@@ -928,24 +958,27 @@ class NetworkEngine:
                 step, comp_s = self._compiled(key, lambda: self._sharded(
                     lambda eng, bl: eng._build_stream_step(tc), b, banks,
                     in_specs=(1, None, 0, 0, None),
-                    out_specs=(0, 1, hid, "sum", "max", "sum", 0, 0)))
+                    out_specs=(0, 1, hid, "sum", "max", "sum", 0, 0)), i)
                 comp_seg += comp_s
                 # enqueue chunk k, then read chunk k-1's records
-                (primary, out_seq, hidden, e_tl, l_tl, ev_tl, carries,
-                 prev_ys) = step(x_chunk, k0, carries, prev_ys, banks)
+                with trace.span("engine.enqueue", i):
+                    (primary, out_seq, hidden, e_tl, l_tl, ev_tl, carries,
+                     prev_ys) = step(x_chunk, k0, carries, prev_ys, banks)
                 k0 += tc
                 records = [primary, out_seq if last_lif else None, e_tl,
                            l_tl, ev_tl, *hidden]
                 due = acc is not None and (
                     -(-k0 // int(chunk_ticks)) % checkpoint_every == 0)
-                (host, *snap), event = self._to_host(
-                    records, *((_carry_leaves(carries), prev_ys) if due
-                               else ()))
+                with trace.span("stream.to_host", i):
+                    (host, *snap), event = self._to_host(
+                        records, *((_carry_leaves(carries), prev_ys) if due
+                                   else ()))
+                    trace.count("records.bytes", _nbytes(records))
                 inflight = event
                 if pending is not None:
                     yield finalize(pending, np.zeros((n_layers,),
                                                      np.float32))
-                pending = (host, snap or None, event, comp_s, k0)
+                pending = (host, snap or None, event, comp_s, k0, i)
                 if k0 > 2 ** 24 and k0 - tc <= 2 ** 24:
                     # tick times and LasanaState.t_last are f32: past 2^24
                     # ticks consecutive tick times collide, so tau-dependent
@@ -955,25 +988,29 @@ class NetworkEngine:
                         "times can no longer distinguish consecutive ticks; "
                         "tau-dependent energy records degrade beyond here",
                         RuntimeWarning, stacklevel=2)
-                cur = next(chunks, None)
+                i += 1
+                with trace.span("stream.block", i):
+                    cur = next(chunks, None)
 
             flush = np.zeros((n_layers,), np.float32)
             if self.backend == "lasana":
                 fkey = self._program_key("flush", b, None, banks)
                 flush_fn, comp_s = self._compiled(fkey, lambda: self._sharded(
                     lambda eng, bl: eng._build_flush(), b, banks,
-                    in_specs=(0, None, None), out_specs="sum"))
+                    in_specs=(0, None, None), out_specs="sum"), i - 1)
                 comp_seg += comp_s
                 t_ends = [_t_end(k0, c) for c in self.circs]
-                ((flush_t,),), ev = self._to_host(
-                    [flush_fn(carries, t_ends, banks)])
-                if ev is not None:
-                    ev.synchronize()
+                with trace.span("stream.flush", i - 1):
+                    flush_d = flush_fn(carries, t_ends, banks)
+                    ((flush_t,),), ev = self._to_host([flush_d])
+                    trace.count("records.bytes", flush_d.nbytes)
+                    if ev is not None:
+                        ev.synchronize()
                 flush = flush_t.numpy()
             # the final chunk never carries a checkpoint: its record holds
             # the end-of-run flush, which a resumed tail would charge again
-            host, _, event, comp_s, k_end = pending
-            yield finalize((host, None, event, comp_s, k_end), flush)
+            host, _, event, comp_s, k_end, idx = pending
+            yield finalize((host, None, event, comp_s, k_end, idx), flush)
         finally:
             # a consumer that stops mid-stream closes the generator with a
             # chunk in flight: let it finish before its buffers are dropped
@@ -1009,9 +1046,16 @@ class NetworkEngine:
                     h.copy_(t, non_blocking=True)
                 host.append(h)
             out.append(host)
+        return out, self._event()
+
+    def _event(self):
+        """A CUDA event recorded now on the engine's stream, behind
+        everything enqueued so far (None off the card)."""
+        if self.device.type != "cuda":
+            return None
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return out, event
+        return event
 
     def _restore_state(self, ckpt, init_carries, init_prev, b: int):
         """Device carries and prev_ys from a checkpoint's host leaves,
@@ -1260,38 +1304,43 @@ class NetworkEngine:
                 pk, ly = packs.get(kinds[i], (None, None))
                 bank = banks.get(kinds[i])
                 if kinds[i] == "lif":
-                    # feed-forward + delayed-edge synaptic drive
-                    u = adapt_signal(src_kind, "lif", cur, spike_amp=amp,
-                                     activation=act(src))
-                    drive = ops.div(u @ self._weights[i], amp)
-                    pre = (torch.abs(u)
-                           > event_threshold(src_kind, amp)).float()
-                    incoming = (pre @ self._conn[i]) > 0.5
-                    for j, we, conn in self._rec[i]:
-                        ur = adapt_signal(kinds[j], "lif", prev_ys[j],
-                                          spike_amp=amp, activation=act(j))
-                        drive = drive + ops.div(ur @ we, amp)
-                        pr = (torch.abs(ur)
-                              > event_threshold(kinds[j], amp)).float()
-                        incoming = incoming | ((pr @ conn) > 0.5)
-                    if live is not None:
-                        incoming = incoming & live[:, None]
-                    carry, y, e, l, ev = ticks[i](
-                        carries[i], drive, incoming.reshape(-1), ts_k[i],
-                        bank, pk, ly)
+                    with trace.span("layer.drive"):
+                        # feed-forward + delayed-edge synaptic drive
+                        u = adapt_signal(src_kind, "lif", cur, spike_amp=amp,
+                                         activation=act(src))
+                        drive = ops.div(u @ self._weights[i], amp)
+                        pre = (torch.abs(u)
+                               > event_threshold(src_kind, amp)).float()
+                        incoming = (pre @ self._conn[i]) > 0.5
+                        for j, we, conn in self._rec[i]:
+                            ur = adapt_signal(kinds[j], "lif", prev_ys[j],
+                                              spike_amp=amp,
+                                              activation=act(j))
+                            drive = drive + ops.div(ur @ we, amp)
+                            pr = (torch.abs(ur)
+                                  > event_threshold(kinds[j], amp)).float()
+                            incoming = incoming | ((pr @ conn) > 0.5)
+                        if live is not None:
+                            incoming = incoming & live[:, None]
+                    with trace.span("layer.step"):
+                        carry, y, e, l, ev = ticks[i](
+                            carries[i], drive, incoming.reshape(-1),
+                            ts_k[i], bank, pk, ly)
                 else:
                     circ = self.circs[i]
-                    xv = adapt_signal(src_kind, "crossbar", cur,
-                                      spike_amp=amp, activation=act(src))
-                    for j, we, _ in self._rec[i]:
-                        xv = xv + adapt_signal(
-                            kinds[j], "crossbar", prev_ys[j], spike_amp=amp,
-                            activation=act(j)) @ we
-                    xv = torch.clamp(xv, circ.input_lo, circ.input_hi)
-                    if live is not None:
-                        xv = torch.where(live[:, None], xv, 0.0)
-                    carry, y, e, l, ev = ticks[i](carries[i], xv, ts_k[i],
-                                                  bank, pk, ly)
+                    with trace.span("layer.drive"):
+                        xv = adapt_signal(src_kind, "crossbar", cur,
+                                          spike_amp=amp, activation=act(src))
+                        for j, we, _ in self._rec[i]:
+                            xv = xv + adapt_signal(
+                                kinds[j], "crossbar", prev_ys[j],
+                                spike_amp=amp, activation=act(j)) @ we
+                        xv = torch.clamp(xv, circ.input_lo, circ.input_hi)
+                        if live is not None:
+                            xv = torch.where(live[:, None], xv, 0.0)
+                    with trace.span("layer.step"):
+                        carry, y, e, l, ev = ticks[i](carries[i], xv,
+                                                      ts_k[i], bank, pk, ly)
                 new_carries.append(carry)
                 new_ys.append(y)
                 if slot_records:       # per-tenant attribution: per slot
@@ -1405,10 +1454,13 @@ class NetworkEngine:
         clock = self.circs[0].clock_ns
         pack, layout = pack_layout
         t_steps, b = x.shape[0], x.shape[1]
-        changed, xin = self._chunk_inputs(x, live)
-        new_state, o_seq, e_seq, l_seq = megakernel_chunk(
-            pack, layer.circuit, carries[0], changed, xin, (ks + 1.0) * clock,
-            clock, spiking=True, vdd=amp, layout=layout)
+        with trace.span("layer.drive"):
+            changed, xin = self._chunk_inputs(x, live)
+        with trace.span("layer.step"):
+            new_state, o_seq, e_seq, l_seq = megakernel_chunk(
+                pack, layer.circuit, carries[0], changed, xin,
+                (ks + 1.0) * clock, clock, spiking=True, vdd=amp,
+                layout=layout)
         spikes = torch.where(changed, o_seq, 0.0
                              ).reshape(t_steps, b, layer.n_out)
         return self._chunk_records(new_state, spikes, e_seq, l_seq, changed,
@@ -1421,9 +1473,12 @@ class NetworkEngine:
         layer = self.spec.layers[0]
         amp = self.spec.spike_amp
         t_steps, b = x.shape[0], x.shape[1]
-        changed, xin = self._chunk_inputs(x)
+        with trace.span("layer.drive"):
+            changed, xin = self._chunk_inputs(x)
         state, params = carries[0]
-        new_state, obs = ops.lif_chunk(state, xin, params, circ=self.circs[0])
+        with trace.span("layer.step"):
+            new_state, obs = ops.lif_chunk(state, xin, params,
+                                           circ=self.circs[0])
         spiked = obs["spiked"]
         spikes = torch.where(spiked, amp, 0.0).reshape(t_steps, b,
                                                        layer.n_out)
@@ -1440,17 +1495,22 @@ class NetworkEngine:
         kernel instead of the per-tick loop. ``live`` (T, B) bool is the
         slot programs' mask (with a ``slot_records`` cascade): the records
         are then ``(T, L, B)``."""
-        packs = self._mk_pack(banks)
+        with trace.span("engine.pack"):
+            packs = self._mk_pack(banks)
         if "lif" in packs and self._chunk_eligible(packs["lif"]):
-            return self._chunk_fast_path(packs["lif"], carries, x, ks, live)
+            with trace.span("chunk"):
+                return self._chunk_fast_path(packs["lif"], carries, x, ks,
+                                             live)
         if self._golden_chunk_eligible():
-            return self._golden_chunk(carries, x)
+            with trace.span("chunk"):
+                return self._golden_chunk(carries, x)
         ts = [(ks + 1.0) * c.clock_ns for c in self.circs]
         outs, hidden, es, ls, evs = [], [], [], [], []
         for k in range(x.shape[0]):
-            carries, prev_ys, e, l, ev = cascade(
-                banks, carries, prev_ys, x[k], [t[k] for t in ts], packs,
-                None if live is None else live[k])
+            with trace.span("tick"):
+                carries, prev_ys, e, l, ev = cascade(
+                    banks, carries, prev_ys, x[k], [t[k] for t in ts], packs,
+                    None if live is None else live[k])
             outs.append(prev_ys[-1])
             if self.record_hidden:
                 hidden.append(prev_ys)
@@ -1472,9 +1532,10 @@ class NetworkEngine:
 
     def _flush_all(self, carries, t_ends, banks):
         kinds = self.spec.circuits
-        return torch.stack([
-            self._flush(carries[i], i, t_ends[i], banks.get(kinds[i]))
-            for i in range(self.spec.n_layers)])
+        with trace.span("engine.flush"):
+            return torch.stack([
+                self._flush(carries[i], i, t_ends[i], banks.get(kinds[i]))
+                for i in range(self.spec.n_layers)])
 
     def _build_sim(self, b: int, t_steps: int):
         """The runner for batch ``b`` and ``t_steps`` ticks: ``runner(x,
@@ -1657,10 +1718,11 @@ class NetworkEngine:
                 e.device.type == "cuda" for e in self._replicas.values()):
             return 0.0
         from repro_torch.kernels import _build
-        t0, loaded = time.time(), _build.n_loaded()
+        t0, loaded = time.perf_counter(), _build.n_loaded()
         for name in self._route_libraries(banks):
             _build.library(name)
-        return time.time() - t0 if _build.n_loaded() != loaded else 0.0
+        return (time.perf_counter() - t0 if _build.n_loaded() != loaded
+                else 0.0)
 
     def _check_mesh_batch(self, b: int):
         if self.mesh is not None and b % self.mesh.size:
@@ -1710,10 +1772,12 @@ class NetworkEngine:
         return (kind, self.fused, ops.fused_kernel_enabled(self.fused_kernel),
                 b, t_steps, structure_key(banks))
 
-    def _compiled(self, key, build):
+    def _compiled(self, key, build, span_id=None):
         """``(runner, build_seconds)``; builds once per key (0.0 on a hit).
         Tick-loop runners (``mono``, ``stream``, ``slot``) count toward
-        :attr:`compile_count`; the flush and join helpers do not."""
+        :attr:`compile_count`; the flush and join helpers do not.
+        ``span_id`` is the id of the build's trace span (a stream's chunk
+        index; a dispatch's spans pass theirs down)."""
         entry = self._runners.get(key)
         if entry is not None:
             return entry, 0.0
@@ -1721,12 +1785,14 @@ class NetworkEngine:
             entry = self._runners.get(key)
             if entry is not None:
                 return entry, 0.0
-            t0 = time.time()
-            runner = build()
-            self._runners[key] = runner
-            if key[0] in ("mono", "stream", "slot"):
-                self.compile_count += 1
-        return runner, time.time() - t0
+            with trace.span("engine.build", span_id):
+                t0 = time.perf_counter()
+                runner = build()
+                self._runners[key] = runner
+                if key[0] in ("mono", "stream", "slot"):
+                    self.compile_count += 1
+            trace.count("runner.builds")
+        return runner, time.perf_counter() - t0
 
 
 def _carry_leaves(carries) -> list:
