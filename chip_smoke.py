@@ -6,7 +6,7 @@
 Phases, one output line each (JSON where it helps):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at a ragged N, and time both on the device
@@ -43,7 +43,11 @@ Phases, one output line each (JSON where it helps):
    D = 8, counted apart; and at the other zoo configs' serve prefills
    (deepseek-moe-16b q 128 x 512 x 128, pixtral-12b 256 x 1,536 x 128 G =
    4, whisper-base 64 x 512 x 64), each timed beside the plain version
-   and SDPA; then the program audit (``audit`` lines): every entrypoint of
+   and SDPA; ``gbdt_walk`` on the unpackable artifacts' M_ES heads at
+   1.28 M x 10 and 312,000 x 68 rows (and ragged N) against the plain
+   version, timed beside it, and on integer-leaf forests bit for bit in
+   its shared-memory and global-table instances; then the program audit
+   (``audit`` lines): every entrypoint of
    ``repro_torch.analysis.jaxpr_audit`` built on the card and run at 1, 2
    and 3 ticks under sync debug mode "error", free of findings, its
    launches per tick and fixed equal to the frozen ``kernels`` row of
@@ -280,6 +284,8 @@ N_GENERIC_XBAR = (7699, N_XBAR_RAGGED)
 T_GENERIC = 8           # ticks of the generic lif_chunk case
 QUOT_PAIRS = 1 << 22    # operand pairs per random part of the quot check
 N_WIDE = 4099           # rows of the widest-heads network_tick cases
+N_GBDT = 1_280_000      # the GBDT cell's layer-1 rows (10,000 x 128)
+N_GBDT_RAGGED = 100_003
 XBAR_IMAGES = 200
 MIXED_IMAGES = 64
 MIXED_TICKS = 30
@@ -1284,6 +1290,105 @@ def check_mlp_heads(torch, np, dev, surs, times):
     return {**lif, **heads}, single
 
 
+def gbdt_rows(np, a, n, f, seed):
+    """(n, f) rows around a GBDT head's own thresholds: each feature drawn
+    from the finite thresholds that split on it (ties), a third of them
+    nudged off, and one NaN feature a hundred rows."""
+    rng = np.random.default_rng(seed)
+    feat = a["feat"].cpu().numpy().ravel()
+    thr = a["thr"].cpu().numpy().ravel()
+    x = rng.normal(0, 1, (n, f)).astype(np.float32)
+    for j in range(f):
+        cand = thr[(feat == j) & np.isfinite(thr)]
+        if cand.size:
+            col = rng.choice(cand, n)
+            nudge = rng.random(n) < 1 / 3
+            col[nudge] = col[nudge] * np.float32(1 + 1e-3)
+            x[:, j] = col
+    x[rng.random(n) < 0.01, rng.integers(0, f)] = np.nan
+    return x
+
+
+def int_forest(torch, np, dev, trees, depth, f, seed):
+    """A random complete forest with integer leaves and base (sums exact
+    in any order), thresholds of small integers with a tenth +inf."""
+    rng = np.random.default_rng(seed)
+    nodes = (1 << depth) - 1
+    thr = rng.integers(-2, 3, (trees, nodes)).astype(np.float32)
+    thr[rng.random((trees, nodes)) < 0.1] = np.inf
+    arrays = (rng.integers(0, f, (trees, nodes)).astype(np.int32), thr,
+              rng.integers(-1000, 1000, (trees, nodes + 1)).astype(
+                  np.float32), np.float32(7))
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def check_gbdt_walk(torch, np, dev, surs):
+    """``gbdt_walk``: the M_ES heads of ``lif_unpackable`` at the GBDT
+    cell's layer-1 rows (1.28 M, F = 10; the line's entry) and of
+    ``crossbar_unpackable`` at crossbar MNIST's (312,000, F = 68), each
+    at a ragged N too, against the plain version on the card (rtol 1e-5),
+    timed beside the plain version and the bound; integer-leaf forests
+    bit for bit (every leaf the plain version's) in the shared-memory and
+    the global-table instance; one launch a call."""
+    from repro_torch.kernels import gbdt_walk, ops
+    out = {"max_abs_err": 0.0, "shapes": {}, "int_leaves": {}}
+    before = ops.LAUNCHES["gbdt_walk"]
+    calls = 0
+    for name, f, ns in (("lif_unpackable", 10, (N_GBDT, N_GBDT_RAGGED)),
+                        ("crossbar_unpackable", 68,
+                         (N_XBAR, N_XBAR_RAGGED))):
+        a = surs[name].params["M_ES"]
+        tables = gbdt_walk.forest(a["feat"], a["thr"], a["leaf"], a["base"],
+                                  f)
+        trees, depth = a["feat"].shape[0], gbdt_walk.depth_of(a["feat"])
+        for n in ns:
+            x = torch.as_tensor(gbdt_rows(np, a, n, f, n), device=dev)
+            tag = f"gbdt_walk {name} M_ES n={n}"
+            got = ops.gbdt_walk(x, *tables)
+            want = gbdt_walk.gbdt_plain(x, a["feat"], a["thr"], a["leaf"],
+                                        a["base"])
+            torch.cuda.synchronize()
+            calls += 1
+            res = {"max_abs_err": compare(got, want, tag),
+                   "shared": gbdt_walk.shared(f, trees, depth)}
+            if n in (N_GBDT, N_XBAR):
+                res["ms"] = time_ms(lambda: ops.gbdt_walk(x, *tables), torch)
+                res["plain_ms"] = time_ms(lambda: gbdt_walk.gbdt_plain(
+                    x, a["feat"], a["thr"], a["leaf"], a["base"]), torch)
+                res["bound_ms"], res["bound_by"] = bound(
+                    gbdt_walk.work(n, f, trees, depth))
+                calls += 3 + REPS
+            out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+            out["shapes"][f"x ({n}, {f}), {trees} trees of depth {depth}"] \
+                = res
+    for trees, depth, f, n in ((44, 8, 10, N_GBDT_RAGGED),
+                               (44, 8, 300, 30_011),
+                               (300, 8, 10, N_GBDT_RAGGED),
+                               (9, 3, 7, 4_099)):
+        feat, thr, leaf, base = int_forest(torch, np, dev, trees, depth, f,
+                                           trees + f)
+        x = torch.as_tensor(gbdt_rows(np, {"feat": feat, "thr": thr}, n, f,
+                                      n), device=dev)
+        got = ops.gbdt_walk(x, *gbdt_walk.forest(feat, thr, leaf, base, f))
+        want = gbdt_walk.gbdt_plain(x, feat, thr, leaf, base)
+        calls += 1
+        tag = f"T={trees} D={depth} F={f} n={n}"
+        if not torch.equal(got, want):
+            fail(f"gbdt_walk {tag}: integer leaves differ from the plain "
+                 "version's (a row reached another leaf)")
+        out["int_leaves"][tag] = {"shared": gbdt_walk.shared(f, trees,
+                                                             depth),
+                                  "equal": True}
+    main = out["shapes"][f"x ({N_GBDT}, 10), 44 trees of depth 8"]
+    out.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")})
+    out["kernel_check_launches"] = ops.LAUNCHES["gbdt_walk"] - before
+    if out["kernel_check_launches"] != calls:
+        fail(f"gbdt_walk: {out['kernel_check_launches']} launches for "
+             f"{calls} calls")
+    return out
+
+
 def mean_linear_surrogate(np, dev):
     """A packable LIF surrogate of mean and linear heads with random
     weights from a seed, so the kernel's native-cost mean and linear
@@ -2173,7 +2278,10 @@ def snn_runs(torch, np, dev, surs, profile):
             ("lasana", dict(surrogates=surs["lif"]),
              {"network_tick": 2 * T_STEPS}),
             ("lasana_unpackable", dict(surrogates=surs["lif_unpackable"]),
-             {"mlp_surrogate_heads": (">=", T_STEPS)}))
+             # M_ES a GBDT: the idle and the active walk a layer a tick,
+             # and one a layer for the end-of-run flush
+             {"mlp_surrogate_heads": (">=", T_STEPS),
+              "gbdt_walk": 4 * T_STEPS + 2}))
     for name, kw, want in runs:
         run, counts, res = drive(torch, spec, x, kw, profile)
         check_launches(f"snn {name}", counts, want)
@@ -2253,7 +2361,8 @@ def xbar_runs(torch, np, dev, surs, profile):
             ("lasana", dict(surrogates=surs["crossbar"]),
              {"network_tick": n_layers}),
             ("lasana_unpackable", dict(surrogates=surs["crossbar_unpackable"]),
-             {"mlp_surrogate_heads": 2 * n_layers}))
+             {"mlp_surrogate_heads": 2 * n_layers,
+              "gbdt_walk": 2 * n_layers}))
     for name, kw, want in runs:
         run, counts, res = drive(torch, spec, x, kw, profile)
         check_launches(f"xbar {name}", counts, want)
@@ -5918,6 +6027,7 @@ def main() -> int:
         "lif_chunk": check_lif_chunk(torch, np, dev, times),
         "mlp_surrogate": single,
         "flash_attention": check_flash_attention(torch, np, dev),
+        "gbdt_walk": check_gbdt_walk(torch, np, dev, surs),
     }
     if parent:
         checks["lif_step"]["parent_ms_by_shape"] = parent["lif_step"]
@@ -6010,6 +6120,8 @@ def main() -> int:
                           "src/repro/kernels/mlp_surrogate.py:36"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                             "src/repro/kernels/flash_attn.py:53"),
+        "gbdt_walk": ("src/repro_torch/kernels/csrc/gbdt_walk.cu",
+                      "none: replaces the eager _predict_gbdt"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -275,15 +275,18 @@ def metrics_of(runs) -> ProgramMetrics:
 # --- synthetic surrogates -----------------------------------------------------
 
 def synthetic_surrogate(circuit_name: str, *, family: str = "mlp",
-                        hidden: tuple = (8, 4), device=None):
+                        hidden: tuple = (8, 4), gbdt: tuple = (),
+                        device=None):
     """A structurally-production :class:`Surrogate` with zero weights.
 
     Carries all five Algorithm-1 predictors as ``family`` heads sized to
     the circuit's augmented feature widths (so the megakernel pack
     eligibility, head stacking and runner cache keys behave exactly as
-    for a trained artifact), without golden simulation or fitting, on
-    ``device`` (the card unless the caller asks for another). The
-    reference's ``jaxpr_audit.py:153-201``."""
+    for a trained artifact), the predictors named in ``gbdt`` as GBDT
+    heads of ``lif_unpackable``'s shape (44 trees of depth 8), without
+    golden simulation or fitting, on ``device`` (the card unless the
+    caller asks for another). The reference's
+    ``jaxpr_audit.py:153-201``."""
     from repro_torch.core.circuits import augment_features, get_circuit
     from repro_torch.core.surrogate import (FORMAT_VERSION, Manifest,
                                             Surrogate, _feature_names)
@@ -298,7 +301,11 @@ def synthetic_surrogate(circuit_name: str, *, family: str = "mlp",
     z = functools.partial(torch.zeros, dtype=torch.float32, device=device)
     one = functools.partial(torch.ones, dtype=torch.float32, device=device)
 
-    def head(f):
+    def head(f, family):
+        if family == "gbdt":
+            return {"feat": torch.zeros((44, 255), dtype=torch.int32,
+                                        device=device),
+                    "thr": z((44, 255)), "leaf": z((44, 256)), "base": z(())}
         if family == "linear":
             return {"mu": z((f,)), "sd": one((f,)), "w": z((f + 1,))}
         if family == "mlp":
@@ -308,11 +315,13 @@ def synthetic_surrogate(circuit_name: str, *, family: str = "mlp",
                     "b2": z((1,))}
         raise ValueError(f"unsupported synthetic family: {family!r}")
 
-    params = {p: head(f_tr if p in transition else f_aug)
-              for p in predictors}
+    families = tuple((p, "gbdt" if p in gbdt else family)
+                     for p in predictors)
+    params = {p: head(f_tr if p in transition else f_aug, fam)
+              for p, fam in families}
     manifest = Manifest(
         circuit=circuit_name, format_version=FORMAT_VERSION,
-        families=tuple((p, family) for p in predictors),
+        families=families,
         scales=tuple((p, 1.0) for p in predictors),
         features=_feature_names(circuit_name))
     return Surrogate(manifest=manifest, params=params, fit_info=None)
@@ -356,7 +365,7 @@ class AuditContext:
 
     lif: object                        # synthetic lif Surrogate
     xbar: object                       # synthetic crossbar Surrogate
-    wide: object                       # lif heads MLP(200, 50): unpackable
+    wide: object                       # lif MLP(200, 50), M_ES a GBDT
     spec: object                       # tiny 2-layer LIF NetworkSpec
     spec1: object                      # its first layer alone
     device: torch.device
@@ -375,13 +384,15 @@ def build_context(device=None) -> AuditContext:
     return AuditContext(
         lif=synthetic_surrogate("lif", device=device),
         xbar=synthetic_surrogate("crossbar", device=device),
-        wide=synthetic_surrogate("lif", hidden=(200, 50), device=device),
+        wide=synthetic_surrogate("lif", hidden=(200, 50), gbdt=("M_ES",),
+                                 device=device),
         spec=snn_spec([w1, w2], params), spec1=snn_spec([w1], params[:1]),
         device=device)
 
 
 NO_KERNEL = {"network_tick": (0, 0), "network_tick_chunk": (0, 0),
-             "mlp_surrogate_heads": (0, 0), "mlp_surrogate": (0, 0)}
+             "mlp_surrogate_heads": (0, 0), "mlp_surrogate": (0, 0),
+             "gbdt_walk": (0, 0)}
 
 
 def _tick_entry(ctx, n, sur, circuit_name, annotate=False, **kw):
@@ -631,9 +642,10 @@ def _entry_tick_xbar_kernel(ctx: AuditContext, n: int) -> TracedEntry:
 
 @register_entrypoint("tick_unpackable_kernel")
 def _entry_tick_unpackable_kernel(ctx: AuditContext, n: int) -> TracedEntry:
-    """Heads wider than ``network_tick`` takes (MLP(200, 50)): the stacked
-    tick, its MLP groups through at most 3 ``mlp_surrogate_heads``
-    launches a tick."""
+    """Heads ``network_tick`` does not take (MLP(200, 50), M_ES a GBDT,
+    as ``lif_unpackable``'s): the stacked tick, its MLP groups through
+    at most 3 ``mlp_surrogate_heads`` launches a tick, the idle and the
+    active M_ES through one ``gbdt_walk`` each."""
     fn, args = _tick_entry(ctx, n, ctx.wide, "lif", spiking=True,
                            fused=True, fused_kernel=True)
     return TracedEntry(fn=fn, args=args,
@@ -641,7 +653,8 @@ def _entry_tick_unpackable_kernel(ctx: AuditContext, n: int) -> TracedEntry:
                                      "megakernel_step": 0},
                        max_kernels={"mlp_surrogate_heads": 3},
                        exact_kernels={"network_tick": (0, 0),
-                                      "network_tick_chunk": (0, 0)})
+                                      "network_tick_chunk": (0, 0),
+                                      "gbdt_walk": (2, 0)})
 
 
 # --- auditing one entrypoint --------------------------------------------------

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.circuits import augment_features, get_circuit
-from repro_torch.kernels import ops
+from repro_torch.kernels import gbdt_walk, ops
 
 FORMAT_VERSION = 1
 
@@ -87,19 +87,19 @@ def _predict_table(a, x):
     return a["ty"][torch.argmin(d, dim=1)]
 
 
-def _predict_gbdt(a, x):
-    feat, thr, leaf = a["feat"].long(), a["thr"], a["leaf"]
-    max_depth = int(np.log2(feat.shape[1] + 1))        # nodes = 2^d - 1
-    n_t = feat.shape[0]
-    tree_ix = torch.arange(n_t, device=x.device)[None, :]
-    node = torch.zeros((x.shape[0], n_t), dtype=torch.long, device=x.device)
-    for _ in range(max_depth):
-        nf = feat[tree_ix, node]
-        th = thr[tree_ix, node]
-        xv = torch.gather(x, 1, nf)
-        node = 2 * node + 1 + (xv > th).long()
-    leaf_idx = node - (2 ** max_depth - 1)
-    return a["base"] + leaf[tree_ix, leaf_idx].sum(-1)
+def _predict_gbdt(a, x, fused_kernel, forests: dict):
+    """One ``gbdt_walk`` launch on the card (its plain version on the
+    CPU) on the head's tables as ``gbdt_walk.forest`` converts them,
+    cached in ``forests`` by row width; with the fused-kernel switch off,
+    the eager walk."""
+    if not ops.fused_kernel_enabled(fused_kernel):
+        return gbdt_walk.gbdt_plain(x, a["feat"], a["thr"], a["leaf"],
+                                    a["base"])
+    f = x.shape[1]
+    if f not in forests:
+        forests[f] = gbdt_walk.forest(a["feat"], a["thr"], a["leaf"],
+                                      a["base"], f)
+    return ops.gbdt_walk(x, *forests[f])
 
 
 def _predict_mlp(a, x):
@@ -116,8 +116,8 @@ FAMILY_PREDICT = {
     "mean": _predict_mean,
     "linear": _predict_linear,
     "table": _predict_table,
-    "gbdt": _predict_gbdt,
     "mlp": _predict_mlp,
+    # gbdt: _predict_gbdt, on tables Surrogate._head caches per head
 }
 
 
@@ -243,6 +243,8 @@ class Surrogate:
                                                      repr=False)
     _stacks: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False)
+    _forests: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False)
 
     @classmethod
     def from_bank(cls, bank) -> "Surrogate":
@@ -295,9 +297,17 @@ class Surrogate:
         ops.record_dispatch("predict")
         feats = _augment(self.manifest.circuit, torch.as_tensor(
             feats, dtype=torch.float32, device=self.device))
-        y = FAMILY_PREDICT[self.manifest.family_of(pname)](
-            self.params[pname], feats)
-        return ops.div(y, self.manifest.scale_of(pname))
+        return ops.div(self._head(pname, feats),
+                       self.manifest.scale_of(pname))
+
+    def _head(self, pname: str, x, fused_kernel=None):
+        """Head ``pname`` alone on augmented rows ``x``, in training
+        units; a GBDT walks on its tables converted at its first walk."""
+        fam = self.manifest.family_of(pname)
+        if fam == "gbdt":
+            return _predict_gbdt(self.params[pname], x, fused_kernel,
+                                 self._forests.setdefault(pname, {}))
+        return FAMILY_PREDICT[fam](self.params[pname], x)
 
     def _stacked(self, pnames: tuple) -> dict:
         """The (P, ...) stacks of same-shape heads ``pnames``, built once."""
@@ -369,7 +379,7 @@ class Surrogate:
             x = mats[v]
             if len(pnames) == 1 or fam not in FAMILY_PREDICT_STACKED:
                 for p in pnames:
-                    out[v][p] = ops.div(FAMILY_PREDICT[fam](self.params[p], x),
+                    out[v][p] = ops.div(self._head(p, x, fused_kernel),
                                         self.manifest.scale_of(p))
                 continue
             s = self._stacked(tuple(pnames))

@@ -22,8 +22,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("crossbar_step", "flash_attn", "lif_step", "mlp_heads",
-           "network_tick")
+SOURCES = ("crossbar_step", "flash_attn", "gbdt_walk", "lif_step",
+           "mlp_heads", "network_tick")
 
 # --fmad=false: a multiply and an add are never contracted into an FMA, so
 # each kernel rounds its separate fp32 operations in the order of its plain

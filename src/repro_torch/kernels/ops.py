@@ -40,8 +40,8 @@ import os
 import torch
 
 LAUNCHES = {"crossbar_target": 0, "flash_attention": 0,
-            "flash_attention_simt": 0, "lif_chunk": 0, "lif_step": 0,
-            "mlp_surrogate": 0, "mlp_surrogate_heads": 0,
+            "flash_attention_simt": 0, "gbdt_walk": 0, "lif_chunk": 0,
+            "lif_step": 0, "mlp_surrogate": 0, "mlp_surrogate_heads": 0,
             "network_tick": 0, "network_tick_chunk": 0}
 
 
@@ -319,6 +319,14 @@ def mlp_surrogate_heads(x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3):
     from repro_torch.kernels import mlp_surrogate
     return mlp_surrogate.mlp_surrogate_heads(
         x, x_mu, x_sd, y_mu, y_sd, w1, b1, w2, b2, w3, b3)
+
+
+@_kernel_entry
+def gbdt_walk(x, feat, thr, leaf, base):
+    """(N, F) rows through a GBDT head's T complete trees -> (N,):
+    ``base`` plus the leaf each tree sends the row to."""
+    from repro_torch.kernels import gbdt_walk
+    return gbdt_walk.gbdt_walk(x, feat, thr, leaf, base)
 
 
 @_kernel_entry

@@ -31,3 +31,9 @@ def lif_bank_mlp(lif_dataset):
     """Quality bank for accuracy-threshold tests."""
     from repro.core.predictors import PredictorBank
     return PredictorBank("lif", families=("linear", "mlp")).fit(lif_dataset)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skipped without one); on the "
+        "card `python -m pytest -q -m cuda tests/test_torch_gbdt_walk.py`")

@@ -451,14 +451,17 @@ def test_dispatches_equal_the_reference_budget(audited, name):
     ("tick_xbar_kernel", {"network_tick": 1}, {}),
     ("network_mono_kernel", {"network_tick": 2}, {}),
     ("network_stream_chunk_kernel", {}, {"network_tick_chunk": 1}),
-    ("tick_unpackable_kernel", {"mlp_surrogate_heads": 3}, {}),
+    ("tick_unpackable_kernel", {"gbdt_walk": 2, "mlp_surrogate_heads": 2},
+     {}),
     ("serve_slot_step_behavioral", {}, {}),
     ("tick_percall", {}, {}),
 ])
 def test_kernel_routes_meet_their_ceilings(audited, name, per_tick, fixed):
     """The kernel routes on the CPU: one ``network_tick`` per packed layer
     a tick, one ``network_tick_chunk`` a chunk, at most 3 head kernels a
-    stacked tick, none on the behavioral or per-call tick."""
+    stacked tick and one ``gbdt_walk`` for each GBDT head a variant reads
+    (the idle and the active M_ES), none on the behavioral or per-call
+    tick."""
     kernels = audited[name][0].kernels
     assert kernels == {"per_tick": per_tick, "fixed": fixed}
     assert kernels == jaxpr_audit.load_budgets()[name]["kernels"]
